@@ -1,0 +1,433 @@
+"""The LS-SVM estimator: learn / predict / accuracy / write_model.
+
+Port of the JAX package's ``models/base.py`` for dense data on one device:
+the algorithm core ``plssvm::csvm<T>`` (``src/plssvm/csvm.cpp:40-411``) with
+the device orchestration of ``gpu_csvm`` (``gpu_csvm.cpp:47-412``).  The
+learn step is eager PyTorch on the ``CSVM``'s ``torch.device``: q-vector,
+QA_cost, the A·v operator and a host-driven CG loop.
+
+What this package does not carry yet raises a :class:`PLSSVMError` that
+names the missing piece — the sparse learns, the CG checkpoints and
+per-iteration output, and more than one device — instead of running
+something else in its place.
+
+Padding: the CG system of size ``dept = n - 1`` is zero-padded to
+``round_up(dept, max(PAD_SIZE, ROW_BLOCK_SIZE))``, the JAX package's
+length, so padded CG vectors compare one to one.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ..constants import PAD_SIZE, ROW_BLOCK_SIZE
+from ..exceptions import PLSSVMError
+from ..io.libsvm import ParsedData
+from ..io.model import write_model_file
+from ..ops.gram_matvec import gram_matvec, gram_matvec_plain, row_sqnorms
+from ..ops.kernel_functions import gram_block, kernel_scalar
+from ..ops.matvec import build_operator, choose_mode, jacobi_minv
+from ..params import Parameter
+from ..solver.cg import cg_solve
+from ..types import BackendType, KernelType, TargetPlatform
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if dtype in _TORCH_DTYPES.values():
+        return dtype
+    try:
+        return _TORCH_DTYPES[np.dtype(dtype)]
+    except (KeyError, TypeError):
+        raise PLSSVMError(f"Unsupported real type '{dtype}' (float32 or float64)!") from None
+
+
+class CSVM:
+    """Least-Squares SVM solved with Conjugate Gradients.
+
+    Mirrors the public API of ``plssvm::csvm<T>`` (``csvm.hpp:106-179``):
+    ``learn``, ``predict``, ``predict_label``, ``accuracy``, ``write_model``.
+    """
+
+    def __init__(self, params: Parameter) -> None:
+        # ctor validation (csvm.cpp:41-57)
+        if params.data is None:
+            raise PLSSVMError("No data points provided!")
+        if params.data.num_points == 0:
+            raise PLSSVMError("Data set is empty!")
+        if params.data.num_features == 0:
+            raise PLSSVMError("No features provided for the data points!")
+        if params.alphas is not None and len(params.alphas) != params.data.num_points:
+            raise PLSSVMError(
+                f"Number of weights ({len(params.alphas)}) must match the number of "
+                f"data points ({params.data.num_points})!"
+            )
+
+        self.params = params
+        self.kernel = params.kernel
+        self.degree = int(params.degree)
+        self.gamma = float(params.gamma)
+        self.coef0 = float(params.coef0)
+        self.cost = float(params.cost)
+        self.epsilon = float(params.epsilon)
+        self.print_info = bool(params.print_info)
+        self.dtype = _torch_dtype(params.dtype)
+        self._np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
+        self._check_one_device()
+        self.device = self._resolve_device(params.target)
+        self.backend = self._resolve_backend(params.backend)
+
+        self.data = params.data  # ParsedData (dense + CSR)
+        self.values = params.values  # labels (+1/-1) or None
+        self.alphas = None if params.alphas is None else np.asarray(params.alphas, np.float64)
+        self.bias_ = -float(params.rho)  # csvm.cpp:42
+        self.QA_cost_ = 0.0
+        self.w_: np.ndarray | None = None
+        self.last_cg_info: dict = {}
+
+        self.num_data_points = self.data.num_points
+        self.num_features = self.data.num_features
+
+        # cached device copy of the support vectors and their row norms
+        self._X_all_dev = None
+        self._X_all_sq = None
+
+    # ------------------------------------------------------- device / backend
+
+    def _check_one_device(self) -> None:
+        """``Parameter.devices`` / ``PLSSVM_DEVICES`` above one would ask for
+        the multi-device learns, which are not ported."""
+        try:
+            if self.params.devices is not None:
+                n = int(self.params.devices)
+            else:
+                env = os.environ.get("PLSSVM_DEVICES", "")
+                n = int(env) if env else 1
+        except (TypeError, ValueError) as exc:
+            raise PLSSVMError(
+                f"Invalid device count (Parameter.devices / PLSSVM_DEVICES): "
+                f"{exc}"
+            ) from None
+        if n > 1:
+            raise PLSSVMError(
+                f"{n} devices requested: the multi-device learns (parallel/*) "
+                "are not ported to the PyTorch package yet; use one device"
+            )
+
+    @staticmethod
+    def _resolve_device(target: TargetPlatform) -> torch.device:
+        if target == TargetPlatform.cpu:
+            return torch.device("cpu")
+        if torch.cuda.is_available():
+            return torch.device("cuda", torch.cuda.current_device())
+        if target == TargetPlatform.gpu_nvidia:
+            raise PLSSVMError(
+                "Target platform 'gpu_nvidia' requested, but no CUDA device is visible!")
+        return torch.device("cpu")
+
+    def _resolve_backend(self, backend: BackendType) -> BackendType:
+        on_gpu = self.device.type == "cuda"
+        if backend == BackendType.automatic:
+            return BackendType.cuda if on_gpu else BackendType.torch
+        if backend == BackendType.cuda and not on_gpu:
+            raise PLSSVMError(
+                "Backend 'cuda' requested, but the target device is the CPU "
+                f"({'no CUDA device is visible' if not torch.cuda.is_available() else 'target platform cpu'})!")
+        return backend
+
+    def device_description(self) -> str:
+        """Resolved device and backend, as the CLIs print them."""
+        name = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
+                else "CPU")
+        return f"device: {self.device} ({name}), backend: {self.backend}"
+
+    # ------------------------------------------------------------------ learn
+
+    def _use_sparse(self) -> bool:
+        """Where the JAX package keeps the CSR representation and takes a
+        sparse path (``base.py:327-331``)."""
+        return self.data.density <= float(self.params.sparse_threshold)
+
+    def _require_dense(self, what: str) -> None:
+        if self._use_sparse():
+            raise PLSSVMError(
+                f"{what}: the data's density {self.data.density:.4g} is at or below "
+                f"sparse_threshold {float(self.params.sparse_threshold)}, which "
+                "selects the sparse path (ops/sparse.py, models/sparse_learn.py); "
+                "it is not ported to the PyTorch package yet. Set "
+                "sparse_threshold=0 (--sparse_threshold 0) for the dense path."
+            )
+
+    def learn(self) -> None:
+        """Train: assemble the reduced system and solve with CG
+        (``csvm.cpp:207-267``)."""
+        if self.values is None:
+            raise PLSSVMError(
+                "No labels given for training! Maybe the data is only usable for prediction?"
+            )
+        if self.num_data_points != len(self.values):
+            raise PLSSVMError(
+                f"Number of labels ({len(self.values)}) must match the number of "
+                f"data points ({self.num_data_points})!"
+            )
+
+        y = np.asarray(self.values, np.float64)
+        n, f = self.data.csr.shape
+        dept = n - 1
+
+        if dept == 0:
+            # degenerate single-point system: alpha = [0], bias = y[0]
+            self.alphas = np.zeros(1)
+            self.bias_ = float(y[0])
+            self.w_ = None
+            return
+
+        self._require_dense("learn")
+        if self.params.checkpoint_path is not None or self.params.verbose_cg:
+            raise PLSSVMError(
+                "--checkpoint/--verbose_cg need the chunked CG loop "
+                "(solver/checkpoint.py, CSVM._drive_chunked_cg), which is not "
+                "ported to the PyTorch package yet"
+            )
+
+        start = time.perf_counter()
+        imax = self.params.max_iter if self.params.max_iter is not None else f
+        D = _round_up(dept, max(PAD_SIZE, ROW_BLOCK_SIZE))
+        b_pad, mask = self._padded_vectors(D, dept, y)
+        mode, (x, s, t, QA_cost, iters, delta, delta0) = self._learn_dense(
+            D, dept, f, b_pad, mask, imax)
+        x = x.cpu().numpy().astype(np.float64)[:dept]
+        s_np = float(s)
+        self.QA_cost_ = float(QA_cost)
+
+        # bias = y_last + QA_cost * sum(x) - q.x ; alpha_last = -sum(x)
+        # (csvm.cpp:257-258)
+        self.bias_ = float(y[-1]) + self.QA_cost_ * s_np - float(t)
+        self.alphas = np.concatenate([x, [-s_np]])
+        self.w_ = None
+        self.last_cg_info = {
+            "iterations": int(iters),
+            "delta": float(delta),
+            "delta0": float(delta0),
+            "mode": mode,
+            "dept": dept,
+            "padded": D,
+            # the JAX package's keys for its adaptive two-tier CG, which is
+            # not ported: every iteration runs on the one (exact f32) tier
+            "fast_iterations": int(iters),
+            "escalated": False,
+        }
+
+        if self.print_info:
+            elapsed = (time.perf_counter() - start) * 1000.0
+            print(
+                f"Finished after {int(iters)} iterations with a residuum of "
+                f"{float(delta)} (target: {self.epsilon**2 * float(delta0)})."
+            )
+            print(f"Solved minimization problem (r = b - Ax) using CG in {elapsed:.0f}ms.")
+
+    def _padded_vectors(self, D, dept, y):
+        b_pad = np.zeros(D, dtype=self._np_dtype)
+        b_pad[:dept] = y[:dept] - y[-1]  # b = y[:-1] - y[-1] (csvm.cpp:236-240)
+        mask = np.zeros(D, dtype=self._np_dtype)
+        mask[:dept] = 1.0
+        return b_pad, mask
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=self._np_dtype)).to(self.device)
+
+    def _learn_dense(self, D, dept, f, b_pad, mask, imax):
+        """The body of the JAX package's ``_learn_jit`` (``base.py:44-92``)
+        as eager torch: q-vector, QA_cost, operator, CG."""
+        X = self.data.dense
+        X_pad = np.zeros((D, f), dtype=self._np_dtype)
+        X_pad[:dept] = X[:dept]
+        mode = choose_mode(self.kernel, dept, self.dtype, num_features=f,
+                           backend=self.backend)
+        Xd, x_last = self._to_device(X_pad), self._to_device(X[-1])
+        b, m = self._to_device(b_pad), self._to_device(mask)
+        kw = {"degree": self.degree, "gamma": self.gamma, "coef0": self.coef0}
+        cost_inv = (torch.tensor(1.0, dtype=self.dtype, device=self.device)
+                    / torch.tensor(self.cost, dtype=self.dtype, device=self.device))
+
+        # q_i = k(x_i, x_last)  (q_kernel.cu:16-49); padding rows masked out
+        q = gram_block(self.kernel, Xd, x_last[None, :], **kw)[:, 0] * m
+        # QA_cost = k(x_last, x_last) + 1/C  (csvm.cpp:243)
+        QA_cost = kernel_scalar(self.kernel, x_last, x_last, **kw) + cost_inv
+        minv = None
+        if self.params.precond == "jacobi":
+            minv = jacobi_minv(self.kernel, Xd, q, m, QA_cost, cost_inv,
+                               self.degree, self.gamma, self.coef0)
+        op = build_operator(self.kernel, Xd, q, m, QA_cost, cost_inv, mode=mode,
+                            backend=self.backend, **kw)
+        res = cg_solve(op.matvec, b, m, self.epsilon, imax, minv=minv)
+        s = torch.sum(res.x)
+        t = torch.dot(q, res.x)
+        return mode, (res.x, s, t, QA_cost, res.iterations, res.delta, res.delta0)
+
+    # ---------------------------------------------------------------- predict
+
+    def _X_all_device(self) -> torch.Tensor:
+        if self._X_all_dev is None:
+            self._X_all_dev = self._to_device(self.data.dense)
+            self._X_all_sq = row_sqnorms(self._X_all_dev)
+        return self._X_all_dev
+
+    def _check_points(self, points: np.ndarray) -> np.ndarray:
+        points = np.asarray(points, np.float64)
+        if points.ndim == 1:
+            points = points[None, :]
+        if points.shape[1] != self.num_features:
+            raise PLSSVMError(
+                f"Number of features per data point ({self.num_features}) must match "
+                f"the number of features per predict point ({points.shape[1]})!"
+            )
+        return points
+
+    def predict(self, points) -> np.ndarray:
+        """Raw decision values (``gpu_csvm.cpp:52-127``)."""
+        points = np.asarray(points, np.float64)
+        single = points.ndim == 1
+        if points.size == 0 and not single:
+            return np.zeros(0)
+        points = self._check_points(points)
+        if self.alphas is None:
+            raise PLSSVMError("No alphas provided for prediction!")
+        self._require_dense("predict")
+
+        alphas_dev = self._to_device(self.alphas)
+        if self.kernel == KernelType.linear:
+            # w fast path (gpu_csvm.cpp:83-91)
+            if self.w_ is None:
+                w = self._X_all_device().T @ alphas_dev
+                self.w_ = w.cpu().numpy().astype(np.float64)
+            out = points @ self.w_ + self.bias_
+        else:
+            P = self._to_device(points)
+            X_sv = self._X_all_device()
+            kw = {"Y": X_sv, "degree": self.degree, "gamma": self.gamma,
+                  "coef0": self.coef0, "sqy": self._X_all_sq}
+            if self.backend == BackendType.cuda and self.dtype == torch.float32:
+                Kv = gram_matvec(self.kernel, P, alphas_dev, **kw)  # K2
+            else:
+                # float64 and the torch backend stay on gram_block + matmul
+                # (base.py:1073-1086 keeps f64 off the kernel)
+                Kv = gram_matvec_plain(self.kernel, P, alphas_dev, **kw)
+            bias = torch.as_tensor(self.bias_, dtype=self.dtype, device=self.device)
+            out = (Kv + bias).cpu().numpy().astype(np.float64)
+        return out[0] if single else out
+
+    def predict_label(self, points) -> np.ndarray:
+        """sign(predict) (``csvm.cpp:343-366``; sign(0) = -1,
+        ``operators.hpp:174-177``)."""
+        values = self.predict(points)
+        return np.where(np.asarray(values) > 0.0, 1.0, -1.0)
+
+    def predict_parsed(self, parsed) -> np.ndarray:
+        """Predict a :class:`~..io.libsvm.ParsedData` batch (dense branch)."""
+        if self.alphas is None:
+            raise PLSSVMError("No alphas provided for prediction!")
+        if parsed.num_features != self.num_features:
+            raise PLSSVMError(
+                f"Number of features per data point ({self.num_features}) must match "
+                f"the number of features per predict point ({parsed.num_features})!"
+            )
+        self._require_dense("predict")
+        return self.predict(parsed.dense)
+
+    def predict_label_parsed(self, parsed) -> np.ndarray:
+        return np.where(self.predict_parsed(parsed) > 0.0, 1.0, -1.0)
+
+    # --------------------------------------------------------------- accuracy
+
+    def accuracy(self, points=None, labels=None) -> float:
+        """Fraction of sign-correct predictions (``csvm.cpp:270-318``)."""
+        if points is None:
+            if self.values is None:
+                raise PLSSVMError(
+                    "No labels given! Maybe the data is only usable for prediction?"
+                )
+            self._require_dense("accuracy")
+            points, labels = self.data.dense, self.values
+        if labels is None:
+            raise PLSSVMError(
+                "No labels given! Maybe the data is only usable for prediction?"
+            )
+        points = np.asarray(points, np.float64)
+        labels = np.atleast_1d(np.asarray(labels, np.float64))
+        if points.ndim == 1:
+            points = points[None, :]
+        if len(points) != len(labels):
+            raise PLSSVMError(
+                f"Number of data points ({len(points)}) must match number of "
+                f"correct labels ({len(labels)})!"
+            )
+        if len(points) == 0:
+            return 0.0
+        predictions = self.predict(points)
+        correct = int(np.sum(predictions * labels > 0.0))
+        return correct / len(points)
+
+    # ------------------------------------------------------------ write_model
+
+    def write_model(self, model_name: str) -> None:
+        """Write the LIBSVM model checkpoint (``csvm.cpp:60-204``)."""
+        if self.alphas is None:
+            raise PLSSVMError("No alphas given! Maybe a call to 'learn()' is missing?")
+        if self.values is None:
+            raise PLSSVMError("No labels given! Maybe the data is only usable for prediction?")
+        if self.num_data_points != len(self.values):
+            raise PLSSVMError(
+                f"Number of labels ({len(self.values)}) must match the number of "
+                f"data points ({self.num_data_points})!"
+            )
+
+        start = time.perf_counter()
+        header = write_model_file(
+            model_name,
+            kernel=self.kernel,
+            rho=-self.bias_,
+            data=self.data.csr if self._use_sparse() else self.data.dense,
+            labels=self.values,
+            alphas=self.alphas,
+            degree=self.degree,
+            gamma=self.gamma,
+            coef0=self.coef0,
+        )
+        if self.print_info:
+            print(f"\nOptimization finished\n{header}")
+            n_sv = int(np.sum(self.values > 0)) + int(np.sum(self.values < 0))
+            elapsed = (time.perf_counter() - start) * 1000.0
+            print(
+                f"Wrote model file ('{model_name}') with {n_sv} support vectors "
+                f"in {elapsed:.0f}ms."
+            )
+
+
+def csvm_from_state(state: dict, **params) -> CSVM:
+    """A :class:`CSVM` from the trained state of a JAX package ``CSVM``, as
+    numpy arrays and numbers: ``kernel``, ``degree``, ``gamma``, ``coef0``,
+    ``alphas``, ``bias_``, ``support_vectors`` (dense, one row per SV) and
+    ``values`` (labels).  This is all an LS-SVM holds, so both packages then
+    predict the same thing.  ``params`` go to :class:`Parameter` (``dtype``,
+    ``backend``, ``target``, ``print_info``, ...)."""
+    sv = np.asarray(state["support_vectors"], np.float64)
+    values = np.asarray(state["values"], np.float64)
+    p = Parameter(kernel=KernelType(int(state["kernel"])), degree=int(state["degree"]),
+                  gamma=float(state["gamma"]), coef0=float(state["coef0"]), **params)
+    p.data = ParsedData(csr=sp.csr_matrix(sv), values=values, _dense=sv)
+    p.values = values
+    p.alphas = np.asarray(state["alphas"], np.float64)
+    p.rho = -float(state["bias_"])
+    return CSVM(p)

@@ -1,0 +1,123 @@
+"""The CUDA kernels on the card: K1 and K2 against their plain PyTorch
+versions, determinism, launch counts, the wrappers' checks, and a small
+learn/predict on the ``cuda`` backend against the ``torch`` backend.
+
+Every test needs a CUDA device and skips without one.  This file imports
+neither JAX nor the JAX package, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from plssvm_sparse_fp22_tpu_torch.exceptions import PLSSVMError
+from plssvm_sparse_fp22_tpu_torch.io.libsvm import ParsedData
+from plssvm_sparse_fp22_tpu_torch.models import make_csvm
+from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+from plssvm_sparse_fp22_tpu_torch.params import Parameter
+from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType
+
+pytestmark = pytest.mark.cuda
+
+KERNELS = [KernelType.linear, KernelType.polynomial, KernelType.rbf]
+#: exact-f32 budget relative to the result's scale (test_solver.py:133-134):
+#: kernel and plain version differ only in summation order
+TOL = 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _hyper(f):
+    return {"degree": 3, "gamma": 1.0 / f, "coef0": 1.0}
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("shape", [(40, 5), (96, 33), (64, 7), (300, 130), (257, 256)])
+def test_k1_matches_plain(dev, kernel, shape):
+    D, f = shape
+    rng = np.random.default_rng(3)
+    X = torch.tensor(rng.normal(size=(D, f)), dtype=torch.float32, device=dev)
+    v = torch.tensor(rng.normal(size=D), dtype=torch.float32, device=dev)
+    got = gm.gram_matvec_sym(kernel, X, v, **_hyper(f))
+    want = gm.gram_matvec_sym_plain(kernel, X, v, **_hyper(f))
+    assert _rel_err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("shape", [(1, 256, 300), (40, 5, 129), (200, 33, 64)])
+def test_k2_matches_plain(dev, kernel, shape):
+    D, f, N = shape
+    rng = np.random.default_rng(4)
+    P = torch.tensor(rng.normal(size=(D, f)), dtype=torch.float32, device=dev)
+    Y = torch.tensor(rng.normal(size=(N, f)), dtype=torch.float32, device=dev)
+    a = torch.tensor(rng.normal(size=N), dtype=torch.float32, device=dev)
+    got = gm.gram_matvec(kernel, P, a, Y=Y, **_hyper(f))
+    want = gm.gram_matvec_plain(kernel, P, a, Y=Y, **_hyper(f))
+    assert _rel_err(got, want) <= TOL
+
+
+def test_kernels_are_deterministic_and_counted(dev):
+    rng = np.random.default_rng(5)
+    X = torch.tensor(rng.normal(size=(700, 40)), dtype=torch.float32, device=dev)
+    v = torch.tensor(rng.normal(size=700), dtype=torch.float32, device=dev)
+    gm.reset_launches()
+    a = gm.gram_matvec_sym(KernelType.rbf, X, v, gamma=0.05)
+    b = gm.gram_matvec_sym(KernelType.rbf, X, v, gamma=0.05)
+    c = gm.gram_matvec(KernelType.rbf, X, v, gamma=0.05)
+    d = gm.gram_matvec(KernelType.rbf, X, v, gamma=0.05)
+    assert torch.equal(a, b) and torch.equal(c, d)
+    assert gm.launches == {"gram_matvec_sym": 2, "gram_matvec_rect": 2}
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    X = torch.ones((8, 4), dtype=torch.float64, device=dev)
+    with pytest.raises(PLSSVMError, match="float32 only"):
+        gm.gram_matvec_sym(KernelType.rbf, X, torch.ones(8, dtype=torch.float64, device=dev))
+    X32 = torch.ones((4, 8), dtype=torch.float32, device=dev).T
+    with pytest.raises(PLSSVMError, match="contiguous"):
+        gm.gram_matvec(KernelType.linear, X32, torch.ones(4, device=dev),
+                       Y=torch.ones((4, 4), device=dev))
+
+
+@pytest.mark.parametrize("kernel", [KernelType.polynomial, KernelType.rbf])
+def test_learn_predict_cuda_backend_matches_torch_backend(dev, kernel):
+    rng = np.random.default_rng(6)
+    n, f = 300, 16
+    X = np.concatenate([rng.normal(1.0, 1.0, (n // 2, f)), rng.normal(-1.0, 1.0, (n // 2, f))])
+    y = np.concatenate([np.ones(n // 2), -np.ones(n // 2)])
+    out = {}
+    for backend in (BackendType.cuda, BackendType.torch):
+        p = Parameter(kernel=kernel, gamma=1.0 / f, coef0=1.0, epsilon=1e-6, max_iter=200,
+                      dtype=np.float32, backend=backend, print_info=False,
+                      sparse_threshold=0.0)
+        p.data = ParsedData(csr=sp.csr_matrix(X), values=y, _dense=X)
+        p.values = y
+        svm = make_csvm(p)
+        gm.reset_launches()
+        svm.learn()
+        dec = svm.predict(X)
+        out[backend] = (svm.last_cg_info, svm.alphas, dec, dict(gm.launches))
+    info_c, alphas_c, dec_c, launches_c = out[BackendType.cuda]
+    info_t, alphas_t, dec_t, launches_t = out[BackendType.torch]
+    # f <= 320: the cuda backend recomputes K (K1), the torch backend caches it
+    assert (info_c["mode"], info_t["mode"]) == ("implicit", "cached")
+    assert abs(info_c["iterations"] - info_t["iterations"]) <= 1
+    # float32 CG carries the two operators' rounding (~1e-6 relative) up by
+    # the system's condition number; at eps = 1e-6 that reaches ~3e-3 of
+    # the alphas' scale (measured on the H100), so the budget is 1e-2
+    np.testing.assert_allclose(alphas_c, alphas_t, rtol=0, atol=1e-2 * np.abs(alphas_t).max())
+    np.testing.assert_array_equal(np.sign(dec_c), np.sign(dec_t))
+    assert launches_c["gram_matvec_sym"] > 0 and launches_c["gram_matvec_rect"] == 1
+    assert launches_t == {"gram_matvec_sym": 0, "gram_matvec_rect": 0}

@@ -1,26 +1,44 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on an NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the repository around this script; it imports nothing of JAX.  Phases, one
 line or more each, any failure exits non-zero:
 
 1. device: ``nvidia-smi`` name and power limit, CUDA version;
-2. build: ``csrc/gram_matvec.cu`` through ``ops/_build.py``;
+2. build: every ``csrc/*.cu`` through ``ops/_build.py``;
 3. K1 (symmetric Gram matvec) against its plain PyTorch version, three
    kernels x four shapes, with ms per A·v for both;
 4. K2 (rectangular Gram matvec) against its plain version at predict
    shapes;
-5. the main path through the CLIs: ``plssvm-train-torch`` on a seeded
-   32768 x 256 two-blob LIBSVM file (rbf, float32, ``-b cuda``), then
-   ``plssvm-predict-torch`` on a 4096-point test file; the launch counters
-   must show K1 in training and K2 in prediction, accuracy >= 95 %; and a
-   small learn checked against a direct solve of the LS-SVM system;
-6. timing at rbf 4096 x 256 float32: CG iterations/s at a pinned count
+5. K3 (panel-pair Gram matvec) against its plain version at the sparse
+   main path's panel pairs, three kernels: cross panels 4096 x 4096 at
+   f = 4096, a ragged 3000 x 1700 pair at f = 1001, and the diagonal
+   panel (``same=True``, K1 on the panel);
+6. the dense main path through the CLIs: ``plssvm-train-torch`` on a
+   seeded 32768 x 256 two-blob LIBSVM file (rbf, float32, ``-b cuda``),
+   then ``plssvm-predict-torch`` on a 4096-point test file; the launch
+   counters must show K1 in training and K2 in prediction, accuracy
+   >= 95 %; and a small learn checked against a direct solve of the
+   LS-SVM system;
+7. timing at rbf 4096 x 256 float32: CG iterations/s at a pinned count
    (eps = 0, slope between two caps) with K1 and with the plain version,
-   and learn() time to eps = 1e-6.
+   and learn() time to eps = 1e-6;
+8. the sparse main path through the CLIs, at the JAX bench's sparse size
+   (16384 x 4096 at 1 % density, rbf, float32, default
+   ``--sparse_threshold``): the auto tier (``gram``), the ``dense`` tier
+   (K1 must launch) and the ``implicit`` panel tier over four 4096-row
+   panels (K3 must launch), each predicted by ``plssvm-predict-torch``;
+   the tiers' decision values must agree and the accuracy reach its bar;
+   the densify of one panel timed against the broadcast-compare form;
+9. the sparse-linear CLI at the same size, CG it/s of every sparse tier
+   at a pinned count, bitwise repeatability of two sparse learns, and one
+   ``gather``-arm learn at 8192 x 262144 and 0.01 % density;
+10. only with ``--profile``: ``torch.profiler`` over 12 CG iterations of
+    each sparse tier (4 of the gather arm), printing the device's idle
+    share of the CG wall time and the six costliest kernels.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Scratch files go to ``.smoke_work/``
@@ -47,11 +65,33 @@ SEED = 20261016
 #: kernel vs plain version: the two differ only in summation order, over up
 #: to 32768 terms per entry
 TOL = 1e-4
-SOURCE = "plssvm_sparse_fp22_tpu_torch/csrc/gram_matvec.cu"
+SOURCES = {
+    "gram_matvec_sym": "plssvm_sparse_fp22_tpu_torch/csrc/gram_matvec.cu",
+    "gram_matvec_rect": "plssvm_sparse_fp22_tpu_torch/csrc/gram_matvec.cu",
+    "gram_pair_contrib": "plssvm_sparse_fp22_tpu_torch/csrc/pair_contrib.cu",
+}
 REPLACES = {
     "gram_matvec_sym": "plssvm_sparse_fp22_tpu/ops/pallas_matvec.py:388",
     "gram_matvec_rect": "plssvm_sparse_fp22_tpu/ops/pallas_matvec.py:117",
+    "gram_pair_contrib": "plssvm_sparse_fp22_tpu/ops/pallas_matvec.py:716",
 }
+#: the sparse main path: the JAX bench's sparse size (bench.py:640-643) and
+#: its gamma = 256 / f (bench.py:191-199: at 1 / f the rbf matrix is nearly
+#: rank one)
+SPARSE_N, SPARSE_TEST, SPARSE_F, SPARSE_DENSITY = 16384, 4096, 4096, 0.01
+SPARSE_GAMMA = 256.0 / SPARSE_F
+#: the panel tier's K-cache budget: 4 panels of 4096 rows (bench.py:150-154
+#: keeps the decomposition honest the same way)
+PANEL_BUDGET = 512 * 1024**2
+#: the three sparse tiers solve one system to eps 1e-6 in float32, each
+#: stopping with its own residual after 7 iterations: on an H100 the dense
+#: and implicit tiers' decision values sat 4.0e-3 and 4.2e-3 of the largest
+#: one from the gram tier's, so the bound is 2e-2 and 99 % equal labels
+TIER_TOL = 2e-2
+TIER_LABELS = 0.99
+#: accuracy on the planted linear rule; a CPU rehearsal reached 72 % at 4096
+#: and 79 % at 8192 training rows (rbf and linear alike)
+SPARSE_ACCURACY = 75.0
 
 
 class SmokeError(RuntimeError):
@@ -78,6 +118,57 @@ def write_libsvm(path: str, X: np.ndarray, y: np.ndarray) -> None:
     fmt = "%d " + " ".join(f"{j}:%.9g" for j in range(X.shape[1]))
     with open(path, "w") as fh:
         np.savetxt(fh, np.column_stack([y, X]), fmt=fmt)
+
+
+def write_libsvm_sparse(path: str, csr, y: np.ndarray) -> None:
+    """Sparse LIBSVM file (0-based indices, 9 significant digits)."""
+    with open(path, "w") as fh:
+        for i in range(csr.shape[0]):
+            lo, hi = csr.indptr[i], csr.indptr[i + 1]
+            pairs = " ".join(f"{j}:{v:.9g}" for j, v in zip(csr.indices[lo:hi], csr.data[lo:hi]))
+            fh.write(f"{int(y[i])} {pairs}\n")
+
+
+def planted_sparse(n: int, f: int, density: float, rng: np.random.Generator):
+    """Uniform [0, 1) values at the given density (``bench.py:182-211``)
+    with labels from a planted linear rule: the sign of ``x . w - median``
+    for a random dense ``w``."""
+    import scipy.sparse as sp
+
+    csr = sp.random(n, f, density=density, format="csr", dtype=np.float32, random_state=rng)
+    score = csr @ rng.normal(size=f)
+    return csr, np.where(score > np.median(score), 1.0, -1.0)
+
+
+@contextlib.contextmanager
+def environ(**env):
+    """Set environment variables for the block (the tier knobs)."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def recording_csvms(cli_module):
+    """Keep the CSVMs a CLI module builds, to read their ``last_cg_info``."""
+    made, build = [], cli_module.make_csvm
+
+    def make(params):
+        made.append(build(params))
+        return made[-1]
+
+    cli_module.make_csvm = make
+    try:
+        yield made
+    finally:
+        cli_module.make_csvm = build
 
 
 def timed_ms(fn, reps: int) -> float:
@@ -203,6 +294,45 @@ def phase_k2(dev, rng):
     return record
 
 
+def phase_k3(dev, rng):
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.types import KernelType
+
+    print("[5 K3] pair_gram_contrib vs pair_gram_contrib_plain, float32", flush=True)
+    record = {}
+    for Di, Dj, f, same in [(4096, 4096, 4096, False), (3000, 1700, 1001, False),
+                            (4096, 4096, 4096, True)]:
+        Xi = torch.tensor(rng.normal(size=(Di, f)), dtype=torch.float32, device=dev)
+        Xj = Xi if same else torch.tensor(rng.normal(size=(Dj, f)), dtype=torch.float32,
+                                          device=dev)
+        vi = torch.tensor(rng.normal(size=Di), dtype=torch.float32, device=dev)
+        vj = vi if same else torch.tensor(rng.normal(size=Dj), dtype=torch.float32, device=dev)
+        sqi, sqj = gm.row_sqnorms(Xi), gm.row_sqnorms(Xj)
+        for kernel in KernelType:
+            kw = {"same": same, "sq_i": sqi, "sq_j": sqj, "degree": 3, "gamma": 1.0 / f,
+                  "coef0": 1.0}
+
+            def kern():
+                return gm.pair_gram_contrib(kernel, Xi, Xj, vi, vj, **kw)
+
+            def plain():
+                return gm.pair_gram_contrib_plain(kernel, Xi, Xj, vi, vj, **kw)
+
+            (oi, oj), (wi, wj) = kern(), plain()
+            torch.cuda.synchronize()
+            # both sides of a cross pair; with same=True their sum is the contract
+            got = oi + oj if same else torch.cat([oi, oj])
+            want = wi + wj if same else torch.cat([wi, wj])
+            ms, plain_ms = timed_ms(kern, 10), timed_ms(plain, 10)
+            label = f"{kernel.name} ({Di}, {Dj}, f {f}){' same' if same else ''}"
+            err = compare("K3", got, want, ms, plain_ms, label)
+            if (Di, same, kernel) == (4096, False, KernelType.rbf):
+                record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return record
+
+
 def phase_main_path(rng):
     from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
     from plssvm_sparse_fp22_tpu_torch.cli.train import main as train_main
@@ -215,7 +345,7 @@ def phase_main_path(rng):
     t0 = time.perf_counter()
     write_libsvm(train, X[:n_train], y[:n_train])
     write_libsvm(test, X[n_train:], y[n_train:])
-    print(f"[5 main path] wrote {n_train} x {f} train and {n_test} x {f} test files in "
+    print(f"[6 main path] wrote {n_train} x {f} train and {n_test} x {f} test files in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     gm.reset_launches()
@@ -233,7 +363,7 @@ def phase_main_path(rng):
     check(after_train["gram_matvec_sym"] == iters + 1 + iters // 50,
           f"K1 launches {after_train['gram_matvec_sym']} != one per CG iteration plus "
           f"the initial residual and the refreshes ({iters} iterations)")
-    print(f"[5 main path] train CLI: rc 0, {iters} CG iterations in implicit mode, "
+    print(f"[6 main path] train CLI: rc 0, {iters} CG iterations in implicit mode, "
           f"{train_s:.1f} s end to end, launches {after_train}", flush=True)
 
     t0 = time.perf_counter()
@@ -253,7 +383,7 @@ def phase_main_path(rng):
     check(acc >= 95.0, f"accuracy {acc}% < 95%")
     check(abs(np.mean(labels == y[n_train:]) * 100 - acc) < 1e-9,
           "accuracy line disagrees with the labels")
-    print(f"[5 main path] predict CLI: rc 0, accuracy {acc}%, {predict_s:.1f} s end to end, "
+    print(f"[6 main path] predict CLI: rc 0, accuracy {acc}%, {predict_s:.1f} s end to end, "
           f"launches {launches}", flush=True)
     return launches
 
@@ -294,7 +424,7 @@ def phase_reference(rng):
     # float32 CG to eps 1e-6 against an exact float64 solve: 2e-4 to 5e-4 of
     # the scale in a CPU rehearsal of this phase (torch backend, 5 seeds)
     check(err <= 5e-3, f"small learn off the direct solve by {err:.2e} of scale")
-    print(f"[5 reference] rbf 300 x 16 float32 cuda learn ({svm.last_cg_info['iterations']} "
+    print(f"[6 reference] rbf 300 x 16 float32 cuda learn ({svm.last_cg_info['iterations']} "
           f"CG iterations): decision values within {err:.2e} of a direct float64 solve",
           flush=True)
 
@@ -329,7 +459,7 @@ def phase_timing(dev, rng):
     q = gram_block(KernelType.rbf, Xd, xl[None, :], gamma=gamma)[:, 0] * mask
     QA = kernel_scalar(KernelType.rbf, xl, xl, gamma=gamma) + cost_inv
 
-    print(f"[6 timing] rbf {n} x {f} float32, implicit mode, CG at eps = 0", flush=True)
+    print(f"[7 timing] rbf {n} x {f} float32, implicit mode, CG at eps = 0", flush=True)
     rates = {}
     for backend in (BackendType.cuda, BackendType.torch, BackendType.torch, BackendType.cuda):
         op = build_operator(KernelType.rbf, Xd, q, mask, QA, cost_inv, gamma=gamma,
@@ -367,9 +497,321 @@ def phase_timing(dev, rng):
     return rates
 
 
-def main() -> int:
+def densify_compare(vals, lcols, ntiles: int, Lt: int):
+    """The JAX package's broadcast-compare densify (``sparse.py:324-337``),
+    in torch, timed against the port's index-put form."""
     import torch
 
+    m = vals.shape[0]
+    V, C = vals.reshape(m, ntiles, Lt), lcols.reshape(m, ntiles, Lt)
+    lane = torch.arange(128, dtype=C.dtype, device=C.device).reshape(1, 1, 128)
+    out = torch.zeros((m, ntiles, 128), dtype=vals.dtype, device=vals.device)
+    for slot in range(Lt):
+        out = out + V[:, :, slot:slot + 1] * (C[:, :, slot:slot + 1] == lane)
+    return out.reshape(m, ntiles * 128)
+
+
+def sparse_learn(csr, y, kernel, *, eps, max_iter, gamma=SPARSE_GAMMA):
+    """A float32 learn on the cuda backend through the library API; returns
+    the CSVM and its seconds (synchronised)."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch import make_csvm
+    from plssvm_sparse_fp22_tpu_torch.io.libsvm import ParsedData
+    from plssvm_sparse_fp22_tpu_torch.params import Parameter
+    from plssvm_sparse_fp22_tpu_torch.types import BackendType
+
+    p = Parameter(kernel=kernel, gamma=gamma, epsilon=eps, max_iter=max_iter,
+                  dtype=np.float32, backend=BackendType.cuda, print_info=False)
+    p.data = ParsedData(csr=csr, values=y)
+    p.values = y
+    svm = make_csvm(p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svm.learn()
+    torch.cuda.synchronize()
+    return svm, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def cg_spans():
+    """Seconds of every CG solve the learns run (synchronised before and
+    after), so a rate leaves out packing and Gram assembly."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.models import base, sparse_learn as learns
+
+    spans, solve = [], learns.cg_solve
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(*args, **kw)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+        return res
+
+    base.cg_solve = learns.cg_solve = timed
+    try:
+        yield spans
+    finally:
+        base.cg_solve = learns.cg_solve = solve
+
+
+def pinned_rate(csr, y, kernel, caps, **kw) -> float:
+    """CG iterations per second at a pinned count: eps = 0, the slope of the
+    CG solve's seconds between two iteration caps, the faster of two learns
+    at each cap."""
+    secs = {}
+    with cg_spans() as spans:
+        for imax in caps:
+            for _ in range(2):
+                svm, _ = sparse_learn(csr, y, kernel, eps=0.0, max_iter=imax, **kw)
+                check(svm.last_cg_info["iterations"] == imax,
+                      f"pinned CG ran {svm.last_cg_info['iterations']} != {imax}")
+                secs[imax] = min(spans[-1], secs.get(imax, spans[-1]))
+    return (caps[1] - caps[0]) / (secs[caps[1]] - secs[caps[0]])
+
+
+def phase_sparse_main(dev):
+    """The sparse main path through the CLIs, one run per tier, each with
+    the launch counters set to 0 just before and read just after."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.cli import train as train_cli
+    from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
+    from plssvm_sparse_fp22_tpu_torch.io.libsvm import parse_libsvm_file
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse as ops_sparse
+
+    rng = np.random.default_rng(SEED + 1)
+    n, f = SPARSE_N, SPARSE_F
+    csr, y = planted_sparse(n + SPARSE_TEST, f, SPARSE_DENSITY, rng)
+    train, test = os.path.join(WORK, "sparse.libsvm"), os.path.join(WORK, "sparse.test.libsvm")
+    t0 = time.perf_counter()
+    write_libsvm_sparse(train, csr[:n], y[:n])
+    write_libsvm_sparse(test, csr[n:], y[n:])
+    test_data = parse_libsvm_file(test)
+    print(f"[8 sparse] wrote {n} x {f} train and {SPARSE_TEST} x {f} test files at "
+          f"{SPARSE_DENSITY:.0%} density ({csr.nnz} nonzeros) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    tiers = [("auto", {}, "sparse_gram"),
+             ("dense", {"PLSSVM_SPARSE_MODE": "dense"}, "sparse_dense_implicit"),
+             ("implicit", {"PLSSVM_SPARSE_MODE": "implicit",
+                           "PLSSVM_K_CACHE_BYTES": str(PANEL_BUDGET)}, "sparse_implicit")]
+    decisions, launches = {}, {}
+    for name, env, mode in tiers:
+        model, out = os.path.join(WORK, f"sparse.{name}.model"), os.path.join(WORK, "s.predict")
+        with environ(**env), recording_csvms(train_cli) as made:
+            gm.reset_launches()
+            t0 = time.perf_counter()
+            rc, _ = run_cli(train_cli.main, ["-t", "2", "-g", repr(SPARSE_GAMMA), "-e", "1e-6",
+                                             "--use_float", "-b", "cuda", "-p", "gpu_nvidia",
+                                             train, model])
+            train_s = time.perf_counter() - t0
+            counts = dict(gm.launches)
+        check(rc == 0, f"sparse train CLI ({name} tier) returned {rc}")
+        svm = made[-1]
+        info = svm.last_cg_info
+        iters = info["iterations"]
+        check(info["mode"] == mode, f"{name} tier ran mode {info['mode']}, not {mode}")
+        # A·v products: the initial residual, one per iteration, the refreshes
+        mvs = iters + 1 + iters // 50
+        want = {"auto": {"gram_matvec_sym": 0, "gram_pair_contrib": 0},
+                "dense": {"gram_matvec_sym": mvs, "gram_pair_contrib": 0},
+                # 4 panels: 4 diagonal pairs on K1, 6 cross pairs on K3
+                "implicit": {"gram_matvec_sym": 4 * mvs, "gram_pair_contrib": 6 * mvs}}[name]
+        check(all(counts[k] == v for k, v in want.items()),
+              f"{name} tier launches {counts}, expected {want}")
+        decisions[name] = svm.predict_parsed(test_data)
+        check(np.all(np.isfinite(decisions[name])) and decisions[name].shape == (SPARSE_TEST,),
+              f"{name} tier decision values are not {SPARSE_TEST} finite numbers")
+        rc, log = run_cli(predict_main, ["--use_float", "-b", "cuda", "-p", "gpu_nvidia",
+                                         test, model, out])
+        check(rc == 0, f"sparse predict CLI ({name} tier) returned {rc}")
+        m = re.search(r"Accuracy = ([0-9.]+)%", log)
+        check(m is not None and float(m.group(1)) >= SPARSE_ACCURACY,
+              f"{name} tier accuracy {m and m.group(1)}% < {SPARSE_ACCURACY}%")
+        labels = np.loadtxt(out)
+        agree = np.mean(labels == np.where(decisions[name] > 0, 1.0, -1.0))
+        check(agree >= 0.999, f"predict CLI labels agree with the decision values on {agree:.4f}")
+        launches[name] = counts
+        print(f"[8 sparse] {name} tier: mode {mode}, {iters} CG iterations, train CLI "
+              f"{train_s:.1f} s, accuracy {m.group(1)}%, launches {counts}", flush=True)
+        del made, svm
+    scale = float(np.abs(decisions["auto"]).max())
+    for name in ("dense", "implicit"):
+        err = float(np.abs(decisions[name] - decisions["auto"]).max()) / scale
+        same = float(np.mean((decisions[name] > 0) == (decisions["auto"] > 0)))
+        print(f"[8 sparse] {name} vs auto (gram) decision values: max|d| {err:.2e} of the "
+              f"scale (tol {TIER_TOL:g}), equal labels {same:.4f}", flush=True)
+        check(err <= TIER_TOL and same >= TIER_LABELS,
+              f"{name} tier disagrees with the gram tier: {err:.2e}, labels {same:.4f}")
+
+    # one panel of the implicit tier's packing, densified both ways
+    dept = n - 1
+    D = -(-dept // 256) * 256
+    th = ops_sparse.TiledHybrid.from_csr(csr[:dept], dtype=np.float32, pad_rows=D, device=dev)
+    vals, lcols = th.tell.vals[:4096], th.tell.lcols[:4096]
+    args = (vals, lcols, th.tell.ntiles, th.tell.Lt)
+    got, want = ops_sparse.densify_tiled(*args), densify_compare(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "index-put densify differs from the broadcast compare")
+    put_ms, cmp_ms = timed_ms(lambda: ops_sparse.densify_tiled(*args), 20), \
+        timed_ms(lambda: densify_compare(*args), 20)
+    print(f"[8 sparse] densify one 4096-row panel (ntiles {th.tell.ntiles}, Lt {th.tell.Lt}, "
+          f"{len(th.heavy_idx)} heavy rows): index-put {put_ms:.3f} ms, broadcast compare "
+          f"{cmp_ms:.3f} ms", flush=True)
+    return {"csr": csr[:n], "y": y[:n], "launches": launches, "train": train, "test": test}
+
+
+def phase_sparse_more(sparse):
+    """The sparse-linear CLI, CG it/s of every sparse tier, repeatability,
+    and the gather arm."""
+    from plssvm_sparse_fp22_tpu_torch.cli import train as train_cli
+    from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.types import KernelType
+
+    csr, y = sparse["csr"], sparse["y"]
+    model, out = os.path.join(WORK, "sparse.linear.model"), os.path.join(WORK, "s.predict")
+    with recording_csvms(train_cli) as made:
+        t0 = time.perf_counter()
+        rc, _ = run_cli(train_cli.main, ["-t", "0", "-e", "1e-6", "--use_float", "-b", "cuda",
+                                         "-p", "gpu_nvidia", sparse["train"], model])
+        train_s = time.perf_counter() - t0
+    check(rc == 0, f"sparse-linear train CLI returned {rc}")
+    info = made[-1].last_cg_info
+    check(info["mode"] == "sparse_linear", f"linear run took mode {info['mode']}")
+    rc, log = run_cli(predict_main, ["--use_float", "-b", "cuda", "-p", "gpu_nvidia",
+                                     sparse["test"], model, out])
+    m = re.search(r"Accuracy = ([0-9.]+)%", log)
+    check(rc == 0 and m is not None and float(m.group(1)) >= SPARSE_ACCURACY,
+          f"sparse-linear predict CLI rc {rc}, accuracy {m and m.group(1)}%")
+    print(f"[9 sparse] linear CLI: mode sparse_linear, {info['iterations']} CG iterations, "
+          f"train CLI {train_s:.1f} s, accuracy {m.group(1)}%", flush=True)
+
+    # the cheap tiers' iterations (a GEMV, two sparse products) get a longer
+    # span, so the slope rises above the host's timing noise
+    for name, kernel, env, caps in [
+            ("gram", KernelType.rbf, {"PLSSVM_SPARSE_MODE": "gram"}, (10, 210)),
+            ("dense", KernelType.rbf, {"PLSSVM_SPARSE_MODE": "dense"}, (4, 16)),
+            ("implicit", KernelType.rbf, {"PLSSVM_SPARSE_MODE": "implicit",
+                                          "PLSSVM_K_CACHE_BYTES": str(PANEL_BUDGET)}, (4, 16)),
+            ("linear", KernelType.linear, {}, (10, 210))]:
+        with environ(**env):
+            rate = pinned_rate(csr, y, kernel, caps)
+        print(f"[9 sparse] {name} tier, {SPARSE_N} x {SPARSE_F}: {rate:.1f} CG it/s "
+              f"(eps = 0, slope {caps[0]} -> {caps[1]} iterations)", flush=True)
+
+    for name, kernel, env in [("linear", KernelType.linear, {}),
+                              ("implicit", KernelType.rbf,
+                               {"PLSSVM_SPARSE_MODE": "implicit",
+                                "PLSSVM_K_CACHE_BYTES": str(PANEL_BUDGET)})]:
+        with environ(**env):
+            a, _ = sparse_learn(csr, y, kernel, eps=1e-6, max_iter=500)
+            b, _ = sparse_learn(csr, y, kernel, eps=1e-6, max_iter=500)
+        same = (a.last_cg_info["iterations"] == b.last_cg_info["iterations"]
+                and np.array_equal(a.alphas, b.alphas) and a.bias_ == b.bias_)
+        check(same, f"two {name} sparse learns differ")
+        print(f"[9 sparse] {name} tier repeats bitwise: {a.last_cg_info['iterations']} CG "
+              f"iterations twice, equal alphas and bias", flush=True)
+
+    rng = np.random.default_rng(SEED + 2)
+    gcsr, gy = planted_sparse(8192, 262144, 1e-4, rng)
+    with environ(PLSSVM_SPARSE_MODE="implicit"):
+        gm.reset_launches()
+        svm, learn_s = sparse_learn(gcsr, gy, KernelType.rbf, eps=1e-6, max_iter=20,
+                                    gamma=1.0 / 32)
+        counts = dict(gm.launches)
+        rate = pinned_rate(gcsr, gy, KernelType.rbf, (2, 6), gamma=1.0 / 32)
+    info = svm.last_cg_info
+    check(info["mode"] == "sparse_implicit" and not any(counts.values()),
+          f"gather arm: mode {info['mode']}, launches {counts} (the gather arm is plain torch)")
+    check(np.all(np.isfinite(svm.alphas)), "gather-arm alphas are not finite")
+    print(f"[9 sparse] gather arm, rbf 8192 x 262144 at 0.01 % ({gcsr.nnz} nonzeros): "
+          f"{info['iterations']} CG iterations in {learn_s:.2f} s, {rate:.1f} CG it/s "
+          f"(eps = 0, slope 2 -> 6)", flush=True)
+
+
+def profiled_cg(csr, y, kernel, imax: int, **kw):
+    """One learn at eps = 0 and ``imax`` iterations (after a warm-up learn)
+    with its CG solve under ``torch.profiler``: the solve's wall seconds and
+    the device time of each kernel it ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from plssvm_sparse_fp22_tpu_torch.models import base, sparse_learn as learns
+
+    sparse_learn(csr, y, kernel, eps=0.0, max_iter=imax, **kw)  # warm-up
+    solve, traced = learns.cg_solve, {}
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = solve(*args, **kwargs)
+            torch.cuda.synchronize()
+            traced["wall"] = time.perf_counter() - t0
+        traced["prof"] = prof
+        return res
+
+    base.cg_solve = learns.cg_solve = timed
+    try:
+        svm, _ = sparse_learn(csr, y, kernel, eps=0.0, max_iter=imax, **kw)
+    finally:
+        base.cg_solve = learns.cg_solve = solve
+    check(svm.last_cg_info["iterations"] == imax, "profiled CG did not run its pinned count")
+    # device microseconds per kernel name; older torch names the field cuda
+    per_kernel = {}
+    for ev in traced["prof"].key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = getattr(ev, "self_cuda_time_total", 0) if us is None else us
+        if us > 0:
+            per_kernel[ev.key] = (us / 1e3, ev.count)
+    return traced["wall"], per_kernel
+
+
+def phase_profile(sparse):
+    """Opt-in (``--profile``): where each sparse tier's CG time goes, as
+    device time per kernel and the device's idle share of the CG wall time
+    (1 - summed kernel time / wall); the profiler's own overhead is inside
+    the wall time."""
+    from plssvm_sparse_fp22_tpu_torch.types import KernelType
+
+    panel = {"PLSSVM_SPARSE_MODE": "implicit", "PLSSVM_K_CACHE_BYTES": str(PANEL_BUDGET)}
+    rng = np.random.default_rng(SEED + 2)
+    gcsr, gy = planted_sparse(8192, 262144, 1e-4, rng)
+    cases = [("gram", sparse["csr"], sparse["y"], KernelType.rbf, {"PLSSVM_SPARSE_MODE": "gram"},
+              12, {}),
+             ("dense", sparse["csr"], sparse["y"], KernelType.rbf, {"PLSSVM_SPARSE_MODE": "dense"},
+              12, {}),
+             ("implicit", sparse["csr"], sparse["y"], KernelType.rbf, panel, 12, {}),
+             ("linear", sparse["csr"], sparse["y"], KernelType.linear, {}, 12, {}),
+             ("gather", gcsr, gy, KernelType.rbf, {"PLSSVM_SPARSE_MODE": "implicit"}, 4,
+              {"gamma": 1.0 / 32})]
+    for name, csr, y, kernel, env, imax, kw in cases:
+        with environ(**env):
+            wall, per_kernel = profiled_cg(csr, y, kernel, imax, **kw)
+        busy = sum(ms for ms, _ in per_kernel.values())
+        check(busy > 0, f"profile of the {name} tier saw no device time")
+        print(f"[10 profile] {name}: {imax} CG iterations (+1 initial A·v), CG wall "
+              f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle share "
+              f"{1 - busy / (wall * 1e3):.3f}", flush=True)
+        for key, (ms, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]:
+            print(f"  {ms:10.3f} ms x {count:4d}  {key[:60]}", flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also run phase 10: torch.profiler over each sparse tier's CG")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU",
               flush=True)
@@ -386,12 +828,21 @@ def main() -> int:
         phase_build()
         k1 = phase_k1(dev, rng)
         k2 = phase_k2(dev, rng)
+        k3 = phase_k3(dev, rng)
         launches = phase_main_path(rng)
         phase_reference(rng)
         phase_timing(dev, rng)
-        kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+        sparse = phase_sparse_main(dev)
+        phase_sparse_more(sparse)
+        if args.profile:
+            phase_profile(sparse)
+        # K1 and K2 counted over the dense main path, K3 over the sparse
+        # main path's implicit tier
+        launches["gram_pair_contrib"] = sparse["launches"]["implicit"]["gram_pair_contrib"]
+        kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name], "launches": launches[name], **rec}
-                   for name, rec in (("gram_matvec_sym", k1), ("gram_matvec_rect", k2))]
+                   for name, rec in (("gram_matvec_sym", k1), ("gram_matvec_rect", k2),
+                                     ("gram_pair_contrib", k3))]
         check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     except SmokeError as exc:
         print(f"FAIL: {exc}", flush=True)

@@ -62,7 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="predict in float32 instead of float64")
     parser.add_argument("--sparse_threshold", type=float, default=0.25,
                         help="keep data in CSR when its density is at or below "
-                             "this fraction (0 disables the sparse path, 1 forces it)")
+                             "this fraction: sparse support vectors and points then "
+                             "predict from a cross Gram built with sparse BLAS "
+                             "(0 disables the sparse path, 1 forces it)")
     parser.add_argument("-q", "--quiet", action="store_true", help="quiet mode (no outputs)")
     parser.add_argument("-h", "--help", action="help", help="print this helper message")
     parser.add_argument("test", metavar="test_file")

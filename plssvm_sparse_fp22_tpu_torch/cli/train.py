@@ -89,7 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="solve in float32 (the CUDA kernels' precision) instead of float64")
     parser.add_argument("--sparse_threshold", type=float, default=0.25,
                         help="keep data in CSR when its density is at or below "
-                             "this fraction (0 disables the sparse path, 1 forces it)")
+                             "this fraction and train on the sparse tiers (0 disables "
+                             "the sparse path, 1 forces it; PLSSVM_SPARSE_MODE="
+                             "gram|dense|implicit pins a poly/rbf tier)")
     parser.add_argument("--precond", choices=["none", "jacobi"], default="none",
                         help="CG preconditioner (jacobi cuts iterations on "
                              "ill-conditioned systems; same stopping criterion)")

@@ -1,15 +1,16 @@
 """The LS-SVM estimator: learn / predict / accuracy / write_model.
 
-Port of the JAX package's ``models/base.py`` for dense data on one device:
-the algorithm core ``plssvm::csvm<T>`` (``src/plssvm/csvm.cpp:40-411``) with
-the device orchestration of ``gpu_csvm`` (``gpu_csvm.cpp:47-412``).  The
-learn step is eager PyTorch on the ``CSVM``'s ``torch.device``: q-vector,
-QA_cost, the A·v operator and a host-driven CG loop.
+Port of the JAX package's ``models/base.py`` on one device: the algorithm
+core ``plssvm::csvm<T>`` (``src/plssvm/csvm.cpp:40-411``) with the device
+orchestration of ``gpu_csvm`` (``gpu_csvm.cpp:47-412``).  The learn step is
+eager PyTorch on the ``CSVM``'s ``torch.device``: q-vector, QA_cost, the
+A·v operator and a host-driven CG loop.  Data at or below
+``sparse_threshold`` density keeps its CSR form and takes the JAX
+package's sparse tiers (:meth:`CSVM._learn_sparse`, ``models/sparse_learn.py``).
 
 What this package does not carry yet raises a :class:`PLSSVMError` that
-names the missing piece — the sparse learns, the CG checkpoints and
-per-iteration output, and more than one device — instead of running
-something else in its place.
+names the missing piece — the CG checkpoints and per-iteration output, and
+more than one device — instead of running something else in its place.
 
 Padding: the CG system of size ``dept = n - 1`` is zero-padded to
 ``round_up(dept, max(PAD_SIZE, ROW_BLOCK_SIZE))``, the JAX package's
@@ -31,7 +32,7 @@ from ..io.libsvm import ParsedData
 from ..io.model import write_model_file
 from ..ops.gram_matvec import gram_matvec, gram_matvec_plain, row_sqnorms
 from ..ops.kernel_functions import gram_block, kernel_scalar
-from ..ops.matvec import build_operator, choose_mode, jacobi_minv
+from ..ops.matvec import _k_cache_budget_bytes, build_operator, choose_mode, jacobi_minv
 from ..params import Parameter
 from ..solver.cg import cg_solve
 from ..types import BackendType, KernelType, TargetPlatform
@@ -159,16 +160,6 @@ class CSVM:
         sparse path (``base.py:327-331``)."""
         return self.data.density <= float(self.params.sparse_threshold)
 
-    def _require_dense(self, what: str) -> None:
-        if self._use_sparse():
-            raise PLSSVMError(
-                f"{what}: the data's density {self.data.density:.4g} is at or below "
-                f"sparse_threshold {float(self.params.sparse_threshold)}, which "
-                "selects the sparse path (ops/sparse.py, models/sparse_learn.py); "
-                "it is not ported to the PyTorch package yet. Set "
-                "sparse_threshold=0 (--sparse_threshold 0) for the dense path."
-            )
-
     def learn(self) -> None:
         """Train: assemble the reduced system and solve with CG
         (``csvm.cpp:207-267``)."""
@@ -193,20 +184,21 @@ class CSVM:
             self.w_ = None
             return
 
-        self._require_dense("learn")
-        if self.params.checkpoint_path is not None or self.params.verbose_cg:
-            raise PLSSVMError(
-                "--checkpoint/--verbose_cg need the chunked CG loop "
-                "(solver/checkpoint.py, CSVM._drive_chunked_cg), which is not "
-                "ported to the PyTorch package yet"
-            )
-
         start = time.perf_counter()
         imax = self.params.max_iter if self.params.max_iter is not None else f
         D = _round_up(dept, max(PAD_SIZE, ROW_BLOCK_SIZE))
         b_pad, mask = self._padded_vectors(D, dept, y)
-        mode, (x, s, t, QA_cost, iters, delta, delta0) = self._learn_dense(
-            D, dept, f, b_pad, mask, imax)
+        if self._use_sparse():
+            mode, out = self._learn_sparse(D, dept, f, b_pad, mask, imax)
+        else:
+            if self.params.checkpoint_path is not None or self.params.verbose_cg:
+                raise PLSSVMError(
+                    "--checkpoint/--verbose_cg need the chunked CG loop "
+                    "(solver/checkpoint.py, CSVM._drive_chunked_cg), which is not "
+                    "ported to the PyTorch package yet"
+                )
+            mode, out = self._learn_dense(D, dept, f, b_pad, mask, imax)
+        x, s, t, QA_cost, iters, delta, delta0 = out[:7]
         x = x.cpu().numpy().astype(np.float64)[:dept]
         s_np = float(s)
         self.QA_cost_ = float(QA_cost)
@@ -247,15 +239,22 @@ class CSVM:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, dtype=self._np_dtype)).to(self.device)
 
-    def _learn_dense(self, D, dept, f, b_pad, mask, imax):
+    def _learn_dense(self, D, dept, f, b_pad, mask, imax, mode=None):
         """The body of the JAX package's ``_learn_jit`` (``base.py:44-92``)
-        as eager torch: q-vector, QA_cost, operator, CG."""
-        X = self.data.dense
+        as eager torch: q-vector, QA_cost, operator, CG.  ``mode`` forces the
+        operator's mode (the sparse ``dense`` tier runs ``implicit``,
+        ``base.py:871-879``); sparse data is densified from its CSR rows."""
         X_pad = np.zeros((D, f), dtype=self._np_dtype)
-        X_pad[:dept] = X[:dept]
-        mode = choose_mode(self.kernel, dept, self.dtype, num_features=f,
-                           backend=self.backend)
-        Xd, x_last = self._to_device(X_pad), self._to_device(X[-1])
+        if self._use_sparse():
+            X_pad[:dept] = self.data.csr[:dept].toarray()
+            x_last = self.data.csr[-1].toarray().ravel()
+        else:
+            X_pad[:dept] = self.data.dense[:dept]
+            x_last = self.data.dense[-1]
+        if mode is None:
+            mode = choose_mode(self.kernel, dept, self.dtype, num_features=f,
+                               backend=self.backend)
+        Xd, x_last = self._to_device(X_pad), self._to_device(x_last)
         b, m = self._to_device(b_pad), self._to_device(mask)
         kw = {"degree": self.degree, "gamma": self.gamma, "coef0": self.coef0}
         cost_inv = (torch.tensor(1.0, dtype=self.dtype, device=self.device)
@@ -275,6 +274,166 @@ class CSVM:
         s = torch.sum(res.x)
         t = torch.dot(q, res.x)
         return mode, (res.x, s, t, QA_cost, res.iterations, res.delta, res.delta0)
+
+    # ----------------------------------------------------------- sparse learn
+
+    def _plan_sparse_panel(self, csr, dept, D):
+        """``(TiledHybrid, use_cuda, sweep)`` when the streaming ``panel``
+        strategy applies at this density and packing, else ``None``
+        (``base.py:694-754``, one device): the density pre-check, the
+        skew-robust packing, the half-dense guard, and the sweep schedule
+        with its memory envelope.  ``use_cuda`` is the ``cuda`` backend,
+        where the panel pairs run K1/K3 and float64 is refused; on the
+        ``torch`` backend their plain versions run."""
+        from ..ops.sparse import TiledHybrid, panel_sweep_strategy, streaming_stream_strategy
+
+        f = csr.shape[1]
+        L_est = max(1, -(-int(csr.indptr[dept]) // max(1, dept)))
+        if streaming_stream_strategy(L_est, f) != "panel":
+            return None
+        th = TiledHybrid.from_csr(csr[:dept], dtype=self._np_dtype, pad_rows=D,
+                                  device=self.device)
+        itemsize = self.dtype.itemsize
+        dense_bytes = D * th.tell.padded_features * itemsize
+        packed_bytes = th.tell.vals.numel() * (itemsize + 4) + th.heavy.numel() * itemsize
+        # a packing at >= half the padded-dense size is not sparse enough (or
+        # too skewed for the heavy-row spill): the gather arm is memory-safe
+        if 2 * packed_bytes > dense_bytes:
+            return None
+        physical = self._device_memory_bytes()
+        sweep = panel_sweep_strategy(2, dense_bytes, physical)
+        if sweep == "unrolled":
+            if 4 * dense_bytes > physical:
+                return None  # forced unrolled beyond its envelope
+        else:
+            eff_budget = min(_k_cache_budget_bytes(), physical // 3)
+            if packed_bytes + eff_budget > (9 * physical) // 10:
+                return None
+        use_cuda = self.backend == BackendType.cuda
+        if use_cuda and self.dtype != torch.float32:
+            raise PLSSVMError(
+                "the sparse panel tier on the CUDA backend needs float32: the "
+                "float64 kernels belong to the K4 precision work, not ported "
+                "yet (train with --use_float, or raise PLSSVM_K_CACHE_BYTES so "
+                "the exact sparse_gram tier applies)")
+        return th, use_cuda, sweep
+
+    def _device_memory_bytes(self) -> int:
+        """Physical memory of the CSVM's device: the card's total on CUDA,
+        else ample (1 << 40, the JAX package's host fallback)."""
+        if self.device.type == "cuda":
+            return int(torch.cuda.mem_get_info(self.device)[1])
+        return 1 << 40
+
+    def _reject_chunk_flags_on_sparse(self):
+        """Sparse learns cannot chunk CG for checkpoints / per-iteration
+        output (``base.py:784-791``)."""
+        if self.params.checkpoint_path is not None or self.params.verbose_cg:
+            raise PLSSVMError(
+                "--checkpoint/--verbose_cg are not supported on the sparse "
+                "learn path; set sparse_threshold=0 to force the dense path"
+            )
+
+    def _learn_sparse(self, D, dept, f, b_pad, mask, imax):
+        """The sparse tiers of ``base.py:806-968``.  Linear: the ELL+COO
+        learn.  Poly/rbf, the fastest tier that fits, each guarded by the
+        K-cache budget and the device's physical memory:
+
+        1. ``gram``: the (D, D) Gram assembled once, cached GEMV CG;
+        2. ``dense``: dense X only, the dense ``implicit`` learn (K1 on the
+           ``cuda`` backend);
+        3. ``implicit``: streaming CG from the packing, through transient
+           dense panels on K1/K3 (``panel``) or the ELL ``gather`` arm.
+
+        ``PLSSVM_SPARSE_MODE`` forces ``gram`` / ``dense`` / ``implicit``."""
+        from ..ops.sparse import (HybridSparse, device_gram_max_features,
+                                  host_gram_from_csr, stream_panel_rows)
+        from .sparse_learn import (learn_from_gram, learn_sparse_implicit,
+                                   learn_sparse_linear, learn_sparse_panel)
+
+        self._reject_chunk_flags_on_sparse()
+        precond = str(self.params.precond)
+        csr = self.data.csr
+        dev, np_dtype = self.device, self._np_dtype
+        b, m = self._to_device(b_pad), self._to_device(mask)
+        x_last = self._to_device(csr[-1].toarray().ravel())
+        common = (self.cost, self.epsilon, imax)
+        if self.kernel == KernelType.linear:
+            h = HybridSparse.from_csr(csr[:dept], dtype=np_dtype, pad_rows=D, device=dev)
+            xt = HybridSparse.from_csr(csr[:dept].T.tocsr(), dtype=np_dtype, device=dev)
+            out = learn_sparse_linear(h.ell.values, h.ell.cols, h.coo_rows, h.coo_cols,
+                                      h.coo_vals, x_last, b, m, *common, f=f, xt=xt,
+                                      precond=precond)
+            return "sparse_linear", out
+
+        itemsize = self.dtype.itemsize
+        sparse_mode = os.environ.get("PLSSVM_SPARSE_MODE", "auto")
+        physical = self._device_memory_bytes()
+        # the cached tier keeps K and its assembly transient resident; the
+        # dense tier X and its working set (the JAX package's factors)
+        gram_fits = (D * D * itemsize <= _k_cache_budget_bytes()
+                     and 2 * D * D * itemsize <= physical)
+        dense_x_fits = (D * f * itemsize <= _k_cache_budget_bytes()
+                        and 5 * D * f * itemsize // 2 <= physical)
+        if sparse_mode == "dense" or (sparse_mode == "auto" and not gram_fits and dense_x_fits):
+            _, out = self._learn_dense(D, dept, f, b_pad, mask, imax, mode="implicit")
+            return "sparse_dense_implicit", out
+        if sparse_mode == "implicit" or (sparse_mode != "gram" and not gram_fits):
+            plan = self._plan_sparse_panel(csr, dept, D)
+            if plan is not None:
+                th, use_cuda, sweep = plan
+                budget = _k_cache_budget_bytes()
+                if sweep == "windowed":
+                    # the windowed transient follows the budget; cap it so the
+                    # panels and the resident packing stay inside the device
+                    budget = min(budget, physical // 3)
+                panel_rows = stream_panel_rows(D, th.tell.padded_features, itemsize, budget)
+                # the heavy rows' O(n) vectors, built on the host
+                hs = np.zeros(D, dtype=np_dtype)
+                hg = np.zeros(D, dtype=np_dtype)
+                if len(th.heavy_idx):
+                    hrows = csr[th.heavy_idx]
+                    hs[th.heavy_idx] = np.asarray(hrows.multiply(hrows).sum(axis=1)).ravel()
+                    hg[th.heavy_idx] = np.asarray((hrows @ csr[-1].T).todense()).ravel()
+                out = learn_sparse_panel(
+                    th.tell.vals, th.tell.lcols, x_last, b, m, self.gamma, self.coef0,
+                    *common, kernel=self.kernel, degree=self.degree, ntiles=th.tell.ntiles,
+                    Lt=th.tell.Lt, panel_rows=panel_rows, precond=precond, use_cuda=use_cuda,
+                    heavy=th.heavy, heavy_rows=tuple(int(r) for r in th.heavy_idx),
+                    heavy_sq_vec=self._to_device(hs), heavy_g_vec=self._to_device(hg),
+                    sweep=sweep)
+                return "sparse_implicit", out
+            h = HybridSparse.from_csr(csr[:dept], dtype=np_dtype, pad_rows=D, device=dev)
+            out = learn_sparse_implicit(h.ell.values, h.ell.cols, h.coo_rows, h.coo_cols,
+                                        h.coo_vals, x_last, b, m, self.gamma, self.coef0,
+                                        *common, kernel=self.kernel, degree=self.degree, f=f,
+                                        precond=precond)
+            return "sparse_implicit", out
+
+        # gram tier: densify on the host (a budget-gated transient) and one
+        # device product, or the host SpGEMM for very wide data
+        if f <= device_gram_max_features() and dense_x_fits:
+            X_pad = np.zeros((D, f), dtype=np_dtype)
+            X_pad[:dept] = csr[:dept].toarray()
+            Xd = self._to_device(X_pad)
+            G = Xd @ Xd.T
+            sq = torch.sum(Xd * Xd, dim=1)
+            del Xd
+        else:
+            G_host = host_gram_from_csr(csr, dept)
+            G_pad = np.zeros((D, D), dtype=np_dtype)
+            G_pad[:dept, :dept] = G_host
+            sq_pad = np.zeros(D, dtype=np_dtype)
+            sq_pad[:dept] = np.diag(G_host)
+            G, sq = self._to_device(G_pad), self._to_device(sq_pad)
+        q_lin = np.zeros(D, dtype=np_dtype)
+        q_lin[:dept] = np.asarray((csr[:dept] @ csr[-1].T).todense()).ravel()
+        qa_lin = float((csr[-1] @ csr[-1].T).toarray()[0, 0])
+        out = learn_from_gram(G, sq, self._to_device(q_lin),
+                              torch.tensor(qa_lin, dtype=self.dtype, device=dev), b, m,
+                              self.gamma, self.coef0, *common, kernel=self.kernel,
+                              degree=self.degree, precond=precond)
+        return "sparse_gram", out
 
     # ---------------------------------------------------------------- predict
 
@@ -304,15 +463,24 @@ class CSVM:
         points = self._check_points(points)
         if self.alphas is None:
             raise PLSSVMError("No alphas provided for prediction!")
-        self._require_dense("predict")
 
         alphas_dev = self._to_device(self.alphas)
         if self.kernel == KernelType.linear:
             # w fast path (gpu_csvm.cpp:83-91)
             if self.w_ is None:
-                w = self._X_all_device().T @ alphas_dev
-                self.w_ = w.cpu().numpy().astype(np.float64)
+                if self._use_sparse():
+                    # w = X^T alpha through sparse BLAS; X never densifies
+                    self.w_ = np.asarray(self.data.csr.T @ self.alphas, np.float64).ravel()
+                else:
+                    w = self._X_all_device().T @ alphas_dev
+                    self.w_ = w.cpu().numpy().astype(np.float64)
             out = points @ self.w_ + self.bias_
+        elif self._use_sparse():
+            # kernel expansion from a cross Gram assembled on the host
+            csr = self.data.csr
+            Gc = np.asarray((csr @ points.T).T, np.float64)
+            sq_sv = np.asarray(csr.multiply(csr).sum(axis=1)).ravel()
+            out = self._predict_cross_gram(Gc, np.sum(points * points, axis=1), sq_sv)
         else:
             P = self._to_device(points)
             X_sv = self._X_all_device()
@@ -334,8 +502,22 @@ class CSVM:
         values = self.predict(points)
         return np.where(np.asarray(values) > 0.0, 1.0, -1.0)
 
+    def _predict_cross_gram(self, Gc, sq_points, sq_sv) -> np.ndarray:
+        """Decision values from a host cross Gram ``Gc[p, i] = <p, x_i>``
+        (``base.py:1037-1056``): transform and expansion on the device."""
+        from .sparse_learn import predict_from_cross_gram
+
+        out = predict_from_cross_gram(
+            self._to_device(Gc), self._to_device(sq_points), self._to_device(sq_sv),
+            self._to_device(self.alphas),
+            torch.as_tensor(self.bias_, dtype=self.dtype, device=self.device),
+            self.gamma, self.coef0, kernel=self.kernel, degree=self.degree)
+        return out.cpu().numpy().astype(np.float64)
+
     def predict_parsed(self, parsed) -> np.ndarray:
-        """Predict a :class:`~..io.libsvm.ParsedData` batch (dense branch)."""
+        """Predict a :class:`~..io.libsvm.ParsedData` batch, staying sparse
+        when both the support vectors and the points are at or below
+        ``sparse_threshold`` (``base.py:1095-1134``): neither is densified."""
         if self.alphas is None:
             raise PLSSVMError("No alphas provided for prediction!")
         if parsed.num_features != self.num_features:
@@ -343,8 +525,21 @@ class CSVM:
                 f"Number of features per data point ({self.num_features}) must match "
                 f"the number of features per predict point ({parsed.num_features})!"
             )
-        self._require_dense("predict")
-        return self.predict(parsed.dense)
+        sparse_points = parsed.density <= float(self.params.sparse_threshold)
+        if not (self._use_sparse() and sparse_points):
+            return self.predict(parsed.dense)
+
+        from ..ops.sparse import host_cross_gram_from_csr
+
+        csr_p, csr = parsed.csr, self.data.csr
+        if self.kernel == KernelType.linear:
+            if self.w_ is None:
+                self.w_ = np.asarray(csr.T @ self.alphas, np.float64).ravel()
+            return np.asarray(csr_p @ self.w_, np.float64).ravel() + self.bias_
+        Gc = host_cross_gram_from_csr(csr_p, csr)
+        sq_p = np.asarray(csr_p.multiply(csr_p).sum(axis=1)).ravel()
+        sq_sv = np.asarray(csr.multiply(csr).sum(axis=1)).ravel()
+        return self._predict_cross_gram(Gc, sq_p, sq_sv)
 
     def predict_label_parsed(self, parsed) -> np.ndarray:
         return np.where(self.predict_parsed(parsed) > 0.0, 1.0, -1.0)
@@ -358,7 +553,10 @@ class CSVM:
                 raise PLSSVMError(
                     "No labels given! Maybe the data is only usable for prediction?"
                 )
-            self._require_dense("accuracy")
+            if self._use_sparse():
+                predictions = self.predict_parsed(self.data)
+                correct = int(np.sum(predictions * np.asarray(self.values) > 0.0))
+                return correct / self.num_data_points
             points, labels = self.data.dense, self.values
         if labels is None:
             raise PLSSVMError(
@@ -418,15 +616,24 @@ class CSVM:
 def csvm_from_state(state: dict, **params) -> CSVM:
     """A :class:`CSVM` from the trained state of a JAX package ``CSVM``, as
     numpy arrays and numbers: ``kernel``, ``degree``, ``gamma``, ``coef0``,
-    ``alphas``, ``bias_``, ``support_vectors`` (dense, one row per SV) and
-    ``values`` (labels).  This is all an LS-SVM holds, so both packages then
-    predict the same thing.  ``params`` go to :class:`Parameter` (``dtype``,
+    ``alphas``, ``bias_``, ``support_vectors`` (dense, one row per SV, or a
+    scipy sparse matrix) and ``values`` (labels), and optionally
+    ``sparse_threshold``.  This is all an LS-SVM holds, so both packages then
+    predict the same thing; sparse support vectors stay CSR, and at or below
+    the threshold the port predicts through its sparse branch, as the JAX
+    model does.  ``params`` go to :class:`Parameter` (``dtype``,
     ``backend``, ``target``, ``print_info``, ...)."""
-    sv = np.asarray(state["support_vectors"], np.float64)
     values = np.asarray(state["values"], np.float64)
+    if "sparse_threshold" in state:
+        params.setdefault("sparse_threshold", float(state["sparse_threshold"]))
     p = Parameter(kernel=KernelType(int(state["kernel"])), degree=int(state["degree"]),
                   gamma=float(state["gamma"]), coef0=float(state["coef0"]), **params)
-    p.data = ParsedData(csr=sp.csr_matrix(sv), values=values, _dense=sv)
+    if sp.issparse(state["support_vectors"]):
+        p.data = ParsedData(csr=sp.csr_matrix(state["support_vectors"], dtype=np.float64),
+                            values=values)
+    else:
+        sv = np.asarray(state["support_vectors"], np.float64)
+        p.data = ParsedData(csr=sp.csr_matrix(sv), values=values, _dense=sv)
     p.values = values
     p.alphas = np.asarray(state["alphas"], np.float64)
     p.rho = -float(state["bias_"])

@@ -1,19 +1,24 @@
-"""Build and load the CUDA kernels of ``csrc/gram_matvec.cu``.
+"""Build and load the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles the source into a shared library with a plain C
-interface, loaded with ``ctypes``; nothing links against PyTorch, so a build
-takes seconds.  The library goes to ``plssvm_sparse_fp22_tpu_torch/_build/``
-(listed in ``.gitignore``) at first use and is rebuilt when the source's
-hash changes.  There is no fallback: a failed build raises.
+``nvcc`` compiles every ``csrc/*.cu`` (K1/K2 in ``gram_matvec.cu``, K3 in
+``pair_contrib.cu``, both including ``gram_tile.cuh``) into an object, one
+``nvcc`` per source, all started together, and links them into one shared
+library with a plain C interface, loaded with ``ctypes``; nothing links
+against PyTorch, so a build takes seconds.  The library goes to
+``plssvm_sparse_fp22_tpu_torch/_build/`` (listed in ``.gitignore``) at first
+use and is rebuilt when the hash of any source or header, or of the flags,
+changes.  There is no fallback: a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -21,16 +26,22 @@ from ..constants import CUDA_TILE
 from ..exceptions import BackendError
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "gram_matvec.cu")
+CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libgram_matvec.so")
 _STAMP = LIBRARY + ".sha256"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _lock = threading.Lock()
 _lib = None
+
+
+def sources() -> list[str]:
+    """The kernel sources, ``csrc/*.cu``, in name order."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
 def _nvcc() -> str:
@@ -39,36 +50,52 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise BackendError("nvcc not found (set CUDA_HOME); the CUDA backend "
-                       "builds csrc/gram_matvec.cu at first use")
+                       "builds csrc/*.cu at first use")
 
 
 def _source_hash() -> str:
-    with open(SOURCE, "rb") as fh:
-        return hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    return digest.hexdigest()
 
 
 def build() -> dict:
-    """Compile the library unless a build of the current source exists.
-    Returns ``{"path", "seconds", "log", "cached"}``: the compile time and
-    the compiler's output (``-Xptxas -v`` register and spill counts)."""
+    """Compile the library unless a build of the current sources exists.
+    Returns ``{"path", "seconds", "log", "cached"}``: the wall time of the
+    whole build and the compilers' output (``-Xptxas -v`` register and
+    spill counts of every kernel)."""
     digest = _source_hash()
     if os.path.exists(LIBRARY) and os.path.exists(_STAMP):
         with open(_STAMP) as fh:
             if fh.read().strip() == digest:
                 return {"path": LIBRARY, "seconds": 0.0, "log": "", "cached": True}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        # one nvcc per source, all running at once: a build costs its slowest
+        # source, not their sum
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", f"{tmp}/{i}.o", src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for i, src in enumerate(sources())]
+        log = [proc.communicate()[0] for proc in procs]
+        failed = [f"nvcc failed on {proc.args[-1]}:\n{out}"
+                  for proc, out in zip(procs, log) if proc.returncode != 0]
+        if failed:
+            raise BackendError("\n".join(failed))
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", f"{tmp}/lib.so",
+                               *(f"{tmp}/{i}.o" for i in range(len(procs)))],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise BackendError(f"nvcc failed to link {LIBRARY}:\n{link.stdout}{link.stderr}")
+        os.replace(f"{tmp}/lib.so", LIBRARY)
     seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        raise BackendError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
     with open(_STAMP, "w") as fh:
         fh.write(digest)
-    return {"path": LIBRARY, "seconds": seconds, "log": proc.stdout + proc.stderr,
-            "cached": False}
+    return {"path": LIBRARY, "seconds": seconds, "log": "".join(log), "cached": False}
 
 
 def load() -> ctypes.CDLL:
@@ -83,6 +110,8 @@ def load() -> ctypes.CDLL:
         lib.gram_matvec_sym.restype = I
         lib.gram_matvec_rect.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, F, F, P]
         lib.gram_matvec_rect.restype = I
+        lib.gram_pair_contrib.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, P]
+        lib.gram_pair_contrib.restype = I
         lib.gram_matvec_tile.argtypes = []
         lib.gram_matvec_tile.restype = I
         if lib.gram_matvec_tile() != CUDA_TILE:

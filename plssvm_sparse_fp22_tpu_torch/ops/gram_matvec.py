@@ -10,9 +10,15 @@ PyTorch versions.  The counterpart of the JAX package's
 - **K2**, :func:`gram_matvec`: ``K(X, Y) v`` over every tile pair.
   Replaces ``_gram_matvec_kernel`` (``pallas_matvec.py:117``), driven there
   by ``gram_matvec_pallas``.  It is the poly/rbf predict.
+- **K3**, :func:`pair_gram_contrib`: both directions ``K(Xi, Xj) v_j`` and
+  ``K(Xi, Xj)^T v_i`` of one panel pair from one pass over every tile pair.
+  Replaces ``pair_gram_contrib`` (``pallas_matvec.py:716``), which drives
+  K1's body over two panels.  It is the cross-panel A·v of the streaming
+  sparse learn.
 
-Both kernels live in ``csrc/gram_matvec.cu``, whose header says what bounds
-them on the H100 and how the cross-CTA reduction stays deterministic.  Both
+K1 and K2 live in ``csrc/gram_matvec.cu``, K3 in ``csrc/pair_contrib.cu``;
+both include ``csrc/gram_tile.cuh``, whose header says what bounds them on
+the H100 and how the cross-CTA reduction stays deterministic.  All three
 are exact float32: f32 inputs, FFMA products, f32 sums.
 
 A wrapper dispatches on the device of its tensors.  On a CPU tensor it runs
@@ -32,7 +38,7 @@ from . import _build
 from .kernel_functions import gram_block
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches = {"gram_matvec_sym": 0, "gram_matvec_rect": 0}
+launches = {"gram_matvec_sym": 0, "gram_matvec_rect": 0, "gram_pair_contrib": 0}
 
 
 def reset_launches() -> None:
@@ -75,6 +81,30 @@ def gram_matvec_sym_plain(kernel: KernelType, X, v, *, degree=3, gamma=1.0,
     """Plain version of K1: ``K(X, X) v`` (all of K, no symmetry)."""
     return gram_matvec_plain(kernel, X, v, degree=degree, gamma=gamma,
                              coef0=coef0, sqx=sq, sqy=sq, row_block=row_block)
+
+
+def pair_gram_contrib_plain(kernel: KernelType, Xi, Xj, v_i, v_j, *, same: bool,
+                            sq_i=None, sq_j=None, degree=3, gamma=1.0, coef0=0.0,
+                            row_block=ROW_BLOCK_SIZE):
+    """Plain version of K3, the twin of ``pair_gram_contrib_xla``
+    (``pallas_matvec.py:824-852``), blocked over Xi's rows so it never holds
+    more than one ``(row_block, Dj)`` kernel tile.  Returns ``(out_i, out_j)``
+    with ``out_i = K v_j`` and ``out_j = K^T v_i``; with ``same=True``
+    (``Xj`` is ``Xi``) ``(K v_i, 0)``, whose sum is what the caller adds."""
+    if kernel == KernelType.rbf:
+        sq_i = row_sqnorms(Xi) if sq_i is None else sq_i
+        sq_j = (sq_i if same else row_sqnorms(Xj)) if sq_j is None else sq_j
+    out_i = torch.empty(Xi.shape[0], dtype=Xi.dtype, device=Xi.device)
+    out_j = torch.zeros(Xj.shape[0], dtype=Xi.dtype, device=Xi.device)
+    for r0 in range(0, Xi.shape[0], row_block):
+        r1 = r0 + row_block
+        Kb = gram_block(kernel, Xi[r0:r1], Xj, degree, gamma, coef0,
+                        Xi_sqnorm=None if sq_i is None else sq_i[r0:r1],
+                        Xj_sqnorm=sq_j)
+        out_i[r0:r1] = Kb @ v_j
+        if not same:
+            out_j += Kb.T @ v_i[r0:r1]
+    return out_i, out_j
 
 
 # --------------------------------------------------------------------------
@@ -166,6 +196,43 @@ def _launch_rect(kernel, X, Y, v, sqx, sqy, degree, gamma, coef0):
     return out
 
 
+def _launch_pair(kernel, Xi, Xj, v_i, v_j, sq_i, sq_j, degree, gamma, coef0):
+    """K3, cross panels (replaces ``pair_gram_contrib``,
+    ``pallas_matvec.py:716``).  Bound by f32 FFMA throughput like K1, at
+    twice K1's flops per output pair (no symmetry to skip).  One CTA per
+    (i, j) tile pair writes ``K_ij v_j`` to ``slab_i[i][j]`` and
+    ``K_ij^T v_i`` to ``slab_j[j][i]``; two fixed-order passes sum them."""
+    Di, f = Xi.shape
+    Dj = Xj.shape[0]
+    dev = Xi.device
+    _check("Xi", Xi, (Di, f), dev)
+    _check("Xj", Xj, (Dj, f), dev)
+    _check("v_i", v_i, (Di,), dev)
+    _check("v_j", v_j, (Dj,), dev)
+    _check("sq_i", sq_i, (Di,), dev)
+    _check("sq_j", sq_j, (Dj,), dev)
+    out_i = torch.zeros(Di, dtype=torch.float32, device=dev)
+    out_j = torch.zeros(Dj, dtype=torch.float32, device=dev)
+    if Di == 0 or Dj == 0:
+        return out_i, out_j
+    nbi, nbj = _cdiv(Di, CUDA_TILE), _cdiv(Dj, CUDA_TILE)
+    if nbi > 65535:
+        raise PLSSVMError(f"pair_gram_contrib: {Di} rows exceed the kernel's grid "
+                          f"({65535 * CUDA_TILE}); use smaller panels")
+    slab_i = torch.empty((nbi, nbj, CUDA_TILE), dtype=torch.float32, device=dev)
+    slab_j = torch.empty((nbj, nbi, CUDA_TILE), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.gram_pair_contrib(
+            Xi.data_ptr(), Xj.data_ptr(), sq_i.data_ptr(), sq_j.data_ptr(),
+            v_i.data_ptr(), v_j.data_ptr(), slab_i.data_ptr(), slab_j.data_ptr(),
+            out_i.data_ptr(), out_j.data_ptr(), Di, Dj, f, int(kernel), int(degree),
+            float(gamma), float(coef0), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "gram_pair_contrib")
+    launches["gram_pair_contrib"] += 1
+    return out_i, out_j
+
+
 # --------------------------------------------------------------------------
 # wrappers
 # --------------------------------------------------------------------------
@@ -200,3 +267,27 @@ def gram_matvec(kernel: KernelType, X, v, *, Y=None, degree=3, gamma=1.0,
     sqx = row_sqnorms(X) if sqx is None else sqx
     sqy = (sqx if Y is X else row_sqnorms(Y)) if sqy is None else sqy
     return _launch_rect(kernel, X, Y, v, sqx, sqy, degree, gamma, coef0)
+
+
+def pair_gram_contrib(kernel: KernelType, Xi, Xj, v_i, v_j, *, same: bool, sq_i=None,
+                      sq_j=None, degree=3, gamma=1.0, coef0=0.0):
+    """Panel-pair contributions of ``K = k(Xi, Xj)`` without building K, with
+    the JAX package's contract (``pallas_matvec.py:734-755``): returns
+    ``(out_i, out_j)`` sliced to the real row counts, ``out_i = K v_j`` and
+    ``out_j = K^T v_i``.  ``same=True`` (the diagonal panel, ``Xj`` is
+    ``Xi``) only promises ``out_i + out_j = K(Xi, Xi) v_i``: it runs K1 on
+    the panel and returns ``(K v_i, 0)``, counted under
+    ``gram_matvec_sym``.  Padding rows must be zero, with zero ``v``."""
+    sq_i = row_sqnorms(Xi) if sq_i is None else sq_i
+    if same:
+        if not Xi.is_cuda:
+            return pair_gram_contrib_plain(kernel, Xi, Xi, v_i, v_i, same=True, sq_i=sq_i,
+                                           sq_j=sq_i, degree=degree, gamma=gamma,
+                                           coef0=coef0)
+        out = _launch_sym(kernel, Xi, v_i, sq_i, degree, gamma, coef0)
+        return out, torch.zeros_like(out)
+    sq_j = row_sqnorms(Xj) if sq_j is None else sq_j
+    if not Xi.is_cuda:
+        return pair_gram_contrib_plain(kernel, Xi, Xj, v_i, v_j, same=False, sq_i=sq_i,
+                                       sq_j=sq_j, degree=degree, gamma=gamma, coef0=coef0)
+    return _launch_pair(kernel, Xi, Xj, v_i, v_j, sq_i, sq_j, degree, gamma, coef0)

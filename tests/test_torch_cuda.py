@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card: K1 and K2 against their plain PyTorch
-versions, determinism, launch counts, the wrappers' checks, and a small
-learn/predict on the ``cuda`` backend against the ``torch`` backend.
+"""The CUDA kernels on the card: K1, K2 and K3 against their plain PyTorch
+versions, determinism, launch counts, the wrappers' checks, a small
+learn/predict on the ``cuda`` backend against the ``torch`` backend, and a
+streaming sparse learn through K3.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -78,7 +79,69 @@ def test_kernels_are_deterministic_and_counted(dev):
     c = gm.gram_matvec(KernelType.rbf, X, v, gamma=0.05)
     d = gm.gram_matvec(KernelType.rbf, X, v, gamma=0.05)
     assert torch.equal(a, b) and torch.equal(c, d)
-    assert gm.launches == {"gram_matvec_sym": 2, "gram_matvec_rect": 2}
+    assert gm.launches == {"gram_matvec_sym": 2, "gram_matvec_rect": 2, "gram_pair_contrib": 0}
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("shape", [(40, 40, 5), (300, 170, 100), (256, 512, 64), (129, 1, 33)])
+def test_k3_matches_plain(dev, kernel, shape):
+    Di, Dj, f = shape
+    rng = np.random.default_rng(7)
+    Xi = torch.tensor(rng.normal(size=(Di, f)), dtype=torch.float32, device=dev)
+    Xj = torch.tensor(rng.normal(size=(Dj, f)), dtype=torch.float32, device=dev)
+    vi = torch.tensor(rng.normal(size=Di), dtype=torch.float32, device=dev)
+    vj = torch.tensor(rng.normal(size=Dj), dtype=torch.float32, device=dev)
+    kw = dict(same=False, **_hyper(f))
+    oi, oj = gm.pair_gram_contrib(kernel, Xi, Xj, vi, vj, **kw)
+    wi, wj = gm.pair_gram_contrib_plain(kernel, Xi, Xj, vi, vj, **kw)
+    assert _rel_err(oi, wi) <= TOL and _rel_err(oj, wj) <= TOL
+
+
+def test_k3_is_deterministic_and_counted(dev):
+    rng = np.random.default_rng(8)
+    Xi = torch.tensor(rng.normal(size=(700, 40)), dtype=torch.float32, device=dev)
+    Xj = torch.tensor(rng.normal(size=(500, 40)), dtype=torch.float32, device=dev)
+    vi = torch.tensor(rng.normal(size=700), dtype=torch.float32, device=dev)
+    vj = torch.tensor(rng.normal(size=500), dtype=torch.float32, device=dev)
+    gm.reset_launches()
+    a = gm.pair_gram_contrib(KernelType.rbf, Xi, Xj, vi, vj, same=False, gamma=0.05)
+    b = gm.pair_gram_contrib(KernelType.rbf, Xi, Xj, vi, vj, same=False, gamma=0.05)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    # same=True is K1 on the panel, counted there
+    s_i, s_j = gm.pair_gram_contrib(KernelType.rbf, Xi, Xi, vi, vi, same=True, gamma=0.05)
+    assert not s_j.any()
+    assert _rel_err(s_i, gm.gram_matvec_sym_plain(KernelType.rbf, Xi, vi, gamma=0.05)) <= TOL
+    assert gm.launches == {"gram_matvec_sym": 1, "gram_matvec_rect": 0, "gram_pair_contrib": 2}
+
+
+def test_sparse_implicit_learn_runs_k3(dev, monkeypatch):
+    """The streaming panel learn on the cuda backend, over several panels,
+    launches K3 for the cross-panel pairs and matches the torch backend."""
+    import scipy.sparse as sp_
+
+    monkeypatch.setenv("PLSSVM_SPARSE_MODE", "implicit")
+    monkeypatch.setenv("PLSSVM_K_CACHE_BYTES", str(8 * 256 * 512 * 4))  # 256-row panels
+    rng = np.random.default_rng(9)
+    csr = sp_.random(700, 500, density=0.05, format="csr", random_state=rng,
+                     data_rvs=lambda k: rng.random(k))
+    y = np.where(rng.normal(size=700) > 0, 1.0, -1.0)
+    out = {}
+    for backend in (BackendType.cuda, BackendType.torch):
+        p = Parameter(kernel=KernelType.rbf, gamma=0.1, epsilon=1e-6, max_iter=100,
+                      dtype=np.float32, backend=backend, print_info=False, sparse_threshold=1.0)
+        p.data = ParsedData(csr=csr, values=y)
+        p.values = y
+        svm = make_csvm(p)
+        gm.reset_launches()
+        svm.learn()
+        out[backend] = (svm.last_cg_info, svm.alphas, dict(gm.launches))
+    info_c, alphas_c, launches_c = out[BackendType.cuda]
+    info_t, alphas_t, launches_t = out[BackendType.torch]
+    assert info_c["mode"] == info_t["mode"] == "sparse_implicit"
+    assert launches_c["gram_pair_contrib"] > 0 and launches_c["gram_matvec_sym"] > 0
+    assert not any(launches_t.values())
+    assert abs(info_c["iterations"] - info_t["iterations"]) <= 1
+    np.testing.assert_allclose(alphas_c, alphas_t, rtol=0, atol=1e-2 * np.abs(alphas_t).max())
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -120,4 +183,4 @@ def test_learn_predict_cuda_backend_matches_torch_backend(dev, kernel):
     np.testing.assert_allclose(alphas_c, alphas_t, rtol=0, atol=1e-2 * np.abs(alphas_t).max())
     np.testing.assert_array_equal(np.sign(dec_c), np.sign(dec_t))
     assert launches_c["gram_matvec_sym"] > 0 and launches_c["gram_matvec_rect"] == 1
-    assert launches_t == {"gram_matvec_sym": 0, "gram_matvec_rect": 0}
+    assert launches_t == {"gram_matvec_sym": 0, "gram_matvec_rect": 0, "gram_pair_contrib": 0}

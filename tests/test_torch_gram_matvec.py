@@ -1,6 +1,6 @@
 """K1 and K2 on the CPU: the plain PyTorch versions, and the wrappers that
-dispatch to them for CPU tensors, against the JAX package's Pallas kernels
-and the numpy oracle.
+dispatch to them for CPU tensors (K3's too), against the JAX package's
+Pallas kernels and the numpy oracle; and the kernel build's source list.
 
 The Pallas kernels run as ``tests/test_solver.py:98-145`` runs them:
 ``interpret=True`` with ``precision=lax.Precision.HIGHEST`` (the exact tier;
@@ -8,6 +8,8 @@ the Pallas default is the bf16x3 tier, which the port does not have).
 Tolerance: ``max|got - want| <= 1e-5 * max|want|``, the exact-tier budget of
 ``test_solver.py:133-134``.
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,13 +88,15 @@ def test_plain_blocking_does_not_change_the_result(row_block):
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_wrappers_run_the_plain_version_on_cpu_tensors(kernel):
     """On CPU tensors the wrappers take the plain versions and launch
-    nothing: both launch counters stay at 0."""
+    nothing: every launch counter stays at 0."""
     X, v = _data(70, 6, seed=6)
     Xt, vt = torch.from_numpy(X), torch.from_numpy(v)
     gm.reset_launches()
     sym = gm.make_sym_matvec(kernel, Xt, **HYPER)(vt)
     rect = gm.gram_matvec(kernel, Xt[:9], vt, Y=Xt, **HYPER)
-    assert gm.launches == {"gram_matvec_sym": 0, "gram_matvec_rect": 0}
+    pair = gm.pair_gram_contrib(kernel, Xt[:9], Xt, vt[:9], vt, same=False, **HYPER)
+    assert gm.launches == {"gram_matvec_sym": 0, "gram_matvec_rect": 0, "gram_pair_contrib": 0}
+    torch.testing.assert_close(pair[0], rect, rtol=0, atol=0)
     torch.testing.assert_close(sym, gm.gram_matvec_sym_plain(kernel, Xt, vt, **HYPER),
                                rtol=0, atol=0)
     torch.testing.assert_close(rect, gm.gram_matvec_plain(kernel, Xt[:9], vt, Y=Xt, **HYPER),
@@ -106,4 +110,25 @@ def test_cuda_backend_on_cpu_tensors_raises():
     with pytest.raises(PLSSVMError, match="backend 'cuda' needs the system on a CUDA device"):
         build_operator(KernelType.rbf, Xt, torch.zeros(8), mask, 1.0, 1.0,
                        mode="implicit", backend=BackendType.cuda)
-    assert gm.launches == {"gram_matvec_sym": 0, "gram_matvec_rect": 0}
+    assert gm.launches == {"gram_matvec_sym": 0, "gram_matvec_rect": 0, "gram_pair_contrib": 0}
+
+
+def test_build_covers_every_source_and_header(tmp_path, monkeypatch):
+    """``ops/_build.py`` compiles every ``csrc/*.cu`` and rebuilds when any
+    source or header changes: both enter the hash."""
+    import shutil
+
+    from plssvm_sparse_fp22_tpu_torch.ops import _build
+
+    assert [os.path.basename(p) for p in _build.sources()] == ["gram_matvec.cu",
+                                                               "pair_contrib.cu"]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    before = _build._source_hash()
+    with open(csrc / "gram_tile.cuh", "a") as fh:
+        fh.write("// touched\n")
+    assert _build._source_hash() != before
+    (csrc / "extra.cu").write_text("// another kernel source\n")
+    assert [os.path.basename(p) for p in _build.sources()] == ["extra.cu", "gram_matvec.cu",
+                                                               "pair_contrib.cu"]

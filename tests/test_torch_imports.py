@@ -29,8 +29,10 @@ MODULES = [
     "plssvm_sparse_fp22_tpu_torch.ops.gram_matvec",
     "plssvm_sparse_fp22_tpu_torch.ops._build",
     "plssvm_sparse_fp22_tpu_torch.ops.matvec",
+    "plssvm_sparse_fp22_tpu_torch.ops.sparse",
     "plssvm_sparse_fp22_tpu_torch.solver.cg",
     "plssvm_sparse_fp22_tpu_torch.models.base",
+    "plssvm_sparse_fp22_tpu_torch.models.sparse_learn",
     "plssvm_sparse_fp22_tpu_torch.models.factory",
     "plssvm_sparse_fp22_tpu_torch.cli.train",
     "plssvm_sparse_fp22_tpu_torch.cli.predict",
@@ -58,8 +60,10 @@ def test_port_imports_no_jax():
 
 
 def test_a_cli_run_imports_no_jax(tmp_path):
-    """Train and predict through the CLIs in the fresh interpreter too."""
+    """Train and predict through the CLIs in the fresh interpreter too, on
+    dense data and on data that takes the sparse path."""
     data = os.path.join(ROOT, "tests", "data", "reference", "libsvm", "5x4.libsvm")
+    sparse = os.path.join(ROOT, "tests", "data", "reference", "libsvm", "5x4.sparse.libsvm")
     model, out = str(tmp_path / "m.model"), str(tmp_path / "p.predict")
     probe = (
         "import sys\n"
@@ -67,6 +71,8 @@ def test_a_cli_run_imports_no_jax(tmp_path):
         "from plssvm_sparse_fp22_tpu_torch.cli.predict import main as p\n"
         f"assert t(['-q', '-t', '2', {data!r}, {model!r}]) == 0\n"
         f"assert p(['-q', {data!r}, {model!r}, {out!r}]) == 0\n"
+        f"assert t(['-q', '-t', '2', {sparse!r}, {model!r}]) == 0\n"
+        f"assert p(['-q', {sparse!r}, {model!r}, {out!r}]) == 0\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'plssvm_sparse_fp22_tpu')))\n"
     )

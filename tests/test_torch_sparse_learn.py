@@ -1,0 +1,327 @@
+"""The port's sparse learns, tier routing, sparse predict and CLIs against the
+JAX package on the CPU (mirrors the learn-level tests of ``test_sparse.py``).
+
+Tolerances and why (``test_torch_model.py`` measured the same for the
+dense learns).  CG starts from x0 = 1 and amplifies the two packages'
+different summation orders, so:
+
+- float64, early stop (eps 1e-3): equal iteration counts, alphas to 1e-9
+  of their scale and the bias to 1e-9 of ``QA_cost * sum|alpha|``, the
+  scale of its own rounding (bias = y_last + QA_cost * sum(x) - q.x);
+- float64, converged (eps 1e-10): iteration counts within one, alphas to
+  1e-5 of their scale and the bias to 1e-6 against a direct solve of the
+  LS-SVM system;
+- prediction from the same trained state: decision values to 1e-10.
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import plssvm_sparse_fp22_tpu as jp
+import plssvm_sparse_fp22_tpu_torch as tp
+from plssvm_sparse_fp22_tpu.cli.predict import main as jax_predict
+from plssvm_sparse_fp22_tpu.cli.train import main as jax_train
+from plssvm_sparse_fp22_tpu.exceptions import PLSSVMError as JError
+from plssvm_sparse_fp22_tpu.io.libsvm import ParsedData as JParsed
+from plssvm_sparse_fp22_tpu.models.base import CSVM as JCSVM
+from plssvm_sparse_fp22_tpu.utils import oracle
+from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
+from plssvm_sparse_fp22_tpu_torch.cli.train import main as train_main
+from plssvm_sparse_fp22_tpu_torch.exceptions import PLSSVMError
+from plssvm_sparse_fp22_tpu_torch.io.libsvm import ParsedData as TParsed
+from plssvm_sparse_fp22_tpu_torch.io.model import write_model_file
+from plssvm_sparse_fp22_tpu_torch.models.base import CSVM as TCSVM
+from plssvm_sparse_fp22_tpu_torch.models.sparse_learn import learn_sparse_panel
+from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+
+PKGS = {"jax": (jp, JParsed), "torch": (tp, TParsed)}
+KT = tp.KernelType
+
+
+def _random_sparse(n, f, density=0.1, seed=0):
+    rng = np.random.default_rng(seed)
+    csr = sp.random(n, f, density=density, format="csr", random_state=rng,
+                    data_rvs=lambda k: rng.normal(size=k))
+    for i in range(n):
+        if csr.indptr[i] == csr.indptr[i + 1]:
+            csr[i, rng.integers(f)] = rng.normal()
+    csr = csr.tocsr()
+    y = np.where(rng.normal(size=n) > 0, 1.0, -1.0)
+    return csr, y
+
+
+def _params(pkg, csr, y, kernel, **kw):
+    mod, Parsed = PKGS[pkg]
+    kw.setdefault("dtype", np.float64)
+    p = mod.Parameter(kernel=mod.KernelType(int(kernel)), gamma=0.2, coef0=1.0,
+                      sparse_threshold=1.0, devices=1, print_info=False, **kw)
+    p.data = Parsed(csr=csr, values=y)
+    p.values = y
+    return p
+
+
+def _learn(pkg, csr, y, kernel, **kw):
+    svm = PKGS[pkg][0].make_csvm(_params(pkg, csr, y, kernel, **kw))
+    svm.learn()
+    return svm
+
+
+def _exact(csr, y, kernel, cost=1.0):
+    X = csr.toarray()
+    n = len(y)
+    M = np.zeros((n + 1, n + 1))
+    M[:n, :n] = oracle.kernel_matrix(jp.KernelType(int(kernel)), X, X, degree=3, gamma=0.2,
+                                     coef0=1.0) + np.eye(n) / cost
+    M[:n, n] = M[n, :n] = 1.0
+    sol = np.linalg.solve(M, np.concatenate([y, [0.0]]))
+    return sol[:n], sol[n]
+
+
+# (tier name, kernel, environment): each of the five learns, the panel learn
+# in both sweep schedules and over more than one panel
+TIERS = [
+    ("sparse_linear", KT.linear, {}),
+    ("sparse_gram", KT.polynomial, {"PLSSVM_SPARSE_MODE": "gram"}),
+    ("sparse_gram", KT.rbf, {"PLSSVM_SPARSE_MODE": "gram"}),
+    ("sparse_dense_implicit", KT.rbf, {"PLSSVM_SPARSE_MODE": "dense"}),
+    ("sparse_implicit", KT.polynomial,
+     {"PLSSVM_SPARSE_MODE": "implicit", "PLSSVM_K_CACHE_BYTES": "1000"}),
+    ("sparse_implicit", KT.rbf,
+     {"PLSSVM_SPARSE_MODE": "implicit", "PLSSVM_K_CACHE_BYTES": "1000",
+      "PLSSVM_SPARSE_PANEL_SWEEP": "windowed"}),
+    ("sparse_implicit", KT.rbf,
+     {"PLSSVM_SPARSE_MODE": "implicit", "PLSSVM_SPARSE_STREAM": "gather"}),
+]
+TIER_IDS = ["linear", "gram-poly", "gram-rbf", "dense-rbf", "panel-unrolled-poly",
+            "panel-windowed-rbf", "gather-rbf"]
+
+
+@pytest.mark.parametrize("mode,kernel,env", TIERS, ids=TIER_IDS)
+def test_sparse_learn_matches_jax(mode, kernel, env, monkeypatch):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    csr, y = _random_sparse(300, 40, density=0.15, seed=13)
+    kw = dict(epsilon=1e-3, max_iter=200)
+    j, t = _learn("jax", csr, y, kernel, **kw), _learn("torch", csr, y, kernel, **kw)
+    ji, ti = j.last_cg_info, t.last_cg_info
+    assert ti["mode"] == ji["mode"] == mode
+    assert ti["iterations"] == ji["iterations"]
+    assert (ti["dept"], ti["padded"]) == (ji["dept"], ji["padded"]) == (299, 512)
+    scale = np.abs(j.alphas).max()
+    np.testing.assert_allclose(t.alphas, j.alphas, rtol=1e-9, atol=1e-9 * scale)
+    assert t.bias_ == pytest.approx(j.bias_, abs=1e-9 * t.QA_cost_ * np.abs(j.alphas).sum())
+
+
+@pytest.mark.parametrize("mode,kernel,env", TIERS, ids=TIER_IDS)
+def test_sparse_learn_converges_to_the_exact_solution(mode, kernel, env, monkeypatch):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    csr, y = _random_sparse(300, 40, density=0.15, seed=13)
+    kw = dict(epsilon=1e-10, max_iter=500)
+    j, t = _learn("jax", csr, y, kernel, **kw), _learn("torch", csr, y, kernel, **kw)
+    assert t.last_cg_info["mode"] == mode
+    assert abs(t.last_cg_info["iterations"] - j.last_cg_info["iterations"]) <= 1
+    alphas, bias = _exact(csr, y, kernel)
+    scale = np.abs(alphas).max()
+    np.testing.assert_allclose(t.alphas, alphas, rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(t.alphas, j.alphas, rtol=0, atol=1e-5 * scale)
+    assert t.bias_ == pytest.approx(bias, abs=1e-6)
+
+
+def test_sparse_learn_with_heavy_rows_matches_jax(monkeypatch):
+    """The panel learn with heavy rows spilled from the tiled packing, over
+    several panels, and Jacobi PCG."""
+    monkeypatch.setenv("PLSSVM_SPARSE_MODE", "implicit")
+    monkeypatch.setenv("PLSSVM_K_CACHE_BYTES", "5000000")
+    rng = np.random.default_rng(31)
+    n, f = 520, 600
+    csr = sp.random(n, f, density=0.03, format="lil", random_state=rng,
+                    data_rvs=lambda k: rng.normal(size=k))
+    for r in (11, 250, 400):
+        csr[r, :] = rng.normal(size=f)
+    csr = csr.tocsr()
+    for i in range(n):
+        if csr.indptr[i] == csr.indptr[i + 1]:
+            csr[i, rng.integers(f)] = rng.normal()
+    csr = csr.tocsr()
+    y = np.where(rng.normal(size=n) > 0, 1.0, -1.0)
+    kw = dict(epsilon=1e-3, max_iter=200, precond="jacobi")
+    j, t = _learn("jax", csr, y, KT.rbf, **kw), _learn("torch", csr, y, KT.rbf, **kw)
+    assert t.last_cg_info["mode"] == j.last_cg_info["mode"] == "sparse_implicit"
+    assert t.last_cg_info["iterations"] == j.last_cg_info["iterations"]
+    np.testing.assert_allclose(t.alphas, j.alphas, rtol=1e-9,
+                               atol=1e-9 * np.abs(j.alphas).max())
+
+
+# --- the tier policy -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("budget,mode", [(None, "sparse_gram"), ("100000", "sparse_dense_implicit"),
+                                         ("1000", "sparse_implicit")])
+def test_auto_routing_matches_jax(budget, mode, monkeypatch):
+    if budget is not None:
+        monkeypatch.setenv("PLSSVM_K_CACHE_BYTES", budget)
+    csr, y = _random_sparse(200, 30, density=0.12, seed=31)
+    kw = dict(epsilon=1e-3, max_iter=100)
+    j, t = _learn("jax", csr, y, KT.rbf, **kw), _learn("torch", csr, y, KT.rbf, **kw)
+    assert t.last_cg_info["mode"] == j.last_cg_info["mode"] == mode
+
+
+def test_plan_sparse_panel_policy():
+    csr, y = _random_sparse(128, 64, density=0.1, seed=61)
+    svm = tp.CSVM(_params("torch", csr, y, KT.rbf))
+    th, use_cuda, sweep = svm._plan_sparse_panel(csr, 127, 128)
+    jth, _, jsweep = JCSVM(_params("jax", csr, y, KT.rbf))._plan_sparse_panel(csr, 127, 128)
+    assert th.tell.vals.shape[0] == 128 and th.tell.Lt == jth.tell.Lt
+    assert use_cuda is False  # torch backend on the CPU: the plain versions
+    assert sweep == jsweep == "unrolled"
+    # extreme sparsity (the gather regime) and dense-ish packings: no plan
+    wide, yw = _random_sparse(64, 200_000, density=0.00001, seed=63)
+    assert tp.CSVM(_params("torch", wide, yw, KT.rbf))._plan_sparse_panel(wide, 63, 64) is None
+    rng = np.random.default_rng(5)
+    dense = sp.random(96, 256, density=0.9, format="csr", random_state=rng)
+    assert svm._plan_sparse_panel(dense, 95, 96) is None
+    assert svm._device_memory_bytes() == 1 << 40
+
+
+def test_tier_guards_respect_physical_memory(monkeypatch):
+    """Dense X fits the budget but not the device's working set: both cached
+    tiers refuse and the learn streams, in both packages."""
+    csr, y = _random_sparse(256, 64, density=0.1, seed=67)
+    physical = 2 * 256 * 64 * 8
+    monkeypatch.setattr(TCSVM, "_device_memory_bytes", lambda self: physical)
+    monkeypatch.setattr(JCSVM, "_device_memory_bytes", staticmethod(lambda: physical))
+    kw = dict(epsilon=1e-3, max_iter=100)
+    j, t = _learn("jax", csr, y, KT.rbf, **kw), _learn("torch", csr, y, KT.rbf, **kw)
+    assert t.last_cg_info["mode"] == j.last_cg_info["mode"] == "sparse_implicit"
+
+
+def test_plan_goes_windowed_beyond_memory(monkeypatch):
+    csr, y = _random_sparse(128, 64, density=0.1, seed=61)
+    svm = tp.CSVM(_params("torch", csr, y, KT.rbf))
+    dense_bytes = 128 * 128 * 8
+    monkeypatch.setattr(TCSVM, "_device_memory_bytes", lambda self: 4 * dense_bytes - 1)
+    assert svm._plan_sparse_panel(csr, 127, 128)[2] == "windowed"
+    monkeypatch.setattr(TCSVM, "_device_memory_bytes", lambda self: 1024)
+    assert svm._plan_sparse_panel(csr, 127, 128) is None
+
+
+def test_panel_tier_on_cuda_refuses_float64(monkeypatch):
+    """On the ``cuda`` backend the panel pairs run K1/K3, which are float32
+    only: float64 is refused, as the dense implicit mode refuses it, rather
+    than run the plain pairs on the card."""
+    csr, y = _random_sparse(128, 64, density=0.1, seed=61)
+    monkeypatch.setattr(TCSVM, "_device_memory_bytes", lambda self: 80 << 30)
+    for dtype, raises in ((np.float64, True), (np.float32, False)):
+        svm = tp.CSVM(_params("torch", csr, y, KT.rbf, dtype=dtype))
+        svm.backend = tp.BackendType.cuda
+        if raises:
+            with pytest.raises(PLSSVMError, match="K4.*--use_float"):
+                svm._plan_sparse_panel(csr, 127, 128)
+        else:
+            assert svm._plan_sparse_panel(csr, 127, 128)[1] is True
+
+
+def test_sparse_refusals():
+    csr, y = _random_sparse(40, 20, density=0.15, seed=3)
+    msgs = {}
+    for pkg in PKGS:
+        svm = PKGS[pkg][0].make_csvm(_params(pkg, csr, y, KT.rbf, verbose_cg=True))
+        with pytest.raises((JError, PLSSVMError)) as info:
+            svm.learn()
+        msgs[pkg] = str(info.value)
+    assert msgs["torch"] == msgs["jax"]
+    assert "sparse learn path" in msgs["torch"]
+    th = tp.CSVM(_params("torch", csr, y, KT.rbf))._plan_sparse_panel(csr, 39, 40)[0]
+    with pytest.raises(PLSSVMError, match="K4"):
+        learn_sparse_panel(th.tell.vals, th.tell.lcols, torch.zeros(20, dtype=torch.float64),
+                           torch.zeros(40, dtype=torch.float64),
+                           torch.ones(40, dtype=torch.float64), 0.2, 1.0, 1.0, 1e-3, 10,
+                           kernel=KT.rbf, degree=3, ntiles=th.tell.ntiles, Lt=th.tell.Lt,
+                           panel_rows=40, mxu_plan=("default", "high"))
+
+
+# --- predict ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernel", [KT.linear, KT.polynomial, KT.rbf])
+def test_sparse_predict_from_jax_state_matches_jax(kernel):
+    """A sparse JAX model carried over with ``csvm_from_state`` (CSR support
+    vectors, sparse_threshold kept) predicts what the JAX model predicts:
+    ``predict`` on dense points, ``predict_parsed`` on sparse and dense
+    batches, and ``accuracy``."""
+    csr, y = _random_sparse(50, 20, density=0.15, seed=13)
+    j = _learn("jax", csr, y, kernel, epsilon=1e-8, max_iter=300)
+    state = {"kernel": int(j.kernel), "degree": j.degree, "gamma": j.gamma, "coef0": j.coef0,
+             "alphas": j.alphas, "bias_": j.bias_, "support_vectors": j.data.csr,
+             "values": j.values, "sparse_threshold": j.params.sparse_threshold}
+    t = tp.csvm_from_state(state, dtype=np.float64, print_info=False)
+    assert t._use_sparse() and t.data._dense is None
+    test_csr, _ = _random_sparse(15, 20, density=0.15, seed=14)
+    P = test_csr.toarray()
+    np.testing.assert_allclose(t.predict(P), j.predict(P), rtol=1e-10, atol=1e-10)
+    for parsed_t, parsed_j in [(TParsed(csr=test_csr, values=None),
+                                JParsed(csr=test_csr, values=None)),
+                               (TParsed(csr=sp.csr_matrix(np.ones((3, 20))), values=None),
+                                JParsed(csr=sp.csr_matrix(np.ones((3, 20))), values=None))]:
+        np.testing.assert_allclose(t.predict_parsed(parsed_t), j.predict_parsed(parsed_j),
+                                   rtol=1e-10, atol=1e-10)
+    assert t.data._dense is None  # nothing densified the support vectors
+    assert t.accuracy() == j.accuracy()
+    np.testing.assert_array_equal(t.predict_label_parsed(TParsed(csr=test_csr, values=None)),
+                                  j.predict_label_parsed(JParsed(csr=test_csr, values=None)))
+
+
+@pytest.mark.parametrize("kernel", [KT.linear, KT.polynomial, KT.rbf])
+def test_sparse_model_file_equals_dense(kernel, tmp_path):
+    csr, y = _random_sparse(40, 18, density=0.2, seed=11)
+    svm = _learn("torch", csr, y, kernel, epsilon=1e-8, max_iter=300)
+    svm.write_model(str(tmp_path / "s.model"))
+    write_model_file(str(tmp_path / "d.model"), kernel=svm.kernel, rho=-svm.bias_,
+                     data=csr.toarray(), labels=y, alphas=svm.alphas, degree=svm.degree,
+                     gamma=svm.gamma, coef0=svm.coef0)
+    assert (tmp_path / "s.model").read_text() == (tmp_path / "d.model").read_text()
+
+
+# --- CLIs ---------------------------------------------------------------------
+
+#: (fixture, --sparse_threshold): the reference's 5x4.sparse (density 0.25)
+#: takes the sparse path at the default threshold; 120x16.sparse (density
+#: 0.40) takes the dense path there in both packages, and the sparse path
+#: at 0.5
+CLI_CASES = [("5x4.sparse", None), ("120x16.sparse", None), ("120x16.sparse", "0.5")]
+
+
+@pytest.mark.parametrize("kernel_flag", ["0", "1", "2"])
+@pytest.mark.parametrize("dataset,threshold", CLI_CASES)
+def test_sparse_cli_matches_jax(dataset, threshold, kernel_flag, reference_data_dir, tmp_path):
+    import os
+
+    path = (os.path.join(os.path.dirname(__file__), "data", f"{dataset}.libsvm")
+            if dataset.startswith("120") else f"{reference_data_dir}/libsvm/{dataset}.libsvm")
+    extra = [] if threshold is None else ["--sparse_threshold", threshold]
+    flags = ["-q", "-t", kernel_flag, "-e", "1e-6"] + extra
+    t_model, j_model = str(tmp_path / "t.model"), str(tmp_path / "j.model")
+    gm.reset_launches()
+    assert train_main(flags + [path, t_model]) == 0
+    assert jax_train(flags + [path, j_model]) == 0
+    assert predict_main(["-q"] + extra + [path, t_model, str(tmp_path / "t.predict")]) == 0
+    assert jax_predict(["-q"] + extra + [path, j_model, str(tmp_path / "j.predict")]) == 0
+    np.testing.assert_array_equal(np.loadtxt(tmp_path / "t.predict"),
+                                  np.loadtxt(tmp_path / "j.predict"))
+    assert not any(gm.launches.values())  # the CPU runs the plain versions
+    p = tp.Parameter(kernel=tp.KernelType.from_string(kernel_flag), epsilon=1e-6,
+                     print_info=False)
+    if threshold is not None:
+        p.sparse_threshold = float(threshold)
+    p.parse_train_file(path)
+    svm = tp.make_csvm(p)
+    svm.learn()
+    sparse = p.data.density <= p.sparse_threshold
+    assert sparse == (dataset.startswith("5x4") or threshold is not None)
+    want = {"0": "linear", "1": "cached", "2": "cached"}[kernel_flag]
+    if sparse:
+        want = "sparse_linear" if kernel_flag == "0" else "sparse_gram"
+    assert svm.last_cg_info["mode"] == want

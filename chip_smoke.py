@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--profile]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
-the repository around this script; it imports nothing of JAX.  Phases, one
-line or more each, any failure exits non-zero:
+the repository around this script; it imports nothing of JAX.  Phases 3-10
+check the exact tier and pin ``PLSSVM_MATMUL_PRECISION=highest``; phases
+11-14 run the bf16x3 / bf16cast tiers and the default adaptive plan.
+Phases, one line or more each, any failure exits non-zero:
 
 1. device: ``nvidia-smi`` name and power limit, CUDA version;
 2. build: every ``csrc/*.cu`` through ``ops/_build.py``;
@@ -36,9 +38,22 @@ line or more each, any failure exits non-zero:
 9. the sparse-linear CLI at the same size, CG it/s of every sparse tier
    at a pinned count, bitwise repeatability of two sparse learns, and one
    ``gather``-arm learn at 8192 x 262144 and 0.01 % density;
-10. only with ``--profile``: ``torch.profiler`` over 12 CG iterations of
-    each sparse tier (4 of the gather arm), printing the device's idle
-    share of the CG wall time and the six costliest kernels.
+10. only with ``--profile``, run last: ``torch.profiler`` over 12 CG
+    iterations of each sparse tier (4 of the gather arm), printing the
+    device's idle share of the CG wall time and the six costliest kernels;
+11. K4: K1, K2 and K3 at the bf16x3 and bf16cast tiers, three kernels, at
+    the main path's shapes (and K3's ragged pair), each against its plain
+    version at the same tier and against the exact kernel;
+12. the adaptive dense main path: ``plssvm-train-torch`` on phase 6's
+    32768 x 256 file with the default plan (bf16cast CG, verified and, if
+    need be, continued on bf16x3), then ``plssvm-predict-torch`` with each
+    bf16 tier pinned (K2 at that tier);
+13. the adaptive sparse ``dense`` and ``implicit`` tiers through the CLIs
+    on phase 8's 16384 x 4096, 1 % files;
+14. a forced escalation (``PLSSVM_CG_STAG_PATIENCE=2``, eps 1e-9) at rbf
+    4096 x 256, and CG it/s at a pinned count per tier (``highest``,
+    ``high``, ``default``) at rbf 32768 x 256 and at the sparse
+    ``implicit`` tier.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Scratch files go to ``.smoke_work/``
@@ -63,17 +78,32 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".smoke_work")
 SEED = 20261016
 #: kernel vs plain version: the two differ only in summation order, over up
-#: to 32768 terms per entry
+#: to 32768 terms per entry; at a bf16 tier both multiply the same bf16
+#: operands exactly, and the tensor core's f32 accumulation (not rounded to
+#: nearest at every add) is one more difference in the order of the sums
 TOL = 1e-4
+#: a bf16 tier against the exact kernel, relative to max|exact|: the budgets
+#: of tests/test_solver.py:133-137
+TIER_BUDGET = {"bf16x3": 1e-3, "bf16cast": 3e-2}
 SOURCES = {
     "gram_matvec_sym": "plssvm_sparse_fp22_tpu_torch/csrc/gram_matvec.cu",
     "gram_matvec_rect": "plssvm_sparse_fp22_tpu_torch/csrc/gram_matvec.cu",
     "gram_pair_contrib": "plssvm_sparse_fp22_tpu_torch/csrc/pair_contrib.cu",
 }
+_PALLAS = "plssvm_sparse_fp22_tpu/ops/pallas_matvec.py"
+#: the TPU kernel (body, or its tier arm) each kernel x tier replaces; K3
+#: (pair_gram_contrib) runs the body of K1 over two panels, so its bf16 tiers
+#: replace the same arms as K1's
 REPLACES = {
-    "gram_matvec_sym": "plssvm_sparse_fp22_tpu/ops/pallas_matvec.py:388",
-    "gram_matvec_rect": "plssvm_sparse_fp22_tpu/ops/pallas_matvec.py:117",
-    "gram_pair_contrib": "plssvm_sparse_fp22_tpu/ops/pallas_matvec.py:716",
+    "gram_matvec_sym/exact": f"{_PALLAS}:388",
+    "gram_matvec_sym/bf16x3": f"{_PALLAS}:441",
+    "gram_matvec_sym/bf16cast": f"{_PALLAS}:453",
+    "gram_matvec_rect/exact": f"{_PALLAS}:117",
+    "gram_matvec_rect/bf16x3": f"{_PALLAS}:157",
+    "gram_matvec_rect/bf16cast": f"{_PALLAS}:165",
+    "gram_pair_contrib/exact": f"{_PALLAS}:716",
+    "gram_pair_contrib/bf16x3": f"{_PALLAS}:441",
+    "gram_pair_contrib/bf16cast": f"{_PALLAS}:453",
 }
 #: the sparse main path: the JAX bench's sparse size (bench.py:640-643) and
 #: its gamma = 256 / f (bench.py:191-199: at 1 / f the rbf matrix is nearly
@@ -169,6 +199,11 @@ def recording_csvms(cli_module):
         yield made
     finally:
         cli_module.make_csvm = build
+
+
+def nonzero(counts: dict) -> dict:
+    """The launch counters that are not 0."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def timed_ms(fn, reps: int) -> float:
@@ -359,12 +394,13 @@ def phase_main_path(rng):
     check(m is not None, "train CLI printed no iteration count")
     iters = int(m.group(1))
     # only the implicit mode on the cuda backend launches K1
-    check(after_train["gram_matvec_sym"] > 0, "training did not launch K1 (implicit mode)")
-    check(after_train["gram_matvec_sym"] == iters + 1 + iters // 50,
-          f"K1 launches {after_train['gram_matvec_sym']} != one per CG iteration plus "
-          f"the initial residual and the refreshes ({iters} iterations)")
+    k1 = after_train["gram_matvec_sym/exact"]
+    check(k1 > 0, "training did not launch K1 (implicit mode)")
+    check(k1 == iters + 1 + iters // 50,
+          f"K1 launches {k1} != one per CG iteration plus the initial residual and the "
+          f"refreshes ({iters} iterations)")
     print(f"[6 main path] train CLI: rc 0, {iters} CG iterations in implicit mode, "
-          f"{train_s:.1f} s end to end, launches {after_train}", flush=True)
+          f"{train_s:.1f} s end to end, launches {nonzero(after_train)}", flush=True)
 
     t0 = time.perf_counter()
     rc, log = run_cli(predict_main, ["--use_float", "-b", "cuda", "-p", "gpu_nvidia",
@@ -372,7 +408,7 @@ def phase_main_path(rng):
     predict_s = time.perf_counter() - t0
     launches = dict(gm.launches)
     check(rc == 0, f"predict CLI returned {rc}")
-    check(launches["gram_matvec_rect"] > after_train["gram_matvec_rect"],
+    check(launches["gram_matvec_rect/exact"] > after_train["gram_matvec_rect/exact"],
           "prediction did not launch K2")
     labels = np.loadtxt(out)
     check(labels.shape == (n_test,) and set(np.unique(labels)) <= {-1.0, 1.0},
@@ -384,8 +420,8 @@ def phase_main_path(rng):
     check(abs(np.mean(labels == y[n_train:]) * 100 - acc) < 1e-9,
           "accuracy line disagrees with the labels")
     print(f"[6 main path] predict CLI: rc 0, accuracy {acc}%, {predict_s:.1f} s end to end, "
-          f"launches {launches}", flush=True)
-    return launches
+          f"launches {nonzero(launches)}", flush=True)
+    return {"launches": launches, "train": train, "test": test}
 
 
 def phase_reference(rng):
@@ -429,24 +465,18 @@ def phase_reference(rng):
           flush=True)
 
 
-def phase_timing(dev, rng):
+def dense_system(dev, X, y, gamma):
+    """The reduced rbf CG system of a dense data set on the card, as
+    ``CSVM._learn_dense`` builds it (C = 1): ``(X_pad, q, mask, QA_cost,
+    cost_inv, b)``, padded to a multiple of 256 rows."""
     import torch
 
-    from plssvm_sparse_fp22_tpu_torch import make_csvm
-    from plssvm_sparse_fp22_tpu_torch.io.libsvm import ParsedData
     from plssvm_sparse_fp22_tpu_torch.ops.kernel_functions import gram_block, kernel_scalar
-    from plssvm_sparse_fp22_tpu_torch.ops.matvec import build_operator
-    from plssvm_sparse_fp22_tpu_torch.params import Parameter
-    from plssvm_sparse_fp22_tpu_torch.solver.cg import cg_solve
-    from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType
+    from plssvm_sparse_fp22_tpu_torch.types import KernelType
 
-    import scipy.sparse as sp
-
-    n, f = 4096, 256
-    gamma = 1.0 / f
-    X, y = two_blobs(n, f, rng)
+    n, f = X.shape
     dept = n - 1
-    D = 4096
+    D = -(-dept // 256) * 256
     Xp = np.zeros((D, f), np.float32)
     Xp[:dept] = X[:dept]
     Xd = torch.tensor(Xp, device=dev)
@@ -458,26 +488,53 @@ def phase_timing(dev, rng):
     cost_inv = torch.tensor(1.0, device=dev)
     q = gram_block(KernelType.rbf, Xd, xl[None, :], gamma=gamma)[:, 0] * mask
     QA = kernel_scalar(KernelType.rbf, xl, xl, gamma=gamma) + cost_inv
+    return Xd, q, mask, QA, cost_inv, b
+
+
+def pinned_cg_rate(op, b, mask, caps) -> float:
+    """CG iterations per second of an operator at a pinned count: eps = 0,
+    the slope of the synchronised solve time between two caps."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.solver.cg import cg_solve
+
+    secs = {}
+    for imax in caps:
+        cg_solve(op.matvec, b, mask, 0.0, 5)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cg_solve(op.matvec, b, mask, 0.0, imax)
+        torch.cuda.synchronize()
+        secs[imax] = time.perf_counter() - t0
+        check(res.iterations == imax, f"pinned CG ran {res.iterations} != {imax}")
+    return (caps[1] - caps[0]) / (secs[caps[1]] - secs[caps[0]])
+
+
+def phase_timing(dev, rng):
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch import make_csvm
+    from plssvm_sparse_fp22_tpu_torch.io.libsvm import ParsedData
+    from plssvm_sparse_fp22_tpu_torch.ops.matvec import build_operator
+    from plssvm_sparse_fp22_tpu_torch.params import Parameter
+    from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType
+
+    import scipy.sparse as sp
+
+    n, f = 4096, 256
+    gamma = 1.0 / f
+    X, y = two_blobs(n, f, rng)
+    Xd, q, mask, QA, cost_inv, b = dense_system(dev, X, y, gamma)
 
     print(f"[7 timing] rbf {n} x {f} float32, implicit mode, CG at eps = 0", flush=True)
     rates = {}
     for backend in (BackendType.cuda, BackendType.torch, BackendType.torch, BackendType.cuda):
         op = build_operator(KernelType.rbf, Xd, q, mask, QA, cost_inv, gamma=gamma,
                             mode="implicit", backend=backend)
-        secs = {}
-        for imax in (20, 120):
-            cg_solve(op.matvec, b, mask, 0.0, 5)  # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = cg_solve(op.matvec, b, mask, 0.0, imax)
-            torch.cuda.synchronize()
-            secs[imax] = time.perf_counter() - t0
-            check(res.iterations == imax, f"pinned CG ran {res.iterations} != {imax}")
-        rate = 100 / (secs[120] - secs[20])
+        rate = pinned_cg_rate(op, b, mask, (20, 120))
         rates.setdefault(backend.value, []).append(rate)
         print(f"  {backend.value:5s} ({'K1' if backend == BackendType.cuda else 'plain'}): "
-              f"{rate:.1f} CG it/s (20 it {secs[20]:.4f} s, 120 it {secs[120]:.4f} s)",
-              flush=True)
+              f"{rate:.1f} CG it/s (slope 20 -> 120 iterations)", flush=True)
 
     p = Parameter(kernel=KernelType.rbf, gamma=gamma, epsilon=1e-6, max_iter=1000,
                   dtype=np.float32, backend=BackendType.cuda, print_info=False)
@@ -618,10 +675,11 @@ def phase_sparse_main(dev):
         check(info["mode"] == mode, f"{name} tier ran mode {info['mode']}, not {mode}")
         # A·v products: the initial residual, one per iteration, the refreshes
         mvs = iters + 1 + iters // 50
-        want = {"auto": {"gram_matvec_sym": 0, "gram_pair_contrib": 0},
-                "dense": {"gram_matvec_sym": mvs, "gram_pair_contrib": 0},
+        want = {"auto": {"gram_matvec_sym/exact": 0, "gram_pair_contrib/exact": 0},
+                "dense": {"gram_matvec_sym/exact": mvs, "gram_pair_contrib/exact": 0},
                 # 4 panels: 4 diagonal pairs on K1, 6 cross pairs on K3
-                "implicit": {"gram_matvec_sym": 4 * mvs, "gram_pair_contrib": 6 * mvs}}[name]
+                "implicit": {"gram_matvec_sym/exact": 4 * mvs,
+                             "gram_pair_contrib/exact": 6 * mvs}}[name]
         check(all(counts[k] == v for k, v in want.items()),
               f"{name} tier launches {counts}, expected {want}")
         decisions[name] = svm.predict_parsed(test_data)
@@ -638,7 +696,7 @@ def phase_sparse_main(dev):
         check(agree >= 0.999, f"predict CLI labels agree with the decision values on {agree:.4f}")
         launches[name] = counts
         print(f"[8 sparse] {name} tier: mode {mode}, {iters} CG iterations, train CLI "
-              f"{train_s:.1f} s, accuracy {m.group(1)}%, launches {counts}", flush=True)
+              f"{train_s:.1f} s, accuracy {m.group(1)}%, launches {nonzero(counts)}", flush=True)
         del made, svm
     scale = float(np.abs(decisions["auto"]).max())
     for name in ("dense", "implicit"):
@@ -803,6 +861,280 @@ def phase_profile(sparse):
             print(f"  {ms:10.3f} ms x {count:4d}  {key[:60]}", flush=True)
 
 
+def compare_tier(name, tier, got, want, exact, ms, plain_ms, label):
+    """A bf16-tier kernel against its plain version at the tier (``TOL``)
+    and against the exact kernel (``TIER_BUDGET``); returns max|got - want|."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    off = float((got - exact).abs().max()) / float(exact.abs().max())
+    print(f"  {name} {tier} {label}: max|d| vs plain {err:.3e} (rel {err / scale:.2e}, tol "
+          f"{TOL:g}), vs exact rel {off:.2e} (budget {TIER_BUDGET[tier]:g}); kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms per call", flush=True)
+    check(err <= TOL * scale, f"{name} {tier} {label} disagrees with its plain version: "
+          f"{err} > {TOL} * {scale}")
+    check(off <= TIER_BUDGET[tier], f"{name} {tier} {label} is {off:.2e} off the exact kernel")
+    return err
+
+
+def phase_k4(dev, rng):
+    """The bf16x3 and bf16cast tiers of K1, K2 and K3 at the main path's
+    shapes, three kernels, against their plain versions at the tier and the
+    exact kernel.  The wrappers split or cast per call where the main path
+    does (K2's support vectors, K3's transient panels), so their times
+    include it; K1 splits once, as ``make_sym_matvec`` does for a CG loop."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.types import KernelType
+
+    print(f"[11 K4] bf16x3 / bf16cast tiers vs their plain versions (tol {TOL:g}) and the exact "
+          f"kernel (budgets {TIER_BUDGET}), float32 inputs", flush=True)
+    f = 256
+    X = torch.tensor(rng.normal(size=(32768, f)), dtype=torch.float32, device=dev)
+    v = torch.tensor(rng.normal(size=32768), dtype=torch.float32, device=dev)
+    Y = torch.tensor(rng.normal(size=(32768, f)), dtype=torch.float32, device=dev)
+    a = torch.tensor(rng.normal(size=32768), dtype=torch.float32, device=dev)
+    P = torch.tensor(rng.normal(size=(4096, f)), dtype=torch.float32, device=dev)
+    sqx, sqy = gm.row_sqnorms(X), gm.row_sqnorms(Y)
+    records = {}
+    for kernel in KernelType:
+        kw = {"degree": 3, "gamma": 1.0 / f, "coef0": 1.0}
+        exact1 = gm.make_sym_matvec(kernel, X, tier="exact", **kw)(v)
+        exact2 = gm.gram_matvec(kernel, P, a, Y=Y, sqy=sqy, tier="exact", **kw)
+        for tier in TIER_BUDGET:
+            mv = gm.make_sym_matvec(kernel, X, tier=tier, **kw)
+            ops = gm.tier_operands(tier, X)
+
+            def plain1():
+                return gm.gram_matvec_sym_plain(kernel, X, v, sq=sqx, tier=tier, operands=ops,
+                                                **kw)
+
+            got, want = mv(v), plain1()
+            torch.cuda.synchronize()
+            ms, plain_ms = timed_ms(lambda: mv(v), 20), timed_ms(plain1, 3)
+            err = compare_tier("K1", tier, got, want, exact1, ms, plain_ms,
+                               f"{kernel.name} (32768, {f})")
+            if kernel == KernelType.rbf:
+                records[f"gram_matvec_sym/{tier}"] = {"max_abs_err": err, "ms": ms,
+                                                      "plain_ms": plain_ms}
+
+            def kern2():
+                return gm.gram_matvec(kernel, P, a, Y=Y, sqy=sqy, tier=tier, **kw)
+
+            def plain2():
+                return gm.gram_matvec_plain(kernel, P, a, Y=Y, sqy=sqy, tier=tier, **kw)
+
+            got, want = kern2(), plain2()
+            torch.cuda.synchronize()
+            ms, plain_ms = timed_ms(kern2, 20), timed_ms(plain2, 5)
+            err = compare_tier("K2", tier, got, want, exact2, ms, plain_ms,
+                               f"{kernel.name} P (4096, {f}) vs 32768 SVs")
+            if kernel == KernelType.rbf:
+                records[f"gram_matvec_rect/{tier}"] = {"max_abs_err": err, "ms": ms,
+                                                       "plain_ms": plain_ms}
+    del X, Y, P, exact1, exact2
+    for Di, Dj, f in [(4096, 4096, 4096), (3000, 1700, 1001)]:
+        Xi = torch.tensor(rng.normal(size=(Di, f)), dtype=torch.float32, device=dev)
+        Xj = torch.tensor(rng.normal(size=(Dj, f)), dtype=torch.float32, device=dev)
+        vi = torch.tensor(rng.normal(size=Di), dtype=torch.float32, device=dev)
+        vj = torch.tensor(rng.normal(size=Dj), dtype=torch.float32, device=dev)
+        sqi, sqj = gm.row_sqnorms(Xi), gm.row_sqnorms(Xj)
+        for kernel in KernelType:
+            kw = {"same": False, "sq_i": sqi, "sq_j": sqj, "degree": 3, "gamma": 1.0 / f,
+                  "coef0": 1.0}
+            exact3 = torch.cat(gm.pair_gram_contrib(kernel, Xi, Xj, vi, vj, tier="exact", **kw))
+            for tier in TIER_BUDGET:
+                def kern3():
+                    return gm.pair_gram_contrib(kernel, Xi, Xj, vi, vj, tier=tier, **kw)
+
+                def plain3():
+                    return gm.pair_gram_contrib_plain(kernel, Xi, Xj, vi, vj, tier=tier, **kw)
+
+                got, want = torch.cat(kern3()), torch.cat(plain3())
+                torch.cuda.synchronize()
+                ms, plain_ms = timed_ms(kern3, 10), timed_ms(plain3, 5)
+                err = compare_tier("K3", tier, got, want, exact3, ms, plain_ms,
+                                   f"{kernel.name} ({Di}, {Dj}, f {f})")
+                if (Di, kernel) == (4096, KernelType.rbf):
+                    records[f"gram_pair_contrib/{tier}"] = {"max_abs_err": err, "ms": ms,
+                                                            "plain_ms": plain_ms}
+    return records
+
+
+def check_adaptive(tag: str, info: dict, counts: dict, per_mv: dict, eps: float) -> None:
+    """An adaptive learn's contract: the final residual is the accurate
+    tier's and meets eps^2 delta0, and each tier launched its kernels once
+    per A·v of its leg (``per_mv`` launches of each kernel per A·v): the
+    fast leg's initial residual, iterations and refreshes on bf16cast; the
+    verify step, the escalated iterations and their refreshes on bf16x3."""
+    iters, kf = info["iterations"], info["fast_iterations"]
+    check(info["delta"] <= eps ** 2 * info["delta0"],
+          f"{tag}: residual {info['delta']} above eps^2 delta0 = {eps ** 2 * info['delta0']}")
+    fast_mvs = kf + 1 + kf // 50
+    acc_mvs = 1 + (iters - kf) + (iters // 50 - kf // 50)
+    for kernel, n in per_mv.items():
+        got = (counts[f"{kernel}/bf16cast"], counts[f"{kernel}/bf16x3"])
+        check(got == (n * fast_mvs, n * acc_mvs),
+              f"{tag}: {kernel} launched {got} times on (bf16cast, bf16x3), expected "
+              f"{(n * fast_mvs, n * acc_mvs)} ({kf} fast of {iters} iterations)")
+    check(not any(v for k, v in counts.items() if k.endswith("/exact")),
+          f"{tag}: an exact kernel launched in an adaptive learn: {nonzero(counts)}")
+
+
+def cg_ms(log: str) -> int:
+    """The train CLI's own learn time ("... using CG in <ms>ms")."""
+    m = re.search(r"using CG in (\d+)ms", log)
+    check(m is not None, "train CLI printed no learn time")
+    return int(m.group(1))
+
+
+def phase_adaptive_dense(main):
+    """The dense main path with the default plan: train on phase 6's file,
+    then predict with each bf16 tier pinned (K2 at that tier)."""
+    from plssvm_sparse_fp22_tpu_torch.cli import train as train_cli
+    from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+
+    model, out = os.path.join(WORK, "adaptive.model"), os.path.join(WORK, "adaptive.predict")
+    with environ(PLSSVM_MATMUL_PRECISION=""), recording_csvms(train_cli) as made:
+        gm.reset_launches()
+        t0 = time.perf_counter()
+        rc, log = run_cli(train_cli.main, ["-t", "2", "-e", "1e-6", "--use_float", "-b", "cuda",
+                                           "-p", "gpu_nvidia", main["train"], model])
+        train_s = time.perf_counter() - t0
+        counts = dict(gm.launches)
+    check(rc == 0, f"adaptive train CLI returned {rc}")
+    info = made[-1].last_cg_info
+    check(info["mode"] == "implicit", f"adaptive learn ran mode {info['mode']}")
+    check_adaptive("adaptive dense learn", info, counts, {"gram_matvec_sym": 1}, 1e-6)
+    print(f"[12 adaptive] dense rbf 32768 x 256 train CLI (default plan): {info['iterations']} "
+          f"CG iterations, fast_iterations {info['fast_iterations']}, escalated "
+          f"{info['escalated']}, learn {cg_ms(log)} ms, CLI {train_s:.1f} s, residual "
+          f"{info['delta']:.3e} <= eps^2 delta0 {1e-12 * info['delta0']:.3e}, launches "
+          f"{nonzero(counts)}", flush=True)
+    launches = {k: counts[k] for k in ("gram_matvec_sym/bf16cast", "gram_matvec_sym/bf16x3")}
+    for pinned, tier in (("high", "bf16x3"), ("default", "bf16cast")):
+        with environ(PLSSVM_MATMUL_PRECISION=pinned):
+            gm.reset_launches()
+            rc, log = run_cli(predict_main, ["--use_float", "-b", "cuda", "-p", "gpu_nvidia",
+                                             main["test"], model, out])
+            counts = dict(gm.launches)
+        m = re.search(r"Accuracy = ([0-9.]+)%", log)
+        check(rc == 0 and m is not None and float(m.group(1)) >= 95.0,
+              f"predict CLI at {pinned}: rc {rc}, accuracy {m and m.group(1)}%")
+        check(nonzero(counts) == {f"gram_matvec_rect/{tier}": 1},
+              f"predict CLI at {pinned} launched {nonzero(counts)}")
+        launches[f"gram_matvec_rect/{tier}"] = counts[f"gram_matvec_rect/{tier}"]
+        print(f"[12 adaptive] predict CLI, PLSSVM_MATMUL_PRECISION={pinned}: accuracy "
+              f"{m.group(1)}%, launches {nonzero(counts)}", flush=True)
+    return launches
+
+
+def phase_adaptive_sparse(sparse):
+    """The sparse ``dense`` and ``implicit`` tiers with the default plan,
+    through the CLIs on phase 8's files."""
+    from plssvm_sparse_fp22_tpu_torch.cli import train as train_cli
+    from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+
+    launches = {}
+    model, out = os.path.join(WORK, "sparse.adaptive.model"), os.path.join(WORK, "s.predict")
+    for name, env, mode, per_mv in [
+            ("dense", {"PLSSVM_SPARSE_MODE": "dense"}, "sparse_dense_implicit",
+             {"gram_matvec_sym": 1}),
+            ("implicit", {"PLSSVM_SPARSE_MODE": "implicit",
+                          "PLSSVM_K_CACHE_BYTES": str(PANEL_BUDGET)}, "sparse_implicit",
+             {"gram_matvec_sym": 4, "gram_pair_contrib": 6})]:
+        with environ(PLSSVM_MATMUL_PRECISION="", **env), recording_csvms(train_cli) as made:
+            gm.reset_launches()
+            t0 = time.perf_counter()
+            rc, log = run_cli(train_cli.main, ["-t", "2", "-g", repr(SPARSE_GAMMA), "-e", "1e-6",
+                                               "--use_float", "-b", "cuda", "-p", "gpu_nvidia",
+                                               sparse["train"], model])
+            train_s = time.perf_counter() - t0
+            counts = dict(gm.launches)
+            check(rc == 0, f"adaptive sparse train CLI ({name} tier) returned {rc}")
+            rc, plog = run_cli(predict_main, ["--use_float", "-b", "cuda", "-p", "gpu_nvidia",
+                                              sparse["test"], model, out])
+        info = made[-1].last_cg_info
+        check(info["mode"] == mode, f"adaptive {name} tier ran mode {info['mode']}")
+        check_adaptive(f"adaptive sparse {name} tier", info, counts, per_mv, 1e-6)
+        m = re.search(r"Accuracy = ([0-9.]+)%", plog)
+        check(rc == 0 and m is not None and float(m.group(1)) >= SPARSE_ACCURACY,
+              f"adaptive {name} tier predict: rc {rc}, accuracy {m and m.group(1)}%")
+        if name == "implicit":
+            launches = {k: counts[k] for k in ("gram_pair_contrib/bf16cast",
+                                               "gram_pair_contrib/bf16x3")}
+        print(f"[13 adaptive] sparse {name} tier, {SPARSE_N} x {SPARSE_F} at 1 % (default "
+              f"plan): {info['iterations']} CG iterations, fast_iterations "
+              f"{info['fast_iterations']}, escalated {info['escalated']}, learn {cg_ms(log)} ms, "
+              f"CLI {train_s:.1f} s, accuracy {m.group(1)}%, launches {nonzero(counts)}",
+              flush=True)
+    return launches
+
+
+def phase_tiers(dev, rng, sparse):
+    """A forced escalation, and CG it/s per tier at a pinned count."""
+    import scipy.sparse as sp
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch import make_csvm
+    from plssvm_sparse_fp22_tpu_torch.io.libsvm import ParsedData
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.ops.matvec import build_operator, tier_precision
+    from plssvm_sparse_fp22_tpu_torch.params import Parameter
+    from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType
+
+    n, f, imax, eps = 4096, 256, 300, 1e-9
+    X, y = two_blobs(n, f, rng)
+    with environ(PLSSVM_MATMUL_PRECISION="", PLSSVM_CG_STAG_PATIENCE="2"):
+        p = Parameter(kernel=KernelType.rbf, gamma=1.0 / f, epsilon=eps, max_iter=imax,
+                      dtype=np.float32, backend=BackendType.cuda, print_info=False)
+        p.data = ParsedData(csr=sp.csr_matrix(X), values=y, _dense=X)
+        p.values = y
+        svm = make_csvm(p)
+        gm.reset_launches()
+        t0 = time.perf_counter()
+        svm.learn()
+        torch.cuda.synchronize()
+        learn_s = time.perf_counter() - t0
+        counts = dict(gm.launches)
+    info = svm.last_cg_info
+    reached = info["delta"] <= eps ** 2 * info["delta0"]
+    check(info["escalated"] and info["iterations"] > info["fast_iterations"],
+          f"forced escalation did not escalate: {info}")
+    check(reached or info["iterations"] == imax,
+          f"forced escalation stopped at {info['iterations']} < imax without its target")
+    check(counts["gram_matvec_sym/bf16x3"] > 1, f"escalation ran no bf16x3 K1: {counts}")
+    print(f"[14 tiers] forced escalation, rbf {n} x {f}, patience 2, eps {eps:g}: "
+          f"{info['fast_iterations']} iterations on default, "
+          f"{info['iterations'] - info['fast_iterations']} on high, "
+          f"{'target reached' if reached else 'stopped at imax'} (residual {info['delta']:.3e}, "
+          f"target {eps ** 2 * info['delta0']:.3e}), {learn_s:.2f} s, launches {nonzero(counts)}",
+          flush=True)
+
+    n, f = 32768, 256
+    X, y = two_blobs(n, f, rng)
+    Xd, q, mask, QA, cost_inv, b = dense_system(dev, X, y, 1.0 / f)
+    rates = {}
+    for name in ("highest", "high", "default", "default", "high", "highest"):
+        op = build_operator(KernelType.rbf, Xd, q, mask, QA, cost_inv, gamma=1.0 / f,
+                            mode="implicit", backend=BackendType.cuda,
+                            precision=tier_precision(name))
+        rates.setdefault(name, []).append(pinned_cg_rate(op, b, mask, (5, 25)))
+    print(f"[14 tiers] dense rbf {n} x {f}, implicit, CG it/s at eps = 0 (slope 5 -> 25, in "
+          f"turns): " + ", ".join(f"{k} {' / '.join(f'{r:.1f}' for r in v)}"
+                                  for k, v in rates.items()), flush=True)
+    panel = {"PLSSVM_SPARSE_MODE": "implicit", "PLSSVM_K_CACHE_BYTES": str(PANEL_BUDGET)}
+    srates = {}
+    for name in ("highest", "high", "default"):
+        with environ(PLSSVM_MATMUL_PRECISION=name, **panel):
+            srates[name] = pinned_rate(sparse["csr"], sparse["y"], KernelType.rbf, (4, 16))
+    print(f"[14 tiers] sparse implicit tier, {SPARSE_N} x {SPARSE_F} at 1 %, CG it/s at eps = 0 "
+          f"(slope 4 -> 16): " + ", ".join(f"{k} {r:.1f}" for k, r in srates.items()),
+          flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -826,24 +1158,36 @@ def main(argv=None) -> int:
     try:
         phase_device()
         phase_build()
-        k1 = phase_k1(dev, rng)
-        k2 = phase_k2(dev, rng)
-        k3 = phase_k3(dev, rng)
-        launches = phase_main_path(rng)
-        phase_reference(rng)
-        phase_timing(dev, rng)
-        sparse = phase_sparse_main(dev)
-        phase_sparse_more(sparse)
+        # phases 3-10 hold the exact tier; the plan is off while a tier is pinned
+        with environ(PLSSVM_MATMUL_PRECISION="highest"):
+            records = {"gram_matvec_sym/exact": phase_k1(dev, rng),
+                       "gram_matvec_rect/exact": phase_k2(dev, rng),
+                       "gram_pair_contrib/exact": phase_k3(dev, rng)}
+            dense = phase_main_path(rng)
+            phase_reference(rng)
+            phase_timing(dev, rng)
+            sparse = phase_sparse_main(dev)
+            phase_sparse_more(sparse)
+        records.update(phase_k4(dev, rng))
+        # each kernel x tier counted over a main path's run: the exact tier's
+        # K1 and K2 over the dense train and predict CLIs, K3 over the sparse
+        # implicit tier; the bf16 tiers over the adaptive learns and the
+        # predicts with a tier pinned
+        launches = {k: dense["launches"][k]
+                    for k in ("gram_matvec_sym/exact", "gram_matvec_rect/exact")}
+        launches["gram_pair_contrib/exact"] = \
+            sparse["launches"]["implicit"]["gram_pair_contrib/exact"]
+        launches.update(phase_adaptive_dense(dense))
+        launches.update(phase_adaptive_sparse(sparse))
+        phase_tiers(dev, rng, sparse)
         if args.profile:
-            phase_profile(sparse)
-        # K1 and K2 counted over the dense main path, K3 over the sparse
-        # main path's implicit tier
-        launches["gram_pair_contrib"] = sparse["launches"]["implicit"]["gram_pair_contrib"]
-        kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
+            with environ(PLSSVM_MATMUL_PRECISION="highest"):
+                phase_profile(sparse)
+        kernels = [{"name": name, "route": "cuda", "source": SOURCES[name.split("/")[0]],
                     "replaces": REPLACES[name], "launches": launches[name], **rec}
-                   for name, rec in (("gram_matvec_sym", k1), ("gram_matvec_rect", k2),
-                                     ("gram_pair_contrib", k3))]
-        check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
+                   for name, rec in records.items()]
+        check(len(kernels) == 9 and all(k["launches"] > 0 for k in kernels),
+              f"a kernel of the path never launched: {launches}")
     except SmokeError as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1

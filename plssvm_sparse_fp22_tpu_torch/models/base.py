@@ -32,9 +32,10 @@ from ..io.libsvm import ParsedData
 from ..io.model import write_model_file
 from ..ops.gram_matvec import gram_matvec, gram_matvec_plain, row_sqnorms
 from ..ops.kernel_functions import gram_block, kernel_scalar
-from ..ops.matvec import _k_cache_budget_bytes, build_operator, choose_mode, jacobi_minv
+from ..ops.matvec import (_k_cache_budget_bytes, build_operator, choose_mode, jacobi_minv,
+                          resolve_mxu_plan, tier_precision)
 from ..params import Parameter
-from ..solver.cg import cg_solve
+from ..solver.cg import cg_solve, cg_solve_adaptive
 from ..types import BackendType, KernelType, TargetPlatform
 
 
@@ -199,6 +200,9 @@ class CSVM:
                 )
             mode, out = self._learn_dense(D, dept, f, b_pad, mask, imax)
         x, s, t, QA_cost, iters, delta, delta0 = out[:7]
+        # the learns that take the adaptive plan also return the fast-tier
+        # iteration count (== iters on one fixed tier)
+        k_fast = int(out[7]) if len(out) > 7 else int(iters)
         x = x.cpu().numpy().astype(np.float64)[:dept]
         s_np = float(s)
         self.QA_cost_ = float(QA_cost)
@@ -215,10 +219,10 @@ class CSVM:
             "mode": mode,
             "dept": dept,
             "padded": D,
-            # the JAX package's keys for its adaptive two-tier CG, which is
-            # not ported: every iteration runs on the one (exact f32) tier
-            "fast_iterations": int(iters),
-            "escalated": False,
+            # adaptive two-tier CG: iterations spent on the fast tier before
+            # (possible) escalation to the accurate tier
+            "fast_iterations": k_fast,
+            "escalated": int(iters) > k_fast,
         }
 
         if self.print_info:
@@ -227,6 +231,11 @@ class CSVM:
                 f"Finished after {int(iters)} iterations with a residuum of "
                 f"{float(delta)} (target: {self.epsilon**2 * float(delta0)})."
             )
+            if self.last_cg_info["escalated"]:
+                print(
+                    f"Adaptive precision: {k_fast} iterations on the fast bf16 tier, "
+                    f"{int(iters) - k_fast} after escalating to the accurate tier."
+                )
             print(f"Solved minimization problem (r = b - Ax) using CG in {elapsed:.0f}ms.")
 
     def _padded_vectors(self, D, dept, y):
@@ -243,7 +252,10 @@ class CSVM:
         """The body of the JAX package's ``_learn_jit`` (``base.py:44-92``)
         as eager torch: q-vector, QA_cost, operator, CG.  ``mode`` forces the
         operator's mode (the sparse ``dense`` tier runs ``implicit``,
-        ``base.py:871-879``); sparse data is densified from its CSR rows."""
+        ``base.py:871-879``); sparse data is densified from its CSR rows.
+        Where :func:`~..ops.matvec.resolve_mxu_plan` gives a plan, the
+        operator is built at its two tiers and CG runs
+        :func:`~..solver.cg.cg_solve_adaptive` (``base.py:76-88``)."""
         X_pad = np.zeros((D, f), dtype=self._np_dtype)
         if self._use_sparse():
             X_pad[:dept] = self.data.csr[:dept].toarray()
@@ -268,12 +280,23 @@ class CSVM:
         if self.params.precond == "jacobi":
             minv = jacobi_minv(self.kernel, Xd, q, m, QA_cost, cost_inv,
                                self.degree, self.gamma, self.coef0)
-        op = build_operator(self.kernel, Xd, q, m, QA_cost, cost_inv, mode=mode,
-                            backend=self.backend, **kw)
-        res = cg_solve(op.matvec, b, m, self.epsilon, imax, minv=minv)
+
+        def make_op(tier):
+            return build_operator(self.kernel, Xd, q, m, QA_cost, cost_inv, mode=mode,
+                                  backend=self.backend, precision=tier, **kw)
+
+        plan = resolve_mxu_plan(mode, self.dtype, self.backend)
+        if plan is None:
+            res = cg_solve(make_op(None).matvec, b, m, self.epsilon, imax, minv=minv)
+            k_fast = res.iterations
+        else:
+            res = cg_solve_adaptive(make_op(tier_precision(plan[0])).matvec,
+                                    make_op(tier_precision(plan[1])).matvec, b, m,
+                                    self.epsilon, imax, minv=minv)
+            k_fast = res.fast_iterations
         s = torch.sum(res.x)
         t = torch.dot(q, res.x)
-        return mode, (res.x, s, t, QA_cost, res.iterations, res.delta, res.delta0)
+        return mode, (res.x, s, t, QA_cost, res.iterations, res.delta, res.delta0, k_fast)
 
     # ----------------------------------------------------------- sparse learn
 
@@ -284,7 +307,10 @@ class CSVM:
         skew-robust packing, the half-dense guard, and the sweep schedule
         with its memory envelope.  ``use_cuda`` is the ``cuda`` backend,
         where the panel pairs run K1/K3 and float64 is refused; on the
-        ``torch`` backend their plain versions run."""
+        ``torch`` backend their plain versions run.  Each pair splits or
+        casts its two panels itself and drops the copies with the pair, so
+        the bf16 tiers add at most two panels' bytes to the sweep and the
+        4x envelope stands."""
         from ..ops.sparse import TiledHybrid, panel_sweep_strategy, streaming_stream_strategy
 
         f = csr.shape[1]
@@ -313,9 +339,9 @@ class CSVM:
         if use_cuda and self.dtype != torch.float32:
             raise PLSSVMError(
                 "the sparse panel tier on the CUDA backend needs float32: the "
-                "float64 kernels belong to the K4 precision work, not ported "
-                "yet (train with --use_float, or raise PLSSVM_K_CACHE_BYTES so "
-                "the exact sparse_gram tier applies)")
+                "Gram kernels have no float64 version, as the JAX package's "
+                "Pallas kernels have none (train with --use_float, or raise "
+                "PLSSVM_K_CACHE_BYTES so the exact sparse_gram tier applies)")
         return th, use_cuda, sweep
 
     def _device_memory_bytes(self) -> int:
@@ -401,6 +427,7 @@ class CSVM:
                     Lt=th.tell.Lt, panel_rows=panel_rows, precond=precond, use_cuda=use_cuda,
                     heavy=th.heavy, heavy_rows=tuple(int(r) for r in th.heavy_idx),
                     heavy_sq_vec=self._to_device(hs), heavy_g_vec=self._to_device(hg),
+                    mxu_plan=resolve_mxu_plan("implicit", self.dtype, self.backend),
                     sweep=sweep)
                 return "sparse_implicit", out
             h = HybridSparse.from_csr(csr[:dept], dtype=np_dtype, pad_rows=D, device=dev)

@@ -15,18 +15,18 @@ function there is a plain function here, without the suffix.  Selected by
   (the ``gather`` arm).
 
 Every learn returns ``(x, s, t, QA_cost, iterations, delta, delta0)``,
-:func:`learn_sparse_panel` also the fast-tier iteration count, which equals
-the iteration count: the adaptive two-tier CG is the K4 precision work and
-is not ported, so a ``mxu_plan`` raises.
+:func:`learn_sparse_panel` also the fast-tier iteration count: given a
+``mxu_plan`` it runs the adaptive two-tier CG over panel operators at the
+plan's two tiers, else one fixed tier (and the count equals the iteration
+count).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..exceptions import PLSSVMError
 from ..ops.kernel_functions import integer_pow
-from ..ops.matvec import _corrections
+from ..ops.matvec import _corrections, tier_precision
 from ..ops.matvec import jacobi_minv_from_kii as _diag_minv
 from ..ops.sparse import (
     ELLMatrix,
@@ -40,7 +40,7 @@ from ..ops.sparse import (
     sparse_q_qa_kii,
     tiled_matvec,
 )
-from ..solver.cg import cg_solve
+from ..solver.cg import cg_solve, cg_solve_adaptive
 from ..types import KernelType
 
 
@@ -93,20 +93,27 @@ def learn_sparse_panel(tvals, tlcols, x_last_dense, b_pad, mask, gamma, coef0, c
     memory, no (n, n) Gram.
 
     ``sweep`` picks the pair-sweep schedule (``unrolled`` or ``windowed``);
-    ``None`` asks :func:`~..ops.sparse.panel_sweep_strategy`."""
-    if mxu_plan is not None:
-        raise PLSSVMError(
-            f"mxu_plan {mxu_plan}: the adaptive two-tier CG runs on the bf16x3/"
-            "bf16cast precision tiers (K4), which are not ported to the PyTorch "
-            "package yet; pass mxu_plan=None for the exact float32 tier")
+    ``None`` asks :func:`~..ops.sparse.panel_sweep_strategy`.  ``mxu_plan =
+    (fast, accurate)`` runs the adaptive two-tier CG on the panel pairs
+    (``sparse_learn.py:112-165`` of the JAX package); on the ``torch``
+    backend its plain versions run the tiers, the counterpart of the JAX
+    package's interpret mode."""
     cost_inv = _cost_inv(cost, tvals)
     nP = -(-tvals.shape[0] // panel_rows)
     if sweep is None:
         sweep = panel_sweep_strategy(nP)
     maker = make_tiled_panel_matvec_windowed if sweep == "windowed" else make_tiled_panel_matvec
-    kv_fn, sq = maker(tvals, tlcols, int(kernel), degree, gamma, coef0, ntiles=ntiles, Lt=Lt,
-                      panel_rows=panel_rows, use_cuda=use_cuda, heavy=heavy,
-                      heavy_rows=heavy_rows, heavy_sq_vec=heavy_sq_vec)
+
+    def make_kv(tier):
+        return maker(tvals, tlcols, int(kernel), degree, gamma, coef0, ntiles=ntiles, Lt=Lt,
+                     panel_rows=panel_rows, use_cuda=use_cuda, heavy=heavy,
+                     heavy_rows=heavy_rows, heavy_sq_vec=heavy_sq_vec, precision=tier)
+
+    if mxu_plan is not None:
+        kv_fast, sq = make_kv(tier_precision(mxu_plan[0]))
+        kv_acc, _ = make_kv(tier_precision(mxu_plan[1]))
+    else:
+        kv_fn, sq = make_kv(None)
 
     f = x_last_dense.shape[0]
     fp = ntiles * 128
@@ -123,12 +130,23 @@ def learn_sparse_panel(tvals, tlcols, x_last_dense, b_pad, mask, gamma, coef0, c
     if precond == "jacobi":
         minv = _diag_minv(kii, q, mask, QA_cost, cost_inv)
 
-    def matvec(v):
-        return _corrections(kv_fn(v), v, q, mask, QA_cost, cost_inv)
+    if mxu_plan is not None:
+        def mv_fast(v):
+            return _corrections(kv_fast(v), v, q, mask, QA_cost, cost_inv)
 
-    res = cg_solve(matvec, b_pad, mask, eps, imax, minv=minv)
+        def mv_acc(v):
+            return _corrections(kv_acc(v), v, q, mask, QA_cost, cost_inv)
+
+        res = cg_solve_adaptive(mv_fast, mv_acc, b_pad, mask, eps, imax, minv=minv)
+        k_fast = res.fast_iterations
+    else:
+        def matvec(v):
+            return _corrections(kv_fn(v), v, q, mask, QA_cost, cost_inv)
+
+        res = cg_solve(matvec, b_pad, mask, eps, imax, minv=minv)
+        k_fast = res.iterations
     s, t = _finish(res, q)
-    return res.x, s, t, QA_cost, res.iterations, res.delta, res.delta0, res.iterations
+    return res.x, s, t, QA_cost, res.iterations, res.delta, res.delta0, k_fast
 
 
 def learn_sparse_implicit(vals, cols, coo_rows, coo_cols, coo_vals, x_last_dense, b_pad,

@@ -106,11 +106,13 @@ def load() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(build()["path"])
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gram_matvec_sym.argtypes = [P, P, P, P, P, I, I, I, I, F, F, P]
+        # each entry point starts with the tier and its operand pointers
+        lib.gram_matvec_sym.argtypes = [I, P, P, P, P, P, P, I, I, I, I, F, F, P]
         lib.gram_matvec_sym.restype = I
-        lib.gram_matvec_rect.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, F, F, P]
+        lib.gram_matvec_rect.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, P]
         lib.gram_matvec_rect.restype = I
-        lib.gram_pair_contrib.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, P]
+        lib.gram_pair_contrib.argtypes = [I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                          F, F, P]
         lib.gram_pair_contrib.restype = I
         lib.gram_matvec_tile.argtypes = []
         lib.gram_matvec_tile.restype = I

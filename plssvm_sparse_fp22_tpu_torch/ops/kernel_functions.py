@@ -68,16 +68,23 @@ def gram_block(kernel: KernelType, Xi, Xj, degree=3, gamma=1.0, coef0=0.0,
 
     For RBF, pass precomputed squared norms to avoid recomputing them per
     block."""
-    G = Xi @ Xj.T
-    if kernel == KernelType.linear:
-        return G
-    if kernel == KernelType.polynomial:
-        return integer_pow(gamma * G + coef0, int(degree))
     if kernel == KernelType.rbf:
         if Xi_sqnorm is None:
             Xi_sqnorm = torch.sum(Xi * Xi, dim=1)
         if Xj_sqnorm is None:
             Xj_sqnorm = torch.sum(Xj * Xj, dim=1)
+    return kernel_transform(kernel, Xi @ Xj.T, degree, gamma, coef0, Xi_sqnorm, Xj_sqnorm)
+
+
+def kernel_transform(kernel: KernelType, G, degree=3, gamma=1.0, coef0=0.0,
+                     Xi_sqnorm=None, Xj_sqnorm=None):
+    """The element-wise transform of a Gram block ``G[a, b] = <xi_a, xj_b>``;
+    rbf needs the rows' squared norms."""
+    if kernel == KernelType.linear:
+        return G
+    if kernel == KernelType.polynomial:
+        return integer_pow(gamma * G + coef0, int(degree))
+    if kernel == KernelType.rbf:
         sq = Xi_sqnorm[:, None] + Xj_sqnorm[None, :] - 2.0 * G
         return torch.exp(-gamma * torch.clamp(sq, min=0.0))
     raise ValueError(f"unknown kernel {kernel}")

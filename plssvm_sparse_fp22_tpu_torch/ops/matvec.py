@@ -16,6 +16,11 @@ matvec.  Three modes:
 - ``implicit`` — K recomputed every iteration: kernel K1 on the ``cuda``
   backend (K2 with ``PLSSVM_PALLAS_SYMMETRIC=0``), the plain blocked
   version on the ``torch`` backend.
+
+``linear`` and ``implicit`` run at a precision tier (``exact``, ``bf16x3``,
+``bf16cast``; ``ops/gram_matvec.py``).  :func:`resolve_mxu_plan` decides
+whether a learn runs the adaptive two-tier CG, which builds the operator at
+two tiers (``solver/cg.cg_solve_adaptive``).
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ from ..constants import ROW_BLOCK_SIZE
 from ..exceptions import PLSSVMError
 from ..types import BackendType, KernelType
 from ..utils.assertions import plssvm_assert
-from .gram_matvec import gram_matvec, gram_matvec_sym_plain, make_sym_matvec, row_sqnorms
+from .gram_matvec import (PRECISION_TIERS, gram_matvec, gram_matvec_sym_plain, make_sym_matvec,
+                          pallas_tier, resolve_tier, row_sqnorms, tier_matmul, tier_operands)
 from .kernel_functions import gram_block, kernel_diag
 
 
@@ -55,6 +61,48 @@ def _implicit_feature_cutoff() -> int:
     if env is not None:
         return int(env)
     return 320 if symmetric_enabled() else 160
+
+
+def tier_precision(name: str) -> str:
+    """Map a tier name of the plan to its kernel tier (``_TIER_PRECISION``,
+    ``matvec.py:73-83`` of the JAX package; the map is
+    :data:`~.gram_matvec.PRECISION_TIERS`)."""
+    return PRECISION_TIERS[name]
+
+
+def resolve_mxu_plan(mode: str, dtype: torch.dtype,
+                     backend: BackendType | None) -> tuple[str, str] | None:
+    """Adaptive precision plan for a learn: ``(fast_tier, acc_tier)`` when
+    the adaptive two-tier CG applies, else ``None`` (one fixed tier)
+    (``matvec.py:86-111`` of the JAX package, with the ``cuda`` backend in
+    the place of a TPU).
+
+    On the ``cuda`` backend the plan is the default for float32 systems
+    whose A·v is a Gram product (the ``implicit`` and ``linear`` modes): CG
+    starts on one bf16 tensor-core product and escalates to the bf16x3
+    tier only if the accurate-tier residual misses the target.
+    ``PLSSVM_MATMUL_PRECISION`` set to a fixed tier (``highest`` / ``high``
+    / ``default``) disables the plan; ``adaptive`` forces it on any backend
+    (the ``torch`` backend then runs the plain versions at both tiers, with
+    real bf16 rounding).  ``cached`` mode is bound by reading K and float64
+    needs exact products, so neither takes the plan."""
+    name = os.environ.get("PLSSVM_MATMUL_PRECISION", "").lower()
+    if name not in ("", "adaptive"):
+        return None  # explicitly pinned tier
+    if dtype != torch.float32 or mode not in ("implicit", "linear"):
+        return None
+    if name != "adaptive" and backend != BackendType.cuda:
+        return None  # the torch backend's f32 products are exact: nothing to adapt
+    return ("default", "high")
+
+
+def fixed_tier(backend: BackendType) -> str:
+    """The tier of a learn outside the plan: the kernels' fixed tier
+    (:func:`~.gram_matvec.pallas_tier`, ``highest`` unless
+    ``PLSSVM_MATMUL_PRECISION`` says otherwise) on the ``cuda`` backend,
+    ``exact`` on the ``torch`` backend, whose products stand in for the JAX
+    package's exact XLA ones."""
+    return pallas_tier() if backend == BackendType.cuda else "exact"
 
 
 def choose_mode(kernel: KernelType, dept: int, dtype: torch.dtype,
@@ -128,12 +176,16 @@ def build_operator(
     mode: str | None = None,
     backend: BackendType = BackendType.torch,
     row_block: int = ROW_BLOCK_SIZE,
+    precision: str | None = None,
 ) -> MatvecOperator:
     """Construct the implicit-A matvec for the padded system.
 
     ``backend=cuda`` needs the tensors on a CUDA device and runs the
     ``implicit`` mode through the hand kernels; it raises rather than run
-    anything else in their place."""
+    anything else in their place.  ``precision`` is the tier of the
+    ``linear`` / ``implicit`` Gram products (``exact``, ``bf16x3``,
+    ``bf16cast``; the adaptive CG builds the operator at two);  ``None``
+    keeps the backend's fixed tier (:func:`fixed_tier`)."""
     D, f = X_pad.shape
     plssvm_assert(q.shape == (D,) and mask.shape == (D,),
                   "operator vectors must match the padded system: q {} mask {} D {}",
@@ -147,14 +199,24 @@ def build_operator(
     if mode is None:
         dept = int(mask.sum().item())
         mode = choose_mode(kernel, dept, dtype, num_features=f, backend=backend)
+    tier = resolve_tier(fixed_tier(backend) if precision is None else precision, dtype)
 
     if mode == "linear":
         if kernel != KernelType.linear:
             raise ValueError("mode='linear' requires the linear kernel")
+        # the JAX package leaves these two products to XLA at the tier's
+        # precision (matvec.py:232-235): plain PyTorch products here, on
+        # bf16-rounded or split operands with f32 sums at a bf16 tier; X's
+        # parts are upcast once (bf16 values are exact in float32)
+        Xo = tier_operands(tier, X_pad)
+        if tier != "exact":
+            Xo = tuple(t.float() for t in Xo)
+        XoT = tuple(t.T for t in Xo)
 
         def matvec(v):
             # K v = X (X^T v): two products, never materializes K
-            Kv = X_pad @ (X_pad.T @ v)
+            u = tier_matmul(tier, XoT, tier_operands(tier, v))
+            Kv = tier_matmul(tier, Xo, tier_operands(tier, u))
             return _corrections(Kv, v, q, mask, QA_cost, cost_inv)
 
     elif mode == "cached":
@@ -170,26 +232,29 @@ def build_operator(
         if backend == BackendType.cuda:
             if dtype != torch.float32:
                 raise PLSSVMError(
-                    "implicit mode on the CUDA backend needs float32: the "
-                    "float64 kernels belong to the K4 precision work, not "
-                    "ported yet (train with --use_float, or raise "
+                    "implicit mode on the CUDA backend needs float32: the Gram "
+                    "kernels have no float64 version, as the JAX package's Pallas "
+                    "kernels have none (train with --use_float, or raise "
                     "PLSSVM_K_CACHE_BYTES so the exact cached mode applies)")
             if symmetric_enabled():
                 kv_fn = make_sym_matvec(kernel, X_pad, degree=degree,
-                                        gamma=gamma, coef0=coef0)
+                                        gamma=gamma, coef0=coef0, tier=tier)
             else:
                 sq = row_sqnorms(X_pad)
+                Xo = tier_operands(tier, X_pad)  # split or cast once
 
                 def kv_fn(v):
-                    return gram_matvec(kernel, X_pad, v, degree=degree,
-                                       gamma=gamma, coef0=coef0, sqx=sq, sqy=sq)
+                    return gram_matvec(kernel, X_pad, v, degree=degree, gamma=gamma,
+                                       coef0=coef0, sqx=sq, sqy=sq, tier=tier,
+                                       operands=(Xo, Xo))
         else:
             sq = row_sqnorms(X_pad)
+            Xo = tier_operands(tier, X_pad)
 
             def kv_fn(v):
                 return gram_matvec_sym_plain(kernel, X_pad, v, degree=degree,
                                              gamma=gamma, coef0=coef0, sq=sq,
-                                             row_block=row_block)
+                                             row_block=row_block, tier=tier, operands=Xo)
 
         def matvec(v):
             return _corrections(kv_fn(v), v, q, mask, QA_cost, cost_inv)

@@ -33,9 +33,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..types import KernelType
+from ..types import BackendType, KernelType
 from .gram_matvec import pair_gram_contrib, pair_gram_contrib_plain
 from .kernel_functions import integer_pow, kernel_diag
+from .matvec import fixed_tier
 
 #: column tile of the tiled packings (the TPU lane width, kept so packings
 #: and padded widths match the JAX package's)
@@ -351,15 +352,19 @@ def _heavy_by_panel(heavy_rows, starts, device):
     return placed
 
 
-def _pair_fn(use_cuda: bool):
-    """K3 (it raises on a CUDA tensor it cannot take) or its plain version."""
-    return pair_gram_contrib if use_cuda else pair_gram_contrib_plain
+def _pair_fn(use_cuda: bool, precision: str | None):
+    """K3 (it raises on a CUDA tensor it cannot take) or its plain version,
+    and the tier of its products: ``precision``, else the backend's fixed
+    tier (:func:`~.matvec.fixed_tier`)."""
+    backend = BackendType.cuda if use_cuda else BackendType.torch
+    tier = fixed_tier(backend) if precision is None else precision
+    return (pair_gram_contrib if use_cuda else pair_gram_contrib_plain), tier
 
 
 def make_tiled_panel_matvec(tell_vals, tell_lcols, kernel_int: int, degree: int,
                             gamma, coef0, *, ntiles: int, Lt: int, panel_rows: int,
                             use_cuda: bool, heavy=None, heavy_rows: tuple = (),
-                            heavy_sq_vec=None):
+                            heavy_sq_vec=None, precision: str | None = None):
     """``v -> K(X, X) @ v`` for tiled-ELL-packed X through transient dense
     panels, ``unrolled`` schedule: each matvec densifies every panel once
     (:func:`densify_tiled`) and keeps them alive for the sweep over the
@@ -368,7 +373,9 @@ def make_tiled_panel_matvec(tell_vals, tell_lcols, kernel_int: int, degree: int,
 
     Heavy rows (:class:`TiledHybrid`) replace their zeroed light rows after
     the densify; ``heavy_sq_vec`` (zero at light rows) completes the squared
-    norms.  Returns ``(matvec, sq)``."""
+    norms.  ``precision`` is the pairs' tier (:func:`_pair_fn`); each pair
+    splits or casts its panels itself (``sparse.py:437-438`` of the JAX
+    package).  Returns ``(matvec, sq)``."""
     kernel = KernelType(kernel_int)
     D = tell_vals.shape[0]
     bounds = list(range(0, D, panel_rows)) + [D]  # a ragged last panel is fine
@@ -376,8 +383,8 @@ def make_tiled_panel_matvec(tell_vals, tell_lcols, kernel_int: int, degree: int,
     sq = torch.sum(tell_vals * tell_vals, dim=1)
     if heavy_sq_vec is not None:
         sq = sq + heavy_sq_vec
-    fn = _pair_fn(use_cuda)
-    kw = {"degree": degree, "gamma": gamma, "coef0": coef0}
+    fn, tier = _pair_fn(use_cuda, precision)
+    kw = {"degree": degree, "gamma": gamma, "coef0": coef0, "tier": tier}
     placed = _heavy_by_panel(heavy_rows, bounds[:-1], tell_vals.device)
 
     def densify(p):
@@ -427,14 +434,16 @@ def panel_sweep_strategy(nP: int, dense_bytes: int | None = None,
 def make_tiled_panel_matvec_windowed(tell_vals, tell_lcols, kernel_int: int, degree: int,
                                      gamma, coef0, *, ntiles: int, Lt: int,
                                      panel_rows: int, use_cuda: bool, heavy=None,
-                                     heavy_rows: tuple = (), heavy_sq_vec=None):
+                                     heavy_rows: tuple = (), heavy_sq_vec=None,
+                                     precision: str | None = None):
     """``v -> K(X, X) @ v`` for tiled-ELL-packed X, ``windowed`` schedule:
     the diagonal panels first (``same=True``), then the strict-lower panel
     pairs in i-major order, re-densifying the i-panel only when ``i``
     advances and each j-panel for its pair.  At most two dense panels are
     alive at a time.  Panels are uniform (``panel_rows`` rows; the packing
-    is padded with zero rows to a panel multiple).  Returns ``(matvec, sq)``
-    like :func:`make_tiled_panel_matvec`."""
+    is padded with zero rows to a panel multiple).  ``precision`` as for
+    :func:`make_tiled_panel_matvec`.  Returns ``(matvec, sq)`` like
+    :func:`make_tiled_panel_matvec`."""
     kernel = KernelType(kernel_int)
     dtype, dev = tell_vals.dtype, tell_vals.device
     D = tell_vals.shape[0]
@@ -449,8 +458,8 @@ def make_tiled_panel_matvec_windowed(tell_vals, tell_lcols, kernel_int: int, deg
     if heavy_sq_vec is not None:
         sq[:D] += heavy_sq_vec
     placed = _heavy_by_panel(heavy_rows, list(range(0, Dp, P)), dev)
-    fn = _pair_fn(use_cuda)
-    kw = {"degree": degree, "gamma": gamma, "coef0": coef0}
+    fn, tier = _pair_fn(use_cuda, precision)
+    kw = {"degree": degree, "gamma": gamma, "coef0": coef0, "tier": tier}
 
     def densify(p):
         base = densify_tiled(tell_vals[p * P:(p + 1) * P], tell_lcols[p * P:(p + 1) * P],

@@ -1,5 +1,7 @@
 """Conjugate-gradient solver (the algorithm core of LS-SVM training)."""
 
-from .cg import CGResult, CGState, cg_init, cg_run, cg_solve
+from .cg import (AdaptiveCGResult, CGResult, CGState, cg_init, cg_run, cg_run_stagnation,
+                 cg_solve, cg_solve_adaptive)
 
-__all__ = ["CGResult", "CGState", "cg_init", "cg_run", "cg_solve"]
+__all__ = ["AdaptiveCGResult", "CGResult", "CGState", "cg_init", "cg_run", "cg_run_stagnation",
+           "cg_solve", "cg_solve_adaptive"]

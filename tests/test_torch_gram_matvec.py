@@ -3,8 +3,9 @@ dispatch to them for CPU tensors (K3's too), against the JAX package's
 Pallas kernels and the numpy oracle; and the kernel build's source list.
 
 The Pallas kernels run as ``tests/test_solver.py:98-145`` runs them:
-``interpret=True`` with ``precision=lax.Precision.HIGHEST`` (the exact tier;
-the Pallas default is the bf16x3 tier, which the port does not have).
+``interpret=True`` with ``precision=lax.Precision.HIGHEST``, the exact tier
+(the Pallas default is the bf16x3 tier; the port's bf16 tiers are held
+against the JAX package in ``test_torch_precision.py``).
 Tolerance: ``max|got - want| <= 1e-5 * max|want|``, the exact-tier budget of
 ``test_solver.py:133-134``.
 """
@@ -95,7 +96,7 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors(kernel):
     sym = gm.make_sym_matvec(kernel, Xt, **HYPER)(vt)
     rect = gm.gram_matvec(kernel, Xt[:9], vt, Y=Xt, **HYPER)
     pair = gm.pair_gram_contrib(kernel, Xt[:9], Xt, vt[:9], vt, same=False, **HYPER)
-    assert gm.launches == {"gram_matvec_sym": 0, "gram_matvec_rect": 0, "gram_pair_contrib": 0}
+    assert not any(gm.launches.values())
     torch.testing.assert_close(pair[0], rect, rtol=0, atol=0)
     torch.testing.assert_close(sym, gm.gram_matvec_sym_plain(kernel, Xt, vt, **HYPER),
                                rtol=0, atol=0)
@@ -110,7 +111,7 @@ def test_cuda_backend_on_cpu_tensors_raises():
     with pytest.raises(PLSSVMError, match="backend 'cuda' needs the system on a CUDA device"):
         build_operator(KernelType.rbf, Xt, torch.zeros(8), mask, 1.0, 1.0,
                        mode="implicit", backend=BackendType.cuda)
-    assert gm.launches == {"gram_matvec_sym": 0, "gram_matvec_rect": 0, "gram_pair_contrib": 0}
+    assert not any(gm.launches.values())
 
 
 def test_build_covers_every_source_and_header(tmp_path, monkeypatch):

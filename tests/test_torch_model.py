@@ -376,7 +376,7 @@ def test_gpu_requests_without_a_gpu_raise():
     gm.reset_launches()
     svm.learn()
     svm.predict(X)
-    assert gm.launches == {"gram_matvec_sym": 0, "gram_matvec_rect": 0, "gram_pair_contrib": 0}
+    assert not any(gm.launches.values())
 
 
 def test_float32_state_and_dtype_resolution():

@@ -218,7 +218,7 @@ def test_panel_tier_on_cuda_refuses_float64(monkeypatch):
         svm = tp.CSVM(_params("torch", csr, y, KT.rbf, dtype=dtype))
         svm.backend = tp.BackendType.cuda
         if raises:
-            with pytest.raises(PLSSVMError, match="K4.*--use_float"):
+            with pytest.raises(PLSSVMError, match="no float64 version.*--use_float"):
                 svm._plan_sparse_panel(csr, 127, 128)
         else:
             assert svm._plan_sparse_panel(csr, 127, 128)[1] is True
@@ -234,13 +234,16 @@ def test_sparse_refusals():
         msgs[pkg] = str(info.value)
     assert msgs["torch"] == msgs["jax"]
     assert "sparse learn path" in msgs["torch"]
+    # a mxu_plan is no longer refused: the panel learn runs the two-tier CG
+    # (at float64 both tiers resolve to exact, so it never escalates)
     th = tp.CSVM(_params("torch", csr, y, KT.rbf))._plan_sparse_panel(csr, 39, 40)[0]
-    with pytest.raises(PLSSVMError, match="K4"):
-        learn_sparse_panel(th.tell.vals, th.tell.lcols, torch.zeros(20, dtype=torch.float64),
-                           torch.zeros(40, dtype=torch.float64),
-                           torch.ones(40, dtype=torch.float64), 0.2, 1.0, 1.0, 1e-3, 10,
-                           kernel=KT.rbf, degree=3, ntiles=th.tell.ntiles, Lt=th.tell.Lt,
-                           panel_rows=40, mxu_plan=("default", "high"))
+    b = torch.from_numpy(np.where(np.arange(40) < 39, y[:40] - y[-1], 0.0))
+    out = learn_sparse_panel(th.tell.vals, th.tell.lcols,
+                             torch.from_numpy(csr[-1].toarray().ravel()), b,
+                             (torch.arange(40) < 39).double(), 0.2, 1.0, 1.0, 1e-3, 10,
+                             kernel=KT.rbf, degree=3, ntiles=th.tell.ntiles, Lt=th.tell.Lt,
+                             panel_rows=40, mxu_plan=("default", "high"))
+    assert out[7] == out[4] > 0
 
 
 # --- predict ------------------------------------------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on an NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --probe]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the repository around this script; it imports nothing of JAX.  Phases 3-10
@@ -42,8 +42,14 @@ Phases, one line or more each, any failure exits non-zero:
     iterations of each sparse tier (4 of the gather arm), printing the
     device's idle share of the CG wall time and the six costliest kernels;
 11. K4: K1, K2 and K3 at the bf16x3 and bf16cast tiers, three kernels, at
-    the main path's shapes (and K3's ragged pair), each against its plain
-    version at the same tier and against the exact kernel;
+    the main path's shapes, each against its plain version at the same
+    tier and against the exact kernel.  K1 and K3 run the TMA-fed wgmma
+    tile (``csrc/gram_tile_wgmma.cuh``), K2 the ``mma.sync`` one: K1 at
+    32768 x 256 and on a 4096-row diagonal panel at f = 4096; K3 at 4096 x
+    4096, f = 4096, on a ragged 3000 x 1700 pair at f = 1001 and on one
+    pair of 512-row panels, with each panel's operands prepared by the
+    caller as the panel schedules do (the preparation is timed per panel);
+    two runs of each are compared bitwise;
 12. the adaptive dense main path: ``plssvm-train-torch`` on phase 6's
     32768 x 256 file with the default plan (bf16cast CG, verified and, if
     need be, continued on bf16x3), then ``plssvm-predict-torch`` with each
@@ -55,9 +61,19 @@ Phases, one line or more each, any failure exits non-zero:
     ``high``, ``default``) at rbf 32768 x 256 and at the sparse
     ``implicit`` tier.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Scratch files go to ``.smoke_work/``
-beside this script and are removed at the end.
+``--probe`` is the short first run after a change to a kernel source:
+phases 1 and 2, the compiler's resource lines of every kernel (the whole
+log goes to ``build.log`` beside the built library), and phase 11's K1 and
+K3 checks with one launch each instead of a timing loop; it prints no
+result line.
+
+The line before the last is the kernels' JSON record: per kernel x tier
+its launches on a main path, its error against and time beside its plain
+version, and ``bound_ms``, the least time the card could take
+(:func:`bound_ms`).  ``library_ms`` is null for all nine: no single PyTorch
+call computes a Gram product, a kernel transform and the GEMVs in one.  The
+last line is ``{"ok": true, "device": {...}}``.  Scratch files go to
+``.smoke_work/`` beside this script and are removed at the end.
 """
 
 from __future__ import annotations
@@ -90,6 +106,23 @@ SOURCES = {
     "gram_matvec_rect": "plssvm_sparse_fp22_tpu_torch/csrc/gram_matvec.cu",
     "gram_pair_contrib": "plssvm_sparse_fp22_tpu_torch/csrc/pair_contrib.cu",
 }
+def source_of(name: str) -> str:
+    """The file that holds kernel x tier ``name``: its entry point's source,
+    or the header of the wgmma tile for K1's and K3's bf16 tiers."""
+    kernel, tier = name.split("/")
+    if tier != "exact" and kernel != "gram_matvec_rect":
+        return "plssvm_sparse_fp22_tpu_torch/csrc/gram_tile_wgmma.cuh"
+    return SOURCES[kernel]
+
+
+#: published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): bf16
+#: tensor cores, float32 outside the tensor cores, device memory
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+#: the shapes the kernels' records are taken at (rbf, float32 inputs): K1's
+#: rows and features, K2's and K3's rows of each side and features
+RECORD_SHAPES = {"gram_matvec_sym": (32768, 32768, 256),
+                 "gram_matvec_rect": (4096, 32768, 256),
+                 "gram_pair_contrib": (4096, 4096, 4096)}
 _PALLAS = "plssvm_sparse_fp22_tpu/ops/pallas_matvec.py"
 #: the TPU kernel (body, or its tier arm) each kernel x tier replaces; K3
 #: (pair_gram_contrib) runs the body of K1 over two panels, so its bf16 tiers
@@ -221,6 +254,28 @@ def timed_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(name: str, Di: int, Dj: int, f: int) -> dict:
+    """The least time the card could take for kernel x tier ``name`` on
+    (Di, f) x (Dj, f) inputs: the larger of the Gram product's operations
+    over the peak of their type (2 f per Gram entry, three products at
+    bf16x3; K1 counts its lower-triangular 128 x 128 tiles only; float32
+    FFMA at the exact tier, the bf16 tensor cores else) and the bytes it
+    must move (each operand matrix, the row norms and v read once, the
+    output written once) over the memory rate.  The transform's and the
+    GEMVs' operations, a few per Gram entry against 2 f, are left out."""
+    kernel, tier = name.split("/")
+    nbi, nbj = -(-Di // 128), -(-Dj // 128)
+    entries = (nbi * (nbi + 1) // 2 * 128 * 128 if kernel == "gram_matvec_sym" else Di * Dj)
+    flops = 2.0 * f * entries * (3 if tier == "bf16x3" else 1)
+    ops_s = flops / (PEAK_F32 if tier == "exact" else PEAK_BF16)
+    rows = Di if kernel == "gram_matvec_sym" else Di + Dj
+    per_value = {"exact": 4, "bf16x3": 4, "bf16cast": 2}[tier]  # hi + lo are 2 x 2 bytes
+    outs = Di + Dj if kernel == "gram_pair_contrib" else Di
+    bytes_s = (rows * f * per_value + (2 * rows + outs) * 4) / PEAK_BYTES
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+
+
 def run_cli(main, argv) -> tuple[int, str]:
     """Run a CLI ``main`` in-process, echo and return its stdout."""
     buf = io.StringIO()
@@ -254,6 +309,24 @@ def phase_build():
              if "registers" in line or "spill" in line]
     print(f"[2 build] nvcc {info['seconds']:.1f} s (cached: {info['cached']}) -> "
           f"{os.path.relpath(info['path'], ROOT)}; " + " | ".join(usage), flush=True)
+    if "C7510" in info["log"]:  # slower, not wrong: said, not failed on
+        print("[2 build] note: ptxas serialised the wgmma instructions of a kernel (C7510: a "
+              "function call between a tile's products); see --probe", flush=True)
+    return info
+
+
+def show_build_log(info: dict) -> None:
+    """``--probe``: the compiler's lines per kernel (entry function, registers,
+    spills, shared memory, any warning: a ``setmaxnreg ignored`` would show
+    here, and so would ptxas's note C7510, "Potential Performance Loss: wgmma
+    .mma_async instructions are serialized"), and the whole log into
+    ``build.log`` beside the library."""
+    with open(os.path.join(os.path.dirname(info["path"]), "build.log"), "w") as fh:
+        fh.write(info["log"])
+    for line in info["log"].splitlines():
+        if any(word in line for word in ("entry function", "registers", "spill", "arning",
+                                         "setmaxnreg", "Performance")):
+            print("  " + line.strip()[:200], flush=True)
 
 
 def compare(name, got, want, ms, plain_ms, label):
@@ -876,19 +949,34 @@ def compare_tier(name, tier, got, want, exact, ms, plain_ms, label):
     return err
 
 
-def phase_k4(dev, rng):
+def repeats_bitwise(name: str, fn, got) -> None:
+    """A second run of a kernel on the same inputs gives the same bits."""
+    import torch
+
+    again = fn()
+    again = again if torch.is_tensor(again) else torch.cat(again)
+    check(torch.equal(again, got), f"{name}: two runs on the same inputs differ")
+
+
+def phase_k4(dev, rng, probe: bool = False):
     """The bf16x3 and bf16cast tiers of K1, K2 and K3 at the main path's
     shapes, three kernels, against their plain versions at the tier and the
-    exact kernel.  The wrappers split or cast per call where the main path
-    does (K2's support vectors, K3's transient panels), so their times
-    include it; K1 splits once, as ``make_sym_matvec`` does for a CG loop."""
+    exact kernel.  K1 splits once, as ``make_sym_matvec`` does for a CG
+    loop; K2 splits or casts its support vectors per call, as the predict
+    does, so its time includes that; K3 takes each panel's operands from the
+    caller, as the panel schedules hand them over, and the preparation is
+    timed per panel beside it.  ``probe``: one launch per check, no K2."""
     import torch
 
     from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
     from plssvm_sparse_fp22_tpu_torch.types import KernelType
 
+    def reps(n: int) -> int:
+        return 1 if probe else n
+
     print(f"[11 K4] bf16x3 / bf16cast tiers vs their plain versions (tol {TOL:g}) and the exact "
-          f"kernel (budgets {TIER_BUDGET}), float32 inputs", flush=True)
+          f"kernel (budgets {TIER_BUDGET}), float32 inputs; K1 and K3 on the TMA-fed wgmma tile, "
+          f"each run twice and compared bitwise", flush=True)
     f = 256
     X = torch.tensor(rng.normal(size=(32768, f)), dtype=torch.float32, device=dev)
     v = torch.tensor(rng.normal(size=32768), dtype=torch.float32, device=dev)
@@ -911,12 +999,15 @@ def phase_k4(dev, rng):
 
             got, want = mv(v), plain1()
             torch.cuda.synchronize()
-            ms, plain_ms = timed_ms(lambda: mv(v), 20), timed_ms(plain1, 3)
+            repeats_bitwise(f"K1 {tier} {kernel.name}", lambda: mv(v), got)
+            ms, plain_ms = timed_ms(lambda: mv(v), reps(20)), timed_ms(plain1, reps(3))
             err = compare_tier("K1", tier, got, want, exact1, ms, plain_ms,
                                f"{kernel.name} (32768, {f})")
             if kernel == KernelType.rbf:
                 records[f"gram_matvec_sym/{tier}"] = {"max_abs_err": err, "ms": ms,
                                                       "plain_ms": plain_ms}
+            if probe:
+                continue
 
             def kern2():
                 return gm.gram_matvec(kernel, P, a, Y=Y, sqy=sqy, tier=tier, **kw)
@@ -932,30 +1023,49 @@ def phase_k4(dev, rng):
             if kernel == KernelType.rbf:
                 records[f"gram_matvec_rect/{tier}"] = {"max_abs_err": err, "ms": ms,
                                                        "plain_ms": plain_ms}
-    del X, Y, P, exact1, exact2
-    for Di, Dj, f in [(4096, 4096, 4096), (3000, 1700, 1001)]:
+    del X, Y, P, exact1, exact2, ops
+    # K3's panel pairs: the main path's, the ragged one, one pair of 512-row
+    # panels (16 tile pairs on 132 SMs), and the diagonal panel on K1
+    for Di, Dj, f, same in [(4096, 4096, 4096, False), (3000, 1700, 1001, False),
+                            (512, 512, 4096, False), (4096, 4096, 4096, True)]:
         Xi = torch.tensor(rng.normal(size=(Di, f)), dtype=torch.float32, device=dev)
-        Xj = torch.tensor(rng.normal(size=(Dj, f)), dtype=torch.float32, device=dev)
+        Xj = Xi if same else torch.tensor(rng.normal(size=(Dj, f)), dtype=torch.float32,
+                                          device=dev)
         vi = torch.tensor(rng.normal(size=Di), dtype=torch.float32, device=dev)
-        vj = torch.tensor(rng.normal(size=Dj), dtype=torch.float32, device=dev)
+        vj = vi if same else torch.tensor(rng.normal(size=Dj), dtype=torch.float32, device=dev)
         sqi, sqj = gm.row_sqnorms(Xi), gm.row_sqnorms(Xj)
-        for kernel in KernelType:
-            kw = {"same": False, "sq_i": sqi, "sq_j": sqj, "degree": 3, "gamma": 1.0 / f,
-                  "coef0": 1.0}
-            exact3 = torch.cat(gm.pair_gram_contrib(kernel, Xi, Xj, vi, vj, tier="exact", **kw))
-            for tier in TIER_BUDGET:
+        which = "K1" if same else "K3"
+        shape = f"({Di}, {Dj}, f {f}){' same: the diagonal panel' if same else ''}"
+        for tier in TIER_BUDGET:
+            Xio = gm.tier_operands(tier, Xi)
+            Xjo = Xio if same else gm.tier_operands(tier, Xj)
+            torch.cuda.synchronize()
+            prep = timed_ms(lambda: gm.tier_operands(tier, Xi), reps(5))
+            print(f"  {tier} operands of one ({Di}, {f}) panel (split or cast, features padded "
+                  f"to {Xio[0].shape[1]}): {prep:.3f} ms per panel", flush=True)
+            for kernel in KernelType:
+                kw = {"same": same, "sq_i": sqi, "sq_j": sqj, "degree": 3, "gamma": 1.0 / f,
+                      "coef0": 1.0}
+
                 def kern3():
-                    return gm.pair_gram_contrib(kernel, Xi, Xj, vi, vj, tier=tier, **kw)
+                    return gm.pair_gram_contrib(kernel, Xi, Xj, vi, vj, tier=tier,
+                                                operands=(Xio, Xjo), **kw)
 
                 def plain3():
-                    return gm.pair_gram_contrib_plain(kernel, Xi, Xj, vi, vj, tier=tier, **kw)
+                    return gm.pair_gram_contrib_plain(kernel, Xi, Xj, vi, vj, tier=tier,
+                                                      operands=(Xio, Xjo), **kw)
 
-                got, want = torch.cat(kern3()), torch.cat(plain3())
+                # both sides of a cross pair; with same=True their sum is the contract
+                join = sum if same else torch.cat
+                exact3 = join(gm.pair_gram_contrib(kernel, Xi, Xj, vi, vj, tier="exact", **kw))
+                got, want = join(kern3()), join(plain3())
                 torch.cuda.synchronize()
-                ms, plain_ms = timed_ms(kern3, 10), timed_ms(plain3, 5)
-                err = compare_tier("K3", tier, got, want, exact3, ms, plain_ms,
-                                   f"{kernel.name} ({Di}, {Dj}, f {f})")
-                if (Di, kernel) == (4096, KernelType.rbf):
+                repeats_bitwise(f"{which} {tier} {kernel.name} {shape}",
+                                lambda: join(kern3()), got)
+                ms, plain_ms = timed_ms(kern3, reps(10)), timed_ms(plain3, reps(5))
+                err = compare_tier(which, tier, got, want, exact3, ms, plain_ms,
+                                   f"{kernel.name} {shape}")
+                if (Di, same, kernel) == (4096, False, KernelType.rbf):
                     records[f"gram_pair_contrib/{tier}"] = {"max_abs_err": err, "ms": ms,
                                                             "plain_ms": plain_ms}
     return records
@@ -1143,6 +1253,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also run phase 10: torch.profiler over each sparse tier's CG")
+    parser.add_argument("--probe", action="store_true",
+                        help="build, show the compiler's resource lines, check K1's and K3's "
+                             "bf16 tiers with one launch each, and stop")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU",
@@ -1157,7 +1270,12 @@ def main(argv=None) -> int:
     os.makedirs(WORK, exist_ok=True)
     try:
         phase_device()
-        phase_build()
+        info = phase_build()
+        if args.probe:
+            show_build_log(info)
+            phase_k4(dev, rng, probe=True)
+            print("probe passed", flush=True)
+            return 0
         # phases 3-10 hold the exact tier; the plan is off while a tier is pinned
         with environ(PLSSVM_MATMUL_PRECISION="highest"):
             records = {"gram_matvec_sym/exact": phase_k1(dev, rng),
@@ -1183,8 +1301,12 @@ def main(argv=None) -> int:
         if args.profile:
             with environ(PLSSVM_MATMUL_PRECISION="highest"):
                 phase_profile(sparse)
-        kernels = [{"name": name, "route": "cuda", "source": SOURCES[name.split("/")[0]],
-                    "replaces": REPLACES[name], "launches": launches[name], **rec}
+        print("library_ms is null for every kernel: no single PyTorch call computes K(X, Y) v "
+              "(a Gram product, a kernel transform and one or two GEMVs); the plain versions are "
+              "those calls in sequence", flush=True)
+        kernels = [{"name": name, "route": "cuda", "source": source_of(name),
+                    "replaces": REPLACES[name], "launches": launches[name], **rec,
+                    **bound_ms(name, *RECORD_SHAPES[name.split("/")[0]]), "library_ms": None}
                    for name, rec in records.items()]
         check(len(kernels) == 9 and all(k["launches"] > 0 for k in kernels),
               f"a kernel of the path never launched: {launches}")

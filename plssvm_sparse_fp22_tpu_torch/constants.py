@@ -36,3 +36,10 @@ RESIDUAL_REFRESH_INTERVAL: int = 50
 #: ``csrc/gram_matvec.cu``: the wrappers size their scratch slabs from it,
 #: and loading the library checks the two agree.
 CUDA_TILE: int = 128
+
+#: The bf16 operands of the Gram kernels carry their feature axis padded with
+#: zeros to a multiple of this: one TMA box of the wgmma tile is 64 bf16
+#: features (128 bytes, the swizzle span; ``KCHUNK`` in
+#: ``csrc/gram_tile_wgmma.cuh``), and a TMA row stride must be a multiple of
+#: 16 bytes.
+CUDA_FEATURE_PAD: int = 64

@@ -23,15 +23,18 @@
 // memory is not the limit.  The design keeps the FFMA pipes fed with a
 // 128 x 128 tile per CTA, an 8 x 8 register tile per thread (64 FFMA per 4
 // shared-memory vector loads), and double-buffered shared memory so one
-// sync covers each feature chunk.  bf16 tiers (gram_tile.cuh): the product
-// moves to the bf16 tensor cores (mma.sync, three products per chunk at
-// bf16x3, one at bf16cast), so at f = 256 the epilogue (a transcendental
-// and two FMAs per element), the staging of G through shared memory and the
-// operand loads weigh as much as the product; the tile keeps 32-feature
-// chunks double-buffered in shared memory with padded rows (no bank
-// conflicts on the fragment loads), one CTA of 8 warps per SM for the
-// registers of 64 accumulators and the prefetched next chunk.  wgmma, TMA
-// and a pipelined design are later work.
+// sync covers each feature chunk.  bf16 tiers: the product moves to the bf16
+// tensor cores (989 TFLOP/s dense; three products per 16 features at bf16x3,
+// one at bf16cast), which sets the bound; at f = 256 a tile's product is so
+// short that its transform (one special-function op per element) and the
+// operand boxes it pulls from the L2 (both 128 x f operands per 128 x 128
+// tile) weigh as much.  K1's bf16 tiers run the tile of
+// gram_tile_wgmma.cuh: TMA loads into a ring of stages, wgmma products, a
+// persistent CTA per SM whose two consumer warpgroups overlap one tile's
+// epilogue with the next tile's product, the accumulator read in wgmma's
+// own register layout.  K2's bf16 tiers still run gram_tile_bf16
+// (gram_tile.cuh): mma.sync fed by threads from a two-stage buffer, one CTA
+// of 8 warps per SM, the epilogue serial with the product.
 //
 // Cross-CTA reduction, and why it is deterministic.  The TPU kernel adds
 // every contribution into a resident output block because its grid runs in
@@ -54,29 +57,24 @@
 // from run to run at every tier, and CG iteration counts repeat with it.
 //
 // Ragged shapes: rows beyond D (or N) and features beyond f are masked at
-// the loads (read as 0) and in the epilogue (K := 0), so callers need not
-// pad to tile multiples.
+// the loads (read as 0; by the TMA unit in K1's bf16 tiers) and in the
+// epilogue (K := 0), so callers need not pad to tile multiples.  K1's bf16
+// tiers need f % 8 == 0 (TMA's 16-byte row stride): the wrapper pads the
+// bf16 operands' feature axis with zeros.
 //
 // Each C entry point takes the tier (exact 0, bf16x3 1, bf16cast 2) and the
 // operand pointers for it: X float32 at exact; X = hi and X_lo = lo (bf16)
 // at bf16x3; X = bf16(X) and X_lo = NULL at bf16cast.  It launches on the
 // caller's stream, allocates nothing, does not synchronise, and returns
 // cudaGetLastError().  The Gram tiles, the transform and the slab reduction
-// live in gram_tile.cuh.
+// live in gram_tile.cuh and gram_tile_wgmma.cuh.
 
 #include "gram_tile.cuh"
+#include "gram_tile_wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-// Lower-triangular pair t -> (i, j), j <= i, in row-major order.
-__device__ __forceinline__ void tri_pair(long long t, int& i, int& j) {
-    i = (int)((sqrt(8.0 * (double)t + 1.0) - 1.0) * 0.5);
-    while ((long long)i * (i + 1) / 2 > t) --i;
-    while ((long long)(i + 1) * (i + 2) / 2 <= t) ++i;
-    j = (int)(t - (long long)i * (i + 1) / 2);
-}
 
 // K1: one CTA per lower-triangular tile pair t -> (i, j), j <= i.
 __global__ void __launch_bounds__(THREADS, 2)
@@ -88,20 +86,6 @@ gram_matvec_sym_kernel(const float* __restrict__ X, const float* __restrict__ sq
     float* row_out = slab + ((size_t)i * nb + j) * BM;
     float* col_out = (i != j) ? slab + ((size_t)j * nb + i) * BM : nullptr;
     gram_tile(X, D, X, D, f, vec4, sq, sq, v, v, i * BM, j * BM, p, row_out, col_out);
-}
-
-template <int NPROD>
-__global__ void __launch_bounds__(THREADS, 1)
-gram_matvec_sym_bf16_kernel(const bf16* __restrict__ X, const bf16* __restrict__ X_lo,
-                            const float* __restrict__ sq, const float* __restrict__ v, int D,
-                            int f, int nb, bool vec8, KernelParams p,
-                            float* __restrict__ slab) {
-    int i, j;
-    tri_pair(blockIdx.x, i, j);
-    float* row_out = slab + ((size_t)i * nb + j) * BM;
-    float* col_out = (i != j) ? slab + ((size_t)j * nb + i) * BM : nullptr;
-    gram_tile_bf16<NPROD>(X, X_lo, D, X, X_lo, D, f, vec8, sq, sq, v, v, i * BM, j * BM, p,
-                          row_out, col_out);
 }
 
 // K2: one CTA per tile pair (i, j) = (blockIdx.y, blockIdx.x): the j axis is
@@ -131,18 +115,13 @@ gram_matvec_rect_bf16_kernel(const bf16* __restrict__ X, const bf16* __restrict_
                           j * BM, p, row_out, nullptr);
 }
 
+// K1's bf16 tiers: the wgmma tile walk over the lower-triangular pairs.
 template <int NPROD>
 cudaError_t launch_sym_bf16(const void* X, const void* X_lo, const float* sq, const float* v,
                             int D, int f, int nb, long long pairs, KernelParams p, float* slab,
                             cudaStream_t s) {
-    cudaError_t err = allow_bf16_smem<NPROD>(gram_matvec_sym_bf16_kernel<NPROD>);
-    if (err != cudaSuccess) return err;
-    const bool vec8 = (f % 8 == 0) && aligned16(X) && (X_lo == nullptr || aligned16(X_lo));
-    gram_matvec_sym_bf16_kernel<NPROD><<<(unsigned)pairs, THREADS,
-                                         bf16_tile_smem_bytes<NPROD>(), s>>>(
-        static_cast<const bf16*>(X), static_cast<const bf16*>(X_lo), sq, v, D, f, nb, vec8, p,
-        slab);
-    return cudaGetLastError();
+    TileArgs args{sq, sq, v, v, slab, nullptr, D, D, nb, nb, 0, pairs, p};
+    return launch_gram_wgmma<NPROD, true>(X, X_lo, X, X_lo, f, args, s);
 }
 
 template <int NPROD>
@@ -165,8 +144,9 @@ cudaError_t launch_rect_bf16(const void* X, const void* X_lo, const void* Y, con
 extern "C" {
 
 // K1: out (D,) = K(X, X) v.  X (D, f) row-major (float32 at tier 0, bf16 hi
-// with X_lo the bf16 lo at tier 1, bf16 at tier 2), sq (D,) = row norms
-// |x|^2 of the float32 rows, v (D,), slab (nb, nb, BM) scratch with
+// with X_lo the bf16 lo at tier 1, bf16 at tier 2; f % 8 == 0 and 16-byte
+// aligned bases at tiers 1 and 2, else cudaErrorInvalidValue), sq (D,) = row
+// norms |x|^2 of the float32 rows, v (D,), slab (nb, nb, BM) scratch with
 // nb = ceil(D / BM).
 int gram_matvec_sym(int tier, const void* X, const void* X_lo, const float* sq,
                     const float* v, float* slab, float* out, int D, int f, int kernel,

@@ -1,7 +1,9 @@
 // Shared device code of the Gram-matvec kernels (K1, K2 in gram_matvec.cu,
 // K3 in pair_contrib.cu): the kernel transform, the BM x BM Gram tile of
-// each precision tier with the row- and column-side epilogue they share, and
-// the fixed-order slab reduction.  See gram_matvec.cu for what bounds them on
+// each precision tier with the row- and column-side epilogue they share, the
+// lower-triangular pair order and the fixed-order slab reduction.  K1's and
+// K3's bf16 tiers run the wgmma tile of gram_tile_wgmma.cuh instead of
+// gram_tile_bf16, which K2 keeps.  See gram_matvec.cu for what bounds them on
 // the H100 and why the cross-CTA reduction is deterministic.  Everything
 // here has internal linkage, so each source that includes it gets its own
 // copy.
@@ -13,7 +15,7 @@
 //             hi hi^T + hi lo^T + lo hi^T in that order per 16 features.
 //   bf16cast  gram_tile_bf16<1>: operands rounded to bf16 by the caller,
 //             one product.
-// The bf16 tiles run mma.sync m16n8k16 (bf16 in, f32 accumulate) on the
+// gram_tile_bf16 runs mma.sync m16n8k16 (bf16 in, f32 accumulate) on the
 // tensor cores.  Each product of two bf16 values is exact in f32, but the
 // tensor core's f32 accumulation does not round to nearest at every add, so
 // a bf16 tile and its plain PyTorch version (exact products, f32 sums in
@@ -440,6 +442,14 @@ template <int NPROD, typename Kernel>
 cudaError_t allow_bf16_smem(Kernel* kernel) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)bf16_tile_smem_bytes<NPROD>());
+}
+
+// Lower-triangular pair t -> (i, j), j <= i, in row-major order.
+__device__ __forceinline__ void tri_pair(long long t, int& i, int& j) {
+    i = (int)((sqrt(8.0 * (double)t + 1.0) - 1.0) * 0.5);
+    while ((long long)i * (i + 1) / 2 > t) --i;
+    while ((long long)(i + 1) * (i + 2) / 2 <= t) ++i;
+    j = (int)(t - (long long)i * (i + 1) / 2);
 }
 
 // out[a * BM + r] = sum_{b < inner} slab[a][b][r], b ascending.

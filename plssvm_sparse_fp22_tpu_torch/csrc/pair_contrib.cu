@@ -15,31 +15,38 @@
 //
 // Design.  The TPU grid runs the pairs in order and accumulates out_j in a
 // VMEM-resident vector (pallas_matvec.py:415-421).  Concurrent CTAs cannot,
-// so each CTA (one tile pair) writes its row side K_ij v_j into its own slot
-// slab_i[i][j] and its column side K_ij^T v_i into slab_j[j][i]; both come
-// out of the one Gram tile (gram_tile / gram_tile_bf16 with col_out set).
-// Two fixed-order reduce_slab passes then give out_i and out_j, so the
-// result is bitwise repeatable at every tier, like K1 and K2.  Rows beyond
-// Di / Dj and features beyond f are masked inside the tile, so panels need
-// no padding.
+// so each tile pair's row side K_ij v_j goes into its own slot slab_i[i][j]
+// and its column side K_ij^T v_i into slab_j[j][i]; both come out of the one
+// Gram tile.  Two fixed-order reduce_slab passes then give out_i and out_j,
+// so the result is bitwise repeatable at every tier, like K1 and K2.  Rows
+// beyond Di / Dj and features beyond f are masked inside the tile, so panels
+// need no padding in the rows.
 //
 // What bounds it on the H100: the Gram product, 2 f flops per tile
-// element, as for K1: float32 FFMA at the exact tier (67 TFLOP/s non-tensor
-// peak), bf16 tensor cores at the bf16x3 (three products) and bf16cast
-// tiers.  At f = 4096 the feature loop dominates the epilogue, so the bf16
-// tiers gain most here.  A 4096 x 4096 panel pair is 1024 CTAs; panels of
-// 512 rows give only 4 x 4 = 16 CTAs on 132 SMs, and leave most of the card
-// idle; splitting the feature axis over CTAs, wgmma/TMA and a densify fused
-// into the tile loads (ROADMAP K5) are later work.
+// element: float32 FFMA at the exact tier (67 TFLOP/s non-tensor peak, one
+// CTA per tile pair, gram_tile), the bf16 tensor cores at the bf16x3 (three
+// products) and bf16cast tiers (989 TFLOP/s dense).  At f = 4096 the feature
+// loop is nearly all of the time, so the bf16 tiers run the tile of
+// gram_tile_wgmma.cuh: a persistent CTA per SM, one producer thread that
+// keeps TMA loads of the 128 x 64 operand boxes in flight in a ring of
+// stages, two consumer warpgroups that issue wgmma on alternate tile pairs
+// and overlap one pair's epilogue with the other's products; the pairs are
+// walked in groups of 8 row blocks so the CTAs running at one time share
+// their boxes in the L2 (each 128 x 128 tile pulls both of its operands
+// from there).  The bf16 operands need f % 8 == 0 (TMA's 16-byte
+// row stride): the wrapper pads the feature axis with zeros, once per panel.
+// A 4096 x 4096 panel pair is 1024 tile pairs; panels of 512 rows give only
+// 16 on 132 SMs and leave most of the card idle; splitting the feature axis
+// over CTAs and a densify fused into the tile loads (ROADMAP K5) are later
+// work.
 //
 // The C entry point takes the tier (exact 0, bf16x3 1, bf16cast 2) and the
 // operand pointers for it, as gram_matvec.cu's do.
 
 #include "gram_tile.cuh"
+#include "gram_tile_wgmma.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 // One CTA per tile pair (i, j) = (blockIdx.y, blockIdx.x) of Xi x Xj.
 __global__ void __launch_bounds__(THREADS, 2)
@@ -58,38 +65,15 @@ gram_pair_contrib_kernel(const float* __restrict__ Xi, const float* __restrict__
               col_out);
 }
 
-template <int NPROD>
-__global__ void __launch_bounds__(THREADS, 1)
-gram_pair_contrib_bf16_kernel(const bf16* __restrict__ Xi, const bf16* __restrict__ Xi_lo,
-                              const bf16* __restrict__ Xj, const bf16* __restrict__ Xj_lo,
-                              const float* __restrict__ sqi, const float* __restrict__ sqj,
-                              const float* __restrict__ vi, const float* __restrict__ vj,
-                              int Di, int Dj, int f, bool vec8, KernelParams p,
-                              float* __restrict__ slab_i, float* __restrict__ slab_j) {
-    const int i = blockIdx.y;
-    const int j = blockIdx.x;
-    const int nbi = gridDim.y;
-    const int nbj = gridDim.x;
-    float* row_out = slab_i + ((size_t)i * nbj + j) * BM;
-    float* col_out = slab_j + ((size_t)j * nbi + i) * BM;
-    gram_tile_bf16<NPROD>(Xi, Xi_lo, Di, Xj, Xj_lo, Dj, f, vec8, sqi, sqj, vi, vj, i * BM,
-                          j * BM, p, row_out, col_out);
-}
-
+// The bf16 tiers: the wgmma tile walk over every pair of Xi x Xj.
 template <int NPROD>
 cudaError_t launch_pair_bf16(const void* Xi, const void* Xi_lo, const void* Xj,
                              const void* Xj_lo, const float* sqi, const float* sqj,
-                             const float* vi, const float* vj, int Di, int Dj, int f, dim3 grid,
-                             KernelParams p, float* slab_i, float* slab_j, cudaStream_t s) {
-    cudaError_t err = allow_bf16_smem<NPROD>(gram_pair_contrib_bf16_kernel<NPROD>);
-    if (err != cudaSuccess) return err;
-    const bool vec8 = (f % 8 == 0) && aligned16(Xi) && aligned16(Xj) &&
-                      (Xi_lo == nullptr || (aligned16(Xi_lo) && aligned16(Xj_lo)));
-    gram_pair_contrib_bf16_kernel<NPROD><<<grid, THREADS, bf16_tile_smem_bytes<NPROD>(), s>>>(
-        static_cast<const bf16*>(Xi), static_cast<const bf16*>(Xi_lo),
-        static_cast<const bf16*>(Xj), static_cast<const bf16*>(Xj_lo), sqi, sqj, vi, vj, Di, Dj,
-        f, vec8, p, slab_i, slab_j);
-    return cudaGetLastError();
+                             const float* vi, const float* vj, int Di, int Dj, int f, int nbi,
+                             int nbj, KernelParams p, float* slab_i, float* slab_j,
+                             cudaStream_t s) {
+    TileArgs args{sqi, sqj, vi, vj, slab_i, slab_j, Di, Dj, nbi, nbj, 0, (long long)nbi * nbj, p};
+    return launch_gram_wgmma<NPROD, false>(Xi, Xi_lo, Xj, Xj_lo, f, args, s);
 }
 
 }  // namespace
@@ -98,9 +82,10 @@ extern "C" {
 
 // out_i (Di,) = K(Xi, Xj) v_j and out_j (Dj,) = K(Xi, Xj)^T v_i.  Xi (Di, f),
 // Xj (Dj, f) row-major at the tier's types (float32 at tier 0; bf16 hi and
-// the *_lo parts at tier 1; bf16 at tier 2), sqi (Di,), sqj (Dj,) row norms
-// |x|^2 of the float32 rows, slab_i (nbi, nbj, BM) and slab_j (nbj, nbi, BM)
-// scratch with nbi = ceil(Di / BM), nbj = ceil(Dj / BM).
+// the *_lo parts at tier 1; bf16 at tier 2; f % 8 == 0 and 16-byte aligned
+// bases at tiers 1 and 2, else cudaErrorInvalidValue), sqi (Di,), sqj (Dj,)
+// row norms |x|^2 of the float32 rows, slab_i (nbi, nbj, BM) and slab_j
+// (nbj, nbi, BM) scratch with nbi = ceil(Di / BM), nbj = ceil(Dj / BM).
 int gram_pair_contrib(int tier, const void* Xi, const void* Xi_lo, const void* Xj,
                       const void* Xj_lo, const float* sqi, const float* sqj, const float* vi,
                       const float* vj, float* slab_i, float* slab_j, float* out_i,
@@ -119,11 +104,11 @@ int gram_pair_contrib(int tier, const void* Xi, const void* Xi_lo, const void* X
             Dj, f, vec4, p, slab_i, slab_j);
         err = cudaGetLastError();
     } else if (tier == 1) {
-        err = launch_pair_bf16<3>(Xi, Xi_lo, Xj, Xj_lo, sqi, sqj, vi, vj, Di, Dj, f, grid, p,
-                                  slab_i, slab_j, s);
-    } else if (tier == 2) {
-        err = launch_pair_bf16<1>(Xi, nullptr, Xj, nullptr, sqi, sqj, vi, vj, Di, Dj, f, grid,
+        err = launch_pair_bf16<3>(Xi, Xi_lo, Xj, Xj_lo, sqi, sqj, vi, vj, Di, Dj, f, nbi, nbj,
                                   p, slab_i, slab_j, s);
+    } else if (tier == 2) {
+        err = launch_pair_bf16<1>(Xi, nullptr, Xj, nullptr, sqi, sqj, vi, vj, Di, Dj, f, nbi,
+                                  nbj, p, slab_i, slab_j, s);
     } else {
         return (int)cudaErrorInvalidValue;
     }

@@ -1,10 +1,15 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
 ``nvcc`` compiles every ``csrc/*.cu`` (K1/K2 in ``gram_matvec.cu``, K3 in
-``pair_contrib.cu``, both including ``gram_tile.cuh``) into an object, one
-``nvcc`` per source, all started together, and links them into one shared
-library with a plain C interface, loaded with ``ctypes``; nothing links
-against PyTorch, so a build takes seconds.  The library goes to
+``pair_contrib.cu``, both including ``gram_tile.cuh`` and
+``gram_tile_wgmma.cuh``) into an object, one ``nvcc`` per source, all
+started together, and links them into one shared library with a plain C
+interface, loaded with ``ctypes``; nothing links against PyTorch, so a
+build takes well under a minute.  Nothing links against ``libcuda``
+either: the wgmma tile's tensor maps need that library's
+``cuTensorMapEncodeTiled``, which the built code looks up at run time
+through ``cudaGetDriverEntryPoint`` (PyTorch has ``libcuda`` loaded), so no
+link flag and no stub path are needed.  The library goes to
 ``plssvm_sparse_fp22_tpu_torch/_build/`` (listed in ``.gitignore``) at first
 use and is rebuilt when the hash of any source or header, or of the flags,
 changes.  There is no fallback: a failed build raises.

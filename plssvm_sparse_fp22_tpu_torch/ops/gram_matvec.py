@@ -28,8 +28,17 @@ Each runs at one of three precision tiers (**K4**, the arms of
 The transform and the two GEMVs of the epilogue stay f32 at every tier.
 float64 always runs ``exact`` (``pallas_matvec.py:306-312``).  K1 and K2
 live in ``csrc/gram_matvec.cu``, K3 in ``csrc/pair_contrib.cu``; both
-include ``csrc/gram_tile.cuh``, whose header says what bounds them on the
-H100 and how the cross-CTA reduction stays deterministic.
+include ``csrc/gram_tile.cuh`` (the exact tiles, K2's ``mma.sync`` bf16
+tile, the slab reduction) and ``csrc/gram_tile_wgmma.cuh`` (the TMA-fed
+``wgmma`` tile of K1's and K3's bf16 tiers); ``gram_matvec.cu``'s header
+says what bounds them on the H100 and how the cross-CTA reduction stays
+deterministic.
+
+The bf16 operands (:func:`tier_operands`) carry their feature axis padded
+with zeros to a multiple of 64 (``CUDA_FEATURE_PAD``): a zero feature
+changes no dot product, the row norms are taken from the float32 rows, and
+the TMA unit gets the 16-byte row stride it needs.  The plain versions take
+the same padded operands.
 
 A wrapper dispatches on the device of its tensors.  On a CPU tensor it runs
 the plain version at the same tier; on a CUDA tensor it launches its kernel
@@ -44,7 +53,7 @@ import os
 
 import torch
 
-from ..constants import CUDA_TILE, ROW_BLOCK_SIZE
+from ..constants import CUDA_FEATURE_PAD, CUDA_TILE, ROW_BLOCK_SIZE
 from ..exceptions import BackendError, PLSSVMError
 from ..types import KernelType
 from . import _build
@@ -67,9 +76,20 @@ KERNEL_NAMES = ("gram_matvec_sym", "gram_matvec_rect", "gram_pair_contrib")
 launches = {f"{name}/{tier}": 0 for name in KERNEL_NAMES for tier in TIERS}
 
 
+#: calls of :func:`tier_operands` per tier since the last
+#: :func:`reset_preparations`: a bf16 tier's call is a split or cast of a
+#: whole matrix, so a schedule can show how often it pays for one
+preparations = {tier: 0 for tier in TIERS}
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def reset_preparations() -> None:
+    for tier in preparations:
+        preparations[tier] = 0
 
 
 def row_sqnorms(X: torch.Tensor) -> torch.Tensor:
@@ -119,15 +139,33 @@ def split_bf16(X: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi_f32.to(torch.bfloat16), r.to(torch.bfloat16)
 
 
-def tier_operands(tier: str, X: torch.Tensor) -> tuple[torch.Tensor, ...]:
+def _pad_features(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (rows, f) with its feature axis padded with zeros to a multiple
+    of ``CUDA_FEATURE_PAD``; ``t`` itself when f already is one."""
+    rows, f = t.shape
+    fp = -(-f // CUDA_FEATURE_PAD) * CUDA_FEATURE_PAD
+    if fp == f:
+        return t
+    out = torch.zeros((rows, fp), dtype=t.dtype, device=t.device)
+    out[:, :f] = t
+    return out
+
+
+def tier_operands(tier: str, X: torch.Tensor, *, pad: bool = True) -> tuple[torch.Tensor, ...]:
     """The operands a tier's product reads (``_pair_operands``,
     ``pallas_matvec.py:315-327``): ``(X,)``, ``(hi, lo)`` or
-    ``(bf16(X),)``."""
+    ``(bf16(X),)``.  The bf16 parts of a matrix come in contiguous buffers
+    whose feature axis is padded with zeros to a multiple of
+    ``CUDA_FEATURE_PAD``, the row stride the wgmma tile's TMA loads need;
+    ``pad=False`` (the ``linear`` mode's plain products) leaves the shape."""
+    preparations[tier] += 1
     if tier == "bf16x3":
-        return split_bf16(X)
-    if tier == "bf16cast":
-        return (X.to(torch.bfloat16),)
-    return (X,)
+        parts = split_bf16(X)
+    elif tier == "bf16cast":
+        parts = (X.to(torch.bfloat16),)
+    else:
+        return (X,)
+    return tuple(_pad_features(t) for t in parts) if pad and X.dim() == 2 else parts
 
 
 def tier_matmul(tier: str, A: tuple, B: tuple) -> torch.Tensor:
@@ -166,7 +204,8 @@ def gram_matvec_plain(kernel: KernelType, X, v, *, Y=None, degree=3, gamma=1.0,
     blocked XLA implicit matvec (``matvec.py:288-306``), of its non-Pallas
     predict (``base.py:151-152``) and, at a bf16 tier, of its interpret-mode
     Pallas kernels.  ``operands`` passes ``(Xo, Yo)`` from
-    :func:`tier_operands` prepared once by the caller."""
+    :func:`tier_operands` prepared once by the caller (padded features and
+    all: the zero columns add nothing to any product)."""
     Y = X if Y is None else Y
     tier = resolve_tier(tier, X.dtype)
     if kernel == KernelType.rbf:
@@ -195,20 +234,31 @@ def gram_matvec_sym_plain(kernel: KernelType, X, v, *, degree=3, gamma=1.0,
                              operands=None if operands is None else (operands, operands))
 
 
+def _pair_operands(tier: str, Xi, Xj, same: bool, operands) -> tuple:
+    """``(Xio, Xjo)`` of a panel pair: the caller's, or prepared here, once
+    for both sides when ``same``."""
+    if operands is not None:
+        return operands[0], (operands[0] if same else operands[1])
+    Xio = tier_operands(tier, Xi)
+    return Xio, (Xio if same else tier_operands(tier, Xj))
+
+
 def pair_gram_contrib_plain(kernel: KernelType, Xi, Xj, v_i, v_j, *, same: bool,
                             sq_i=None, sq_j=None, degree=3, gamma=1.0, coef0=0.0,
-                            row_block=ROW_BLOCK_SIZE, tier: str = "exact"):
+                            row_block=ROW_BLOCK_SIZE, tier: str = "exact", operands=None):
     """Plain version of K3, the twin of ``pair_gram_contrib_xla``
     (``pallas_matvec.py:824-852``), blocked over Xi's rows so it never holds
     more than one ``(row_block, Dj)`` kernel tile.  Returns ``(out_i, out_j)``
     with ``out_i = K v_j`` and ``out_j = K^T v_i``; with ``same=True``
-    (``Xj`` is ``Xi``) ``(K v_i, 0)``, whose sum is what the caller adds."""
+    (``Xj`` is ``Xi``) ``(K v_i, 0)``, whose sum is what the caller adds.
+    ``operands`` passes ``(Xio, Xjo)`` of :func:`tier_operands` prepared by
+    the caller (``Xjo`` is not read when ``same``)."""
     tier = resolve_tier(tier, Xi.dtype)
     if kernel == KernelType.rbf:
         sq_i = row_sqnorms(Xi) if sq_i is None else sq_i
         sq_j = (sq_i if same else row_sqnorms(Xj)) if sq_j is None else sq_j
-    Xio = tier_operands(tier, Xi)
-    XjoT = _transposed(tier, Xio if same else tier_operands(tier, Xj))
+    Xio, Xjo = _pair_operands(tier, Xi, Xj, same, operands)
+    XjoT = _transposed(tier, Xjo)
     out_i = torch.empty(Xi.shape[0], dtype=Xi.dtype, device=Xi.device)
     out_j = torch.zeros(Xj.shape[0], dtype=Xi.dtype, device=Xi.device)
     for r0 in range(0, Xi.shape[0], row_block):
@@ -249,6 +299,9 @@ def _check_operands(name: str, tier: str, ops: tuple, shape: tuple, device) -> t
     dtype = torch.float32 if tier == "exact" else torch.bfloat16
     for part, t in zip(("", "_lo"), ops):
         _check(name + part, t, shape, device, dtype)
+    if tier != "exact" and shape[1] % CUDA_FEATURE_PAD:
+        raise PLSSVMError(f"{name}: the {tier} tier takes operands whose feature axis is padded "
+                          f"to a multiple of {CUDA_FEATURE_PAD} (tier_operands), got {shape[1]}")
     return ops[0].data_ptr(), (ops[1].data_ptr() if want == 2 else None)
 
 
@@ -263,12 +316,17 @@ def _cdiv(a: int, b: int) -> int:
 
 def _launch_sym(kernel, tier, Xo, v, sq, degree, gamma, coef0):
     """K1 (replaces ``_gram_matvec_sym_kernel``, ``pallas_matvec.py:388``).
-    Bound on the H100 by f32 FFMA throughput (exact) or by the tensor-core
-    product and the epilogue (bf16 tiers): X fits the L2 cache, and each
-    128 x 128 tile reuses every loaded feature 128 times.  The
-    lower-triangle pairs halve the flops; the slab holds one BM-long
-    partial per (block, other block) and a second kernel sums it in a fixed
-    order."""
+    Bound on the H100 by f32 FFMA throughput (exact) or by the bf16
+    tensor-core product (bf16 tiers; at f = 256 the transform's special
+    function op per element and the operand boxes pulled from the L2 weigh
+    as much).  The exact tier runs one CTA per tile pair on an 8 x 8
+    register tile; the bf16 tiers a persistent CTA per SM that feeds
+    ``wgmma`` by TMA and overlaps one tile's epilogue with the next one's
+    product (``csrc/gram_tile_wgmma.cuh``).  The lower-triangle pairs halve
+    the flops; the slab holds one BM-long partial per (block, other block)
+    and a second kernel sums it in a fixed order.  ``Xo`` is
+    :func:`tier_operands` of X: ``f`` below is its padded feature count at
+    a bf16 tier."""
     D, f = Xo[0].shape
     dev = Xo[0].device
     x_hi, x_lo = _check_operands("X", tier, Xo, (D, f), dev)
@@ -327,9 +385,12 @@ def _launch_rect(kernel, tier, Xo, Yo, v, sqx, sqy, degree, gamma, coef0):
 def _launch_pair(kernel, tier, Xio, Xjo, v_i, v_j, sq_i, sq_j, degree, gamma, coef0):
     """K3, cross panels (replaces ``pair_gram_contrib``,
     ``pallas_matvec.py:716``).  Bound like K1, at twice K1's flops per
-    output pair (no symmetry to skip).  One CTA per (i, j) tile pair writes
-    ``K_ij v_j`` to ``slab_i[i][j]`` and ``K_ij^T v_i`` to ``slab_j[j][i]``;
-    two fixed-order passes sum them."""
+    output pair (no symmetry to skip); at the panel tier's f = 4096 the
+    feature loop is nearly all of the time, which the bf16 tiers spend in
+    the TMA-fed ``wgmma`` tile of ``csrc/gram_tile_wgmma.cuh``.  Each (i, j)
+    tile pair writes ``K_ij v_j`` to ``slab_i[i][j]`` and ``K_ij^T v_i`` to
+    ``slab_j[j][i]``; two fixed-order passes sum them.  ``Xio``, ``Xjo`` are the panels'
+    :func:`tier_operands`, prepared by the caller once per panel."""
     Di, f = Xio[0].shape
     Dj = Xjo[0].shape[0]
     dev = Xio[0].device
@@ -411,31 +472,34 @@ def gram_matvec(kernel: KernelType, X, v, *, Y=None, degree=3, gamma=1.0,
 
 
 def pair_gram_contrib(kernel: KernelType, Xi, Xj, v_i, v_j, *, same: bool, sq_i=None,
-                      sq_j=None, degree=3, gamma=1.0, coef0=0.0, tier: str | None = None):
+                      sq_j=None, degree=3, gamma=1.0, coef0=0.0, tier: str | None = None,
+                      operands=None):
     """Panel-pair contributions of ``K = k(Xi, Xj)`` without building K, with
     the JAX package's contract (``pallas_matvec.py:734-755``): returns
     ``(out_i, out_j)`` sliced to the real row counts, ``out_i = K v_j`` and
     ``out_j = K^T v_i``.  ``same=True`` (the diagonal panel, ``Xj`` is
     ``Xi``) only promises ``out_i + out_j = K(Xi, Xi) v_i``: it runs K1 on
     the panel and returns ``(K v_i, 0)``, counted under
-    ``gram_matvec_sym``.  The panels are transient, so the tier's split or
-    cast runs per call, once for both sides when ``same=True``
-    (``pallas_matvec.py:319-326``).  Padding rows must be zero, with zero
-    ``v``."""
+    ``gram_matvec_sym``.  ``operands`` passes ``(Xio, Xjo)``, each panel's
+    :func:`tier_operands`, from a caller that prepares a panel once for all
+    of its pairs (the panel schedules of ``ops/sparse.py``); without it the
+    tier's split or cast runs here, per call, once for both sides when
+    ``same=True`` (``pallas_matvec.py:319-326``).  Padding rows must be
+    zero, with zero ``v``."""
     tier = resolve_tier(tier, Xi.dtype)
     sq_i = row_sqnorms(Xi) if sq_i is None else sq_i
     if same:
         if not Xi.is_cuda:
             return pair_gram_contrib_plain(kernel, Xi, Xi, v_i, v_i, same=True, sq_i=sq_i,
                                            sq_j=sq_i, degree=degree, gamma=gamma,
-                                           coef0=coef0, tier=tier)
-        out = _launch_sym(kernel, tier, tier_operands(tier, Xi), v_i, sq_i, degree, gamma,
-                          coef0)
+                                           coef0=coef0, tier=tier, operands=operands)
+        Xio, _ = _pair_operands(tier, Xi, Xi, True, operands)
+        out = _launch_sym(kernel, tier, Xio, v_i, sq_i, degree, gamma, coef0)
         return out, torch.zeros_like(out)
     sq_j = row_sqnorms(Xj) if sq_j is None else sq_j
     if not Xi.is_cuda:
         return pair_gram_contrib_plain(kernel, Xi, Xj, v_i, v_j, same=False, sq_i=sq_i,
                                        sq_j=sq_j, degree=degree, gamma=gamma, coef0=coef0,
-                                       tier=tier)
-    return _launch_pair(kernel, tier, tier_operands(tier, Xi), tier_operands(tier, Xj), v_i,
-                        v_j, sq_i, sq_j, degree, gamma, coef0)
+                                       tier=tier, operands=operands)
+    Xio, Xjo = _pair_operands(tier, Xi, Xj, False, operands)
+    return _launch_pair(kernel, tier, Xio, Xjo, v_i, v_j, sq_i, sq_j, degree, gamma, coef0)

@@ -208,7 +208,7 @@ def build_operator(
         # precision (matvec.py:232-235): plain PyTorch products here, on
         # bf16-rounded or split operands with f32 sums at a bf16 tier; X's
         # parts are upcast once (bf16 values are exact in float32)
-        Xo = tier_operands(tier, X_pad)
+        Xo = tier_operands(tier, X_pad, pad=False)
         if tier != "exact":
             Xo = tuple(t.float() for t in Xo)
         XoT = tuple(t.T for t in Xo)

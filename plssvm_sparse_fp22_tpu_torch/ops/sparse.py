@@ -34,7 +34,8 @@ import scipy.sparse as sp
 import torch
 
 from ..types import BackendType, KernelType
-from .gram_matvec import pair_gram_contrib, pair_gram_contrib_plain
+from .gram_matvec import (pair_gram_contrib, pair_gram_contrib_plain, resolve_tier,
+                          tier_operands)
 from .kernel_functions import integer_pow, kernel_diag
 from .matvec import fixed_tier
 
@@ -352,12 +353,12 @@ def _heavy_by_panel(heavy_rows, starts, device):
     return placed
 
 
-def _pair_fn(use_cuda: bool, precision: str | None):
+def _pair_fn(use_cuda: bool, precision: str | None, dtype):
     """K3 (it raises on a CUDA tensor it cannot take) or its plain version,
     and the tier of its products: ``precision``, else the backend's fixed
-    tier (:func:`~.matvec.fixed_tier`)."""
+    tier (:func:`~.matvec.fixed_tier`), resolved for the panels' dtype."""
     backend = BackendType.cuda if use_cuda else BackendType.torch
-    tier = fixed_tier(backend) if precision is None else precision
+    tier = resolve_tier(fixed_tier(backend) if precision is None else precision, dtype)
     return (pair_gram_contrib if use_cuda else pair_gram_contrib_plain), tier
 
 
@@ -373,9 +374,12 @@ def make_tiled_panel_matvec(tell_vals, tell_lcols, kernel_int: int, degree: int,
 
     Heavy rows (:class:`TiledHybrid`) replace their zeroed light rows after
     the densify; ``heavy_sq_vec`` (zero at light rows) completes the squared
-    norms.  ``precision`` is the pairs' tier (:func:`_pair_fn`); each pair
-    splits or casts its panels itself (``sparse.py:437-438`` of the JAX
-    package).  Returns ``(matvec, sq)``."""
+    norms.  ``precision`` is the pairs' tier (:func:`_pair_fn`).  Each
+    panel's operands for the tier (the bf16 split or cast,
+    :func:`~.gram_matvec.tier_operands`) are prepared once per densify and
+    handed to every pair that uses the panel; the JAX package splits inside
+    each pair (``sparse.py:437-438``) and leaves the sharing to XLA, which
+    eager PyTorch does not do.  Returns ``(matvec, sq)``."""
     kernel = KernelType(kernel_int)
     D = tell_vals.shape[0]
     bounds = list(range(0, D, panel_rows)) + [D]  # a ragged last panel is fine
@@ -383,7 +387,7 @@ def make_tiled_panel_matvec(tell_vals, tell_lcols, kernel_int: int, degree: int,
     sq = torch.sum(tell_vals * tell_vals, dim=1)
     if heavy_sq_vec is not None:
         sq = sq + heavy_sq_vec
-    fn, tier = _pair_fn(use_cuda, precision)
+    fn, tier = _pair_fn(use_cuda, precision, tell_vals.dtype)
     kw = {"degree": degree, "gamma": gamma, "coef0": coef0, "tier": tier}
     placed = _heavy_by_panel(heavy_rows, bounds[:-1], tell_vals.device)
 
@@ -397,6 +401,7 @@ def make_tiled_panel_matvec(tell_vals, tell_lcols, kernel_int: int, degree: int,
     def matvec(v):
         v = v.to(tell_vals.dtype)
         panels = [densify(p) for p in range(nP)]
+        ops = [tier_operands(tier, panel) for panel in panels]
         outs = [torch.zeros(bounds[p + 1] - bounds[p], dtype=tell_vals.dtype,
                             device=tell_vals.device) for p in range(nP)]
         for I in range(nP):
@@ -404,7 +409,8 @@ def make_tiled_panel_matvec(tell_vals, tell_lcols, kernel_int: int, degree: int,
             for J in range(I + 1):
                 loJ, hiJ = bounds[J], bounds[J + 1]
                 oi, oj = fn(kernel, panels[I], panels[J], v[loI:hiI], v[loJ:hiJ],
-                            same=J == I, sq_i=sq[loI:hiI], sq_j=sq[loJ:hiJ], **kw)
+                            same=J == I, sq_i=sq[loI:hiI], sq_j=sq[loJ:hiJ],
+                            operands=(ops[I], ops[J]), **kw)
                 outs[I] = outs[I] + oi
                 outs[J] = outs[J] + oj
         return torch.cat(outs) if nP > 1 else outs[0]
@@ -442,8 +448,9 @@ def make_tiled_panel_matvec_windowed(tell_vals, tell_lcols, kernel_int: int, deg
     advances and each j-panel for its pair.  At most two dense panels are
     alive at a time.  Panels are uniform (``panel_rows`` rows; the packing
     is padded with zero rows to a panel multiple).  ``precision`` as for
-    :func:`make_tiled_panel_matvec`.  Returns ``(matvec, sq)`` like
-    :func:`make_tiled_panel_matvec`."""
+    :func:`make_tiled_panel_matvec`; a panel's operands are prepared once
+    per densify, so the i-panel's serve every pair of its row.  Returns
+    ``(matvec, sq)`` like :func:`make_tiled_panel_matvec`."""
     kernel = KernelType(kernel_int)
     dtype, dev = tell_vals.dtype, tell_vals.device
     D = tell_vals.shape[0]
@@ -458,15 +465,16 @@ def make_tiled_panel_matvec_windowed(tell_vals, tell_lcols, kernel_int: int, deg
     if heavy_sq_vec is not None:
         sq[:D] += heavy_sq_vec
     placed = _heavy_by_panel(heavy_rows, list(range(0, Dp, P)), dev)
-    fn, tier = _pair_fn(use_cuda, precision)
+    fn, tier = _pair_fn(use_cuda, precision, dtype)
     kw = {"degree": degree, "gamma": gamma, "coef0": coef0, "tier": tier}
 
     def densify(p):
+        """Panel p and its operands for the tier."""
         base = densify_tiled(tell_vals[p * P:(p + 1) * P], tell_lcols[p * P:(p + 1) * P],
                              ntiles, Lt)
         if placed[p] is not None:
             base[placed[p][0]] = heavy[placed[p][1]]
-        return base
+        return base, tier_operands(tier, base)
 
     def matvec(v):
         v = v.to(dtype)
@@ -474,18 +482,19 @@ def make_tiled_panel_matvec_windowed(tell_vals, tell_lcols, kernel_int: int, deg
         out = torch.zeros(Dp, dtype=dtype, device=dev)
         for i in range(nP):
             s = slice(i * P, (i + 1) * P)
-            Xd = densify(i)
+            Xd, Xdo = densify(i)
             oi, oj = fn(kernel, Xd, Xd, v_pad[s], v_pad[s], same=True, sq_i=sq[s],
-                        sq_j=sq[s], **kw)
+                        sq_j=sq[s], operands=(Xdo, Xdo), **kw)
             out[s] += oi + oj
-        icur, Xi = -1, None
+        icur, Xi, Xio = -1, None, None
         for i in range(nP):
             for j in range(i):
                 if i != icur:
-                    icur, Xi = i, densify(i)
+                    icur, (Xi, Xio) = i, densify(i)
                 si, sj = slice(i * P, (i + 1) * P), slice(j * P, (j + 1) * P)
-                oi, oj = fn(kernel, Xi, densify(j), v_pad[si], v_pad[sj], same=False,
-                            sq_i=sq[si], sq_j=sq[sj], **kw)
+                Xj, Xjo = densify(j)
+                oi, oj = fn(kernel, Xi, Xj, v_pad[si], v_pad[sj], same=False,
+                            sq_i=sq[si], sq_j=sq[sj], operands=(Xio, Xjo), **kw)
                 out[si] += oi
                 out[sj] += oj
         return out[:D]

@@ -1,8 +1,9 @@
 """The CUDA kernels on the card: K1, K2 and K3 against their plain PyTorch
-versions at every precision tier, determinism, launch counts, the wrappers'
-checks, a small learn/predict on the ``cuda`` backend against the ``torch``
-backend, a streaming sparse learn through K3, and the adaptive two-tier
-learn.
+versions at every precision tier (K1's and K3's bf16 tiers run the TMA-fed
+``wgmma`` tile: ragged rows and features, more tile pairs than SMs, operands
+prepared by the caller), determinism, launch counts, the wrappers' checks, a
+small learn/predict on the ``cuda`` backend against the ``torch`` backend, a
+streaming sparse learn through K3, and the adaptive two-tier learn.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -280,6 +281,131 @@ def test_tier_wrappers_check_their_operands(dev):
         gm._launch_sym(KernelType.rbf, "bf16x3", (X.bfloat16(),), v, sq, 3, 1.0, 0.0)
     with pytest.raises(PLSSVMError, match="expected torch.bfloat16"):
         gm._launch_sym(KernelType.rbf, "bf16cast", (X,), v, sq, 3, 1.0, 0.0)
+
+
+# --- the wgmma tile of K1's and K3's bf16 tiers -----------------------------------
+
+
+def _tier_budget(tier):
+    return 1e-3 if tier == "bf16x3" else 3e-2
+
+
+@pytest.mark.parametrize("tier", BF16_TIERS)
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("shape", [(1, 1), (129, 8), (3000, 1001), (1, 1001), (640, 512)])
+def test_wgmma_k1_ragged_shapes_match_plain(dev, kernel, tier, shape):
+    """Rows that end inside a tile (D = 1, 129, 3000: the TMA unit fills the
+    rest with zeros and the epilogue masks it), features that end inside a
+    64-feature box (f = 1, 8, 1001: padded by ``tier_operands``), one chunk
+    to 16 chunks per tile, 1 to 300 tile pairs (more than the card's SMs).
+    Longer feature axes are
+    :func:`test_wgmma_k1_long_feature_axis_on_few_rows`'s."""
+    D, f = shape
+    rng = np.random.default_rng(31)
+    X = torch.tensor(rng.normal(size=(D, f)), dtype=torch.float32, device=dev)
+    v = torch.tensor(rng.normal(size=D), dtype=torch.float32, device=dev)
+    got = gm.gram_matvec_sym(kernel, X, v, tier=tier, **_hyper(f))
+    want = gm.gram_matvec_sym_plain(kernel, X, v, tier=tier, **_hyper(f))
+    assert _rel_err(got, want) <= TIER_TOL
+    exact = gm.gram_matvec_sym(kernel, X, v, tier="exact", **_hyper(f))
+    assert _rel_err(got, exact) <= _tier_budget(tier)
+
+
+@pytest.mark.parametrize("tier", BF16_TIERS)
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("shape", [(1, 129, 1), (129, 1, 8), (3000, 129, 1001), (1700, 3000, 64),
+                                   (512, 512, 4096)])
+def test_wgmma_k3_ragged_shapes_match_plain(dev, kernel, tier, shape):
+    """K3 with each panel's operands prepared by the caller, as the panel
+    schedules hand them over; the call without them gives the same bits."""
+    Di, Dj, f = shape
+    rng = np.random.default_rng(32)
+    Xi = torch.tensor(rng.normal(size=(Di, f)), dtype=torch.float32, device=dev)
+    Xj = torch.tensor(rng.normal(size=(Dj, f)), dtype=torch.float32, device=dev)
+    vi = torch.tensor(rng.normal(size=Di), dtype=torch.float32, device=dev)
+    vj = torch.tensor(rng.normal(size=Dj), dtype=torch.float32, device=dev)
+    kw = dict(same=False, tier=tier, **_hyper(f))
+    ops = (gm.tier_operands(tier, Xi), gm.tier_operands(tier, Xj))
+    oi, oj = gm.pair_gram_contrib(kernel, Xi, Xj, vi, vj, operands=ops, **kw)
+    wi, wj = gm.pair_gram_contrib_plain(kernel, Xi, Xj, vi, vj, operands=ops, **kw)
+    assert _rel_err(oi, wi) <= TIER_TOL and _rel_err(oj, wj) <= TIER_TOL
+    ei, ej = gm.pair_gram_contrib(kernel, Xi, Xj, vi, vj, same=False, tier="exact", **_hyper(f))
+    assert _rel_err(oi, ei) <= _tier_budget(tier) and _rel_err(oj, ej) <= _tier_budget(tier)
+    ni, nj = gm.pair_gram_contrib(kernel, Xi, Xj, vi, vj, **kw)
+    assert torch.equal(ni, oi) and torch.equal(nj, oj)
+
+
+@pytest.mark.parametrize("tier", BF16_TIERS)
+@pytest.mark.parametrize("shape", [(129, 4096), (640, 2048)])
+def test_wgmma_k1_long_feature_axis_on_few_rows(dev, tier, shape):
+    """f = 4096 on 129 rows and f = 2048 on 640: 64 and 32 chunks a tile, and
+    the shapes where the tensor core's accumulation shows.  It adds into its
+    f32 accumulator without rounding to nearest, so the f / 16 (bf16cast) or
+    3 f / 16 (bf16x3) additions that build a diagonal entry g_ii = |x_i|^2 ~ f
+    leave it low by up to ~5e-5 of itself at f = 4096 (measured on an H100),
+    which the plain version's correctly rounded sums do not share.  For the
+    linear and polynomial kernels that stays inside ``TIER_TOL`` of the
+    result's scale.  rbf turns it into K_ii = exp(-2 gamma (|x_i|^2 - g_ii))
+    ~ 1 - 7e-5, an error of 7e-5 |v_i| in entry i, while with so few rows the
+    result's scale is little more than one |v_i|: it is held to ``TIER_TOL``
+    of max(K |v|), the scale of the sums' terms, and to the tier's budget of
+    the exact kernel."""
+    D, f = shape
+    rng = np.random.default_rng(34)
+    X = torch.tensor(rng.normal(size=(D, f)), dtype=torch.float32, device=dev)
+    v = torch.tensor(rng.normal(size=D), dtype=torch.float32, device=dev)
+    for kernel in KERNELS:
+        got = gm.gram_matvec_sym(kernel, X, v, tier=tier, **_hyper(f))
+        want = gm.gram_matvec_sym_plain(kernel, X, v, tier=tier, **_hyper(f))
+        if kernel == KernelType.rbf:  # K > 0, so K |v| is the sum of the terms' sizes
+            terms = gm.gram_matvec_sym_plain(kernel, X, v.abs(), tier=tier, **_hyper(f))
+            assert float((got - want).abs().max() / terms.max()) <= TIER_TOL
+        else:
+            assert _rel_err(got, want) <= TIER_TOL
+        exact = gm.gram_matvec_sym(kernel, X, v, tier="exact", **_hyper(f))
+        assert _rel_err(got, exact) <= _tier_budget(tier)
+
+
+@pytest.mark.parametrize("tier", BF16_TIERS)
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_wgmma_tiles_repeat_bitwise(dev, kernel, tier):
+    """More tile pairs than SMs (300 for K1, 336 for K3), so the persistent
+    CTAs and their two consumer warpgroups share the pairs: whichever runs a
+    pair, its slab slot gets the same bits."""
+    rng = np.random.default_rng(33)
+    f = 200
+    X = torch.tensor(rng.normal(size=(3000, f)), dtype=torch.float32, device=dev)
+    Xj = torch.tensor(rng.normal(size=(1700, f)), dtype=torch.float32, device=dev)
+    v = torch.tensor(rng.normal(size=3000), dtype=torch.float32, device=dev)
+    vj = torch.tensor(rng.normal(size=1700), dtype=torch.float32, device=dev)
+    mv = gm.make_sym_matvec(kernel, X, tier=tier, **_hyper(f))
+    ops = (gm.tier_operands(tier, X), gm.tier_operands(tier, Xj))
+    runs = [(mv(v), *gm.pair_gram_contrib(kernel, X, Xj, v, vj, same=False, tier=tier,
+                                          operands=ops, **_hyper(f))) for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+
+
+def test_wgmma_wrappers_reject_what_the_tile_does_not_take(dev):
+    X = torch.ones((8, 100), device=dev)
+    v = torch.ones(8, device=dev)
+    sq = gm.row_sqnorms(X)
+    args = (v, sq, 3, 1.0, 0.0)
+    good = gm.tier_operands("bf16cast", X)
+    assert good[0].shape == (8, 128)
+    with pytest.raises(PLSSVMError, match="expected torch.bfloat16"):
+        gm._launch_sym(KernelType.rbf, "bf16cast", (X.double(),), *args)
+    with pytest.raises(PLSSVMError, match="contiguous"):
+        gm._launch_sym(KernelType.rbf, "bf16cast", (good[0].T.contiguous().T,), *args)
+    with pytest.raises(PLSSVMError, match="padded"):
+        gm._launch_sym(KernelType.rbf, "bf16cast", (X.bfloat16(),), *args)
+    with pytest.raises(PLSSVMError, match="padded"):
+        gm._launch_pair(KernelType.rbf, "bf16x3", gm.tier_operands("bf16x3", X, pad=False),
+                        gm.tier_operands("bf16x3", X), v, v, sq, sq, 3, 1.0, 0.0)
+    with pytest.raises(PLSSVMError, match="float32 only"):
+        gm.pair_gram_contrib(KernelType.rbf, X.double(), X.double(), v.double(), v.double(),
+                             same=False, tier="bf16cast")
 
 
 def test_adaptive_learn_runs_both_tiers(dev, monkeypatch):

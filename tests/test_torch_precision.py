@@ -12,6 +12,10 @@ the JAX package.
   ``1e-5 * max|want|``.
 - Each tier against the float64 numpy oracle within its budget of
   ``tests/test_solver.py:133-137``: 1e-3 (bf16x3), 3e-2 (bf16cast).
+- The bf16 operands' feature axis is padded with zeros to a multiple of 64
+  (what the card's TMA loads need): the plain K1, K2 and K3 on padded
+  operands against the same on unpadded ones, within 1e-6 of the scale (a
+  zero feature adds exact zeros; only the blocking of the sums may move).
 """
 
 import jax.numpy as jnp
@@ -221,3 +225,79 @@ def test_linear_operator_tier_within_budget(tier):
     _close(got, want, TIERS[tier][1])
     assert not got[dept:].any()
     assert not torch.equal(got, want)  # the tier really rounds
+
+
+# --- padded operands ------------------------------------------------------------
+
+#: padded against unpadded operands: every added term is an exact zero, so
+#: only the matrix product's blocking of its f32 sums can differ
+PAD_TOL = 1e-6
+
+
+@pytest.mark.parametrize("f", [1001, 256, 8, 1])
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_tier_operands_pad_the_feature_axis_with_zeros(tier, f):
+    X = torch.from_numpy(_data(np.random.default_rng(21), 9, f))
+    raw = gm.tier_operands(tier, X, pad=False)
+    padded = gm.tier_operands(tier, X)
+    fp = -(-f // 64) * 64
+    assert len(padded) == len(raw) == (2 if tier == "bf16x3" else 1)
+    for part, want in zip(padded, raw):
+        assert part.shape == (9, fp) and part.dtype == torch.bfloat16 and part.is_contiguous()
+        assert torch.equal(part[:, :f], want)
+        assert not part[:, f:].any()  # exact zeros (no -0.0 either: the bits are 0)
+        assert not part[:, f:].view(torch.int16).any()
+    if fp == f:  # nothing to pad: no copy is made
+        assert all(a.shape == b.shape for a, b in zip(padded, raw))
+    # the exact tier and vectors are left as they are
+    assert gm.tier_operands("exact", X)[0] is X
+    assert gm.tier_operands(tier, X[0])[0].shape == (f,)
+
+
+@pytest.mark.parametrize("f", [1001, 256])
+@pytest.mark.parametrize("tier", list(TIERS))
+@pytest.mark.parametrize("which", ["k1", "k2", "k3"])
+def test_plain_versions_on_padded_operands_equal_unpadded(which, tier, f):
+    rng = np.random.default_rng(22)
+    Xi, Xj = torch.from_numpy(_data(rng, 70, f)), torch.from_numpy(_data(rng, 45, f))
+    vi, vj = torch.from_numpy(_data(rng, 70)), torch.from_numpy(_data(rng, 45))
+    hyper = {"degree": 3, "gamma": 1.0 / f, "coef0": 1.0}
+    for kernel in KERNELS:
+        outs = []
+        for pad in (True, False):
+            Xio, Xjo = gm.tier_operands(tier, Xi, pad=pad), gm.tier_operands(tier, Xj, pad=pad)
+            if which == "k1":
+                out = gm.gram_matvec_sym_plain(kernel, Xi, vi, tier=tier, operands=Xio, **hyper)
+            elif which == "k2":
+                out = gm.gram_matvec_plain(kernel, Xi, vj, Y=Xj, tier=tier, operands=(Xio, Xjo),
+                                           **hyper)
+            else:
+                out = torch.cat(gm.pair_gram_contrib_plain(kernel, Xi, Xj, vi, vj, same=False,
+                                                           tier=tier, operands=(Xio, Xjo),
+                                                           **hyper))
+            outs.append(out)
+        _close(outs[0], outs[1], PAD_TOL)
+
+
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("tier", ["exact", *TIERS])
+def test_pair_gram_contrib_with_operands_equals_the_call_without(tier, same):
+    """``operands=`` hands over what the call would prepare itself: the same
+    bits, so the same result, from the wrapper and from the plain version."""
+    rng = np.random.default_rng(23)
+    f = 100
+    Xi = torch.from_numpy(_data(rng, 50, f))
+    Xj = Xi if same else torch.from_numpy(_data(rng, 30, f))
+    vi = torch.from_numpy(_data(rng, 50))
+    vj = vi if same else torch.from_numpy(_data(rng, 30))
+    kw = {"same": same, "tier": tier, **HYPER}
+    Xio = gm.tier_operands(tier, Xi)
+    Xjo = Xio if same else gm.tier_operands(tier, Xj)
+    for fn in (gm.pair_gram_contrib, gm.pair_gram_contrib_plain):
+        gm.reset_preparations()
+        with_ops = fn(KernelType.rbf, Xi, Xj, vi, vj, operands=(Xio, Xjo), **kw)
+        assert not any(gm.preparations.values())  # nothing is prepared again
+        without = fn(KernelType.rbf, Xi, Xj, vi, vj, **kw)
+        assert gm.preparations[tier] == (1 if same else 2)
+        for a, b in zip(with_ops, without):
+            assert torch.equal(a, b)

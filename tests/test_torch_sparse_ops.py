@@ -295,6 +295,47 @@ def test_panel_matvec_places_heavy_rows(schedule):
     np.testing.assert_allclose(_np(sq), (dense ** 2).sum(axis=1), rtol=RTOL)
 
 
+@pytest.mark.parametrize("tier", ["exact", "bf16x3", "bf16cast"])
+@pytest.mark.parametrize("schedule", sorted(MAKERS))
+def test_panel_matvec_prepares_each_panel_once_per_densify(schedule, tier, monkeypatch):
+    """A panel's operands for the tier (the bf16 split or cast) are prepared
+    once per densify and shared by every pair that uses the panel: at 3
+    panels the ``unrolled`` sweep densifies and prepares 3 times per A·v
+    (for 6 pairs), the ``windowed`` one 8 times (3 diagonal panels, the
+    i-panels of rows 1 and 2, and a j-panel for each of the 3 cross pairs).
+    The result equals the schedule without the sharing: each pair preparing
+    its own panels."""
+    csr = _random_sparse(96, 60, density=0.15, seed=14)
+    tell = ts.TiledELL.from_csr(csr, dtype=np.float32)
+    densifies = []
+    densify = ts.densify_tiled
+    monkeypatch.setattr(ts, "densify_tiled",
+                        lambda *args: densifies.append(1) or densify(*args))
+    mv, _ = MAKERS[schedule][0](tell.vals, tell.lcols, int(KernelType.rbf), 3, 0.3, 1.0,
+                                ntiles=tell.ntiles, Lt=tell.Lt, panel_rows=32, use_cuda=False,
+                                precision=tier)
+    v = _t(np.random.default_rng(18).normal(size=96).astype(np.float32))
+    gm.reset_preparations()
+    got = mv(v)
+    want_count = {"unrolled": 3, "windowed": 8}[schedule]
+    assert len(densifies) == want_count
+    assert gm.preparations == {t: (want_count if t == tier else 0) for t in gm.TIERS}
+
+    # the same sweep with every pair preparing its own panels
+    X = _t(csr.toarray().astype(np.float32))
+    sq = gm.row_sqnorms(X)
+    want = torch.zeros(96)
+    for i in range(3):
+        for j in range(i + 1):
+            si, sj = slice(32 * i, 32 * i + 32), slice(32 * j, 32 * j + 32)
+            oi, oj = gm.pair_gram_contrib_plain(KernelType.rbf, X[si], X[sj], v[si], v[sj],
+                                                same=i == j, sq_i=sq[si], sq_j=sq[sj], degree=3,
+                                                gamma=0.3, coef0=1.0, tier=tier)
+            want[si] += oi
+            want[sj] += oj
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-6 * float(want.abs().max()))
+
+
 def test_panel_schedules_and_sizes():
     assert ts.stream_panel_rows(16384, 4096, 4, 512 * 1024**2) == \
         js.stream_panel_rows(16384, 4096, 4, 512 * 1024**2) == 4096

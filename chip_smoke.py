@@ -41,15 +41,22 @@ Phases, one line or more each, any failure exits non-zero:
 10. only with ``--profile``, run last: ``torch.profiler`` over 12 CG
     iterations of each sparse tier (4 of the gather arm), printing the
     device's idle share of the CG wall time and the six costliest kernels;
-11. K4: K1, K2 and K3 at the bf16x3 and bf16cast tiers, three kernels, at
-    the main path's shapes, each against its plain version at the same
-    tier and against the exact kernel.  K1 and K3 run the TMA-fed wgmma
-    tile (``csrc/gram_tile_wgmma.cuh``), K2 the ``mma.sync`` one: K1 at
-    32768 x 256 and on a 4096-row diagonal panel at f = 4096; K3 at 4096 x
-    4096, f = 4096, on a ragged 3000 x 1700 pair at f = 1001 and on one
-    pair of 512-row panels, with each panel's operands prepared by the
-    caller as the panel schedules do (the preparation is timed per panel);
-    two runs of each are compared bitwise;
+11. K4: the one-pass split kernel (``csrc/split_bf16.cu``) bit for bit
+    against its plain version on seeded data with subnormals, zeros of
+    both signs, infinities, NaNs, remainders that flush and a ragged
+    f = 1001 (pad columns zero), with its ms per 4096 x 4096 panel and per
+    32768 x 256; then K1, K2 and K3 at the bf16x3 and bf16cast tiers,
+    three kernels, at the main path's shapes, each against its plain
+    version at the same tier and against the exact kernel, all on the
+    TMA-fed wgmma tile (``csrc/gram_tile_wgmma.cuh``; K2 in its row-only
+    mode): K1 at 32768 x 256 and on a 4096-row diagonal panel at f = 4096;
+    K2 at 4096 points and at one point against 32768 support vectors,
+    f = 256, and on a ragged 3000 x 1700 at f = 1001, with prepared
+    operands and, at the predict's shape, with the split or cast inside;
+    K3 at 4096 x 4096, f = 4096, on a ragged 3000 x 1700 pair at f = 1001
+    and on one pair of 512-row panels, with each panel's operands prepared
+    by the caller as the panel schedules do (the preparation is timed per
+    panel); two runs of each are compared bitwise;
 12. the adaptive dense main path: ``plssvm-train-torch`` on phase 6's
     32768 x 256 file with the default plan (bf16cast CG, verified and, if
     need be, continued on bf16x3), then ``plssvm-predict-torch`` with each
@@ -63,15 +70,17 @@ Phases, one line or more each, any failure exits non-zero:
 
 ``--probe`` is the short first run after a change to a kernel source:
 phases 1 and 2, the compiler's resource lines of every kernel (the whole
-log goes to ``build.log`` beside the built library), and phase 11's K1 and
-K3 checks with one launch each instead of a timing loop; it prints no
-result line.
+log goes to ``build.log`` beside the built library), and phase 11's checks
+with one launch each instead of a timing loop; it prints no result line.
 
 The line before the last is the kernels' JSON record: per kernel x tier
 its launches on a main path, its error against and time beside its plain
 version, and ``bound_ms``, the least time the card could take
-(:func:`bound_ms`).  ``library_ms`` is null for all nine: no single PyTorch
-call computes a Gram product, a kernel transform and the GEMVs in one.  The
+(:func:`bound_ms`).  ``library_ms`` is null for all ten: no single PyTorch
+call computes a Gram product, a kernel transform and the GEMVs in one, nor
+both parts of the split.  K2's bf16 records carry the kernel's time on
+prepared operands as ``ms`` and the predict's, split or cast inside, as
+``ms_with_preparation``.  The
 last line is ``{"ok": true, "device": {...}}``.  Scratch files go to
 ``.smoke_work/`` beside this script and are removed at the end.
 """
@@ -105,12 +114,15 @@ SOURCES = {
     "gram_matvec_sym": "plssvm_sparse_fp22_tpu_torch/csrc/gram_matvec.cu",
     "gram_matvec_rect": "plssvm_sparse_fp22_tpu_torch/csrc/gram_matvec.cu",
     "gram_pair_contrib": "plssvm_sparse_fp22_tpu_torch/csrc/pair_contrib.cu",
+    "split_bf16": "plssvm_sparse_fp22_tpu_torch/csrc/split_bf16.cu",
 }
+
+
 def source_of(name: str) -> str:
     """The file that holds kernel x tier ``name``: its entry point's source,
-    or the header of the wgmma tile for K1's and K3's bf16 tiers."""
-    kernel, tier = name.split("/")
-    if tier != "exact" and kernel != "gram_matvec_rect":
+    or the header of the wgmma tile for a bf16 tier."""
+    kernel, _, tier = name.partition("/")
+    if tier in TIER_BUDGET:
         return "plssvm_sparse_fp22_tpu_torch/csrc/gram_tile_wgmma.cuh"
     return SOURCES[kernel]
 
@@ -122,7 +134,8 @@ PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 #: rows and features, K2's and K3's rows of each side and features
 RECORD_SHAPES = {"gram_matvec_sym": (32768, 32768, 256),
                  "gram_matvec_rect": (4096, 32768, 256),
-                 "gram_pair_contrib": (4096, 4096, 4096)}
+                 "gram_pair_contrib": (4096, 4096, 4096),
+                 "split_bf16": (4096, 0, 4096)}
 _PALLAS = "plssvm_sparse_fp22_tpu/ops/pallas_matvec.py"
 #: the TPU kernel (body, or its tier arm) each kernel x tier replaces; K3
 #: (pair_gram_contrib) runs the body of K1 over two panels, so its bf16 tiers
@@ -137,6 +150,7 @@ REPLACES = {
     "gram_pair_contrib/exact": f"{_PALLAS}:716",
     "gram_pair_contrib/bf16x3": f"{_PALLAS}:441",
     "gram_pair_contrib/bf16cast": f"{_PALLAS}:453",
+    "split_bf16": f"{_PALLAS}:282",
 }
 #: the sparse main path: the JAX bench's sparse size (bench.py:640-643) and
 #: its gamma = 256 / f (bench.py:191-199: at 1 / f the rbf matrix is nearly
@@ -254,6 +268,33 @@ def timed_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, kernel_name: str) -> float | None:
+    """Mean device time of the kernel whose name contains ``kernel_name``
+    over ``reps`` calls of ``fn``, from ``torch.profiler``: for a kernel of
+    a few tens of microseconds, CUDA events around the calls would time the
+    host's launch path instead.  ``None`` where the profiler cannot trace
+    the device (it saw none of the launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel_name in ev.key:
+            us = getattr(ev, "self_device_time_total", None)
+            total_us += getattr(ev, "self_cuda_time_total", 0) if us is None else us
+            count += ev.count
+    if count == 0 or total_us <= 0:
+        return None
+    check(count == reps, f"the profiler saw {count} launches of {kernel_name} in {reps} calls")
+    return total_us / count / 1e3
+
+
 def bound_ms(name: str, Di: int, Dj: int, f: int) -> dict:
     """The least time the card could take for kernel x tier ``name`` on
     (Di, f) x (Dj, f) inputs: the larger of the Gram product's operations
@@ -262,7 +303,12 @@ def bound_ms(name: str, Di: int, Dj: int, f: int) -> dict:
     FFMA at the exact tier, the bf16 tensor cores else) and the bytes it
     must move (each operand matrix, the row norms and v read once, the
     output written once) over the memory rate.  The transform's and the
-    GEMVs' operations, a few per Gram entry against 2 f, are left out."""
+    GEMVs' operations, a few per Gram entry against 2 f, are left out.  The
+    split of a (Di, f) matrix moves 4 bytes in and 2 + 2 out per value (f a
+    multiple of 64 here, so no pad) and does some ten operations on each."""
+    if name == "split_bf16":
+        return {"bound_ms": max(Di * f * 8 / PEAK_BYTES, Di * f * 10 / PEAK_F32) * 1e3,
+                "bound_by": "bytes"}
     kernel, tier = name.split("/")
     nbi, nbj = -(-Di // 128), -(-Dj // 128)
     entries = (nbi * (nbi + 1) // 2 * 128 * 128 if kernel == "gram_matvec_sym" else Di * Dj)
@@ -309,9 +355,10 @@ def phase_build():
              if "registers" in line or "spill" in line]
     print(f"[2 build] nvcc {info['seconds']:.1f} s (cached: {info['cached']}) -> "
           f"{os.path.relpath(info['path'], ROOT)}; " + " | ".join(usage), flush=True)
-    if "C7510" in info["log"]:  # slower, not wrong: said, not failed on
+    if "C7510" in info["log"] or "C7520" in info["log"]:  # slower, not wrong: said, not failed on
         print("[2 build] note: ptxas serialised the wgmma instructions of a kernel (C7510: a "
-              "function call between a tile's products); see --probe", flush=True)
+              "function call between a tile's products; C7520: a wgmma under a branch); see "
+              "--probe", flush=True)
     return info
 
 
@@ -958,14 +1005,107 @@ def repeats_bitwise(name: str, fn, got) -> None:
     check(torch.equal(again, got), f"{name}: two runs on the same inputs differ")
 
 
+def special_floats(rng, rows: int, f: int) -> np.ndarray:
+    """Seeded float32 data for the split: a third normal draws, the rest
+    random bit patterns (every exponent: subnormals, infinities and NaNs of
+    both signs among them), and at the front of the first row the cases
+    written out: zeros, subnormals, the smallest normal and its neighbour
+    (a remainder of one subnormal ulp), remainders that are subnormal at
+    small exponents, rounding ties of the remainder, infinities, and NaNs
+    with the payload in the upper or the lower 16 bits."""
+    bits = rng.integers(0, 2**32, size=(rows, f), dtype=np.uint64).astype(np.uint32)
+    normal = rng.normal(size=(rows, f)).astype(np.float32).view(np.uint32)
+    bits = np.where(rng.random((rows, f)) < 1 / 3, normal, bits)
+    cases = [0x00000000, 0x80000000, 0x00000001, 0x80000001, 0x007FFFFF, 0x807FFFFF,
+             0x00800000, 0x00800001, 0x80810001, 0x01000001, 0x0100FFFF, 0x81008000,
+             0x3F808000, 0x3F818000, 0x3F800180, 0xBF800080, 0x3F80FFFF, 0x7F7FFFFF,
+             0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF80FFFF]
+    flat = bits.reshape(-1)
+    flat[:min(len(cases), flat.size)] = cases[:flat.size]
+    return bits.view(np.float32)
+
+
+def same_bits(a, b) -> bool:
+    """Two bf16 tensors hold the same bits; a NaN matches any NaN at its
+    place (a cast makes every NaN the canonical one of its library)."""
+    import torch
+
+    nan = a.isnan()
+    return a.shape == b.shape and torch.equal(nan, b.isnan()) and torch.equal(
+        a.view(torch.int16).masked_fill(nan, 0), b.view(torch.int16).masked_fill(nan, 0))
+
+
+def phase_split(dev, rng, probe: bool = False):
+    """The split kernel against ``split_bf16_plain`` (and the padding copy
+    the eager path made), bit for bit, and its time at the main paths' two
+    shapes: a 4096 x 4096 panel of the sparse panel tier (the record) and
+    the 32768 x 256 matrix of the dense learn and the predict."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+
+    def plain(X, pad):
+        parts = gm.split_bf16_plain(X)
+        return tuple(gm._pad_features(t) for t in parts) if pad else parts
+
+    print("[11 K4] split_bf16 (one pass, padded outputs) vs split_bf16_plain, bit for bit",
+          flush=True)
+    for shape, pad in [((257, 1001), True), ((64, 4), True), ((3, 1), True), ((33, 12), True),
+                       ((130, 63), False), ((1000003,), False), ((129, 256), True)]:
+        rows, f = (1, shape[0]) if len(shape) == 1 else shape
+        X = torch.tensor(special_floats(rng, rows, f).reshape(shape), device=dev)
+        got, want = gm.split_bf16(X, pad=pad), plain(X, pad)
+        torch.cuda.synchronize()
+        ok = all(same_bits(g, w) for g, w in zip(got, want))
+        fp = got[0].shape[-1]
+        nan_bits = all(torch.equal(g.view(torch.int16), w.view(torch.int16))
+                       for g, w in zip(got, want))
+        print(f"  {shape} -> feature axis {fp} ({'padded' if pad else 'as is'}): "
+              f"{'equal bits' if ok else 'DIFFERENT'} ({int(X.isnan().sum())} NaN, "
+              f"{int(X.isinf().sum())} inf, {int(((X != 0) & (X.abs() < 1.2e-38)).sum())} "
+              f"subnormal inputs; NaN payloads equal too: {nan_bits})", flush=True)
+        check(ok, f"split_bf16 {shape} differs from its plain version")
+        check(all(g.is_contiguous() and not g[..., f:].any() for g in got),
+              f"split_bf16 {shape}: pad columns are not zero")
+        check(not pad or gm._pad_features(got[0]) is got[0],
+              "the split kernel's output would be padded again")
+    record = {}
+    for rows, f in [(4096, 4096), (32768, 256)]:
+        X = torch.tensor(rng.normal(size=(rows, f)), dtype=torch.float32, device=dev)
+        got, want = gm.split_bf16(X, pad=True), plain(X, True)
+        torch.cuda.synchronize()
+        check(all(same_bits(g, w) for g, w in zip(got, want)),
+              f"split_bf16 ({rows}, {f}) differs from its plain version")
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        n = 2 if probe else 50
+        traced = device_ms(lambda: gm.split_bf16(X, pad=True), n, "split_bf16_kernel")
+        call_ms = timed_ms(lambda: gm.split_bf16(X, pad=True), n)
+        ms = call_ms if traced is None else traced
+        plain_ms = timed_ms(lambda: plain(X, True), 1 if probe else 10)
+        cast_ms = timed_ms(lambda: gm.tier_operands("bf16cast", X), n)
+        bound = bound_ms("split_bf16", rows, 0, f)["bound_ms"]
+        how = ("the profiler saw no device time: CUDA events" if traced is None
+               else "on the device, by the profiler")
+        print(f"  ({rows}, {f}): kernel {ms:.4f} ms ({how}; {call_ms:.4f} ms per call by CUDA "
+              f"events, the host's launch path included), plain (nine eager passes) "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({rows * f * 8 / ms / 1e9:.2f} TB/s of "
+              f"3.35); the bf16cast operand (one Tensor.to) {cast_ms:.4f} ms", flush=True)
+        if rows == 4096:
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "ms_per_call": call_ms}
+        else:
+            record["ms_32768x256"], record["plain_ms_32768x256"] = ms, plain_ms
+    return record
+
+
 def phase_k4(dev, rng, probe: bool = False):
     """The bf16x3 and bf16cast tiers of K1, K2 and K3 at the main path's
     shapes, three kernels, against their plain versions at the tier and the
     exact kernel.  K1 splits once, as ``make_sym_matvec`` does for a CG
-    loop; K2 splits or casts its support vectors per call, as the predict
-    does, so its time includes that; K3 takes each panel's operands from the
-    caller, as the panel schedules hand them over, and the preparation is
-    timed per panel beside it.  ``probe``: one launch per check, no K2."""
+    loop; K2 is timed on prepared operands (the kernel) and, at the
+    predict's shape, with the split or cast of points and support vectors
+    inside, as the predict pays for it; K3 takes each panel's operands from
+    the caller, as the panel schedules hand them over, and the preparation
+    is timed per panel beside it.  ``probe``: one launch per check."""
     import torch
 
     from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
@@ -975,20 +1115,24 @@ def phase_k4(dev, rng, probe: bool = False):
         return 1 if probe else n
 
     print(f"[11 K4] bf16x3 / bf16cast tiers vs their plain versions (tol {TOL:g}) and the exact "
-          f"kernel (budgets {TIER_BUDGET}), float32 inputs; K1 and K3 on the TMA-fed wgmma tile, "
-          f"each run twice and compared bitwise", flush=True)
+          f"kernel (budgets {TIER_BUDGET}), float32 inputs, on the TMA-fed wgmma tile (K2 in its "
+          f"row-only mode), each run twice and compared bitwise", flush=True)
     f = 256
     X = torch.tensor(rng.normal(size=(32768, f)), dtype=torch.float32, device=dev)
     v = torch.tensor(rng.normal(size=32768), dtype=torch.float32, device=dev)
     Y = torch.tensor(rng.normal(size=(32768, f)), dtype=torch.float32, device=dev)
     a = torch.tensor(rng.normal(size=32768), dtype=torch.float32, device=dev)
     P = torch.tensor(rng.normal(size=(4096, f)), dtype=torch.float32, device=dev)
-    sqx, sqy = gm.row_sqnorms(X), gm.row_sqnorms(Y)
+    Pr = torch.tensor(rng.normal(size=(3000, 1001)), dtype=torch.float32, device=dev)
+    Yr = torch.tensor(rng.normal(size=(1700, 1001)), dtype=torch.float32, device=dev)
+    sqx = gm.row_sqnorms(X)
+    # K2's cases: the predict's batch, one point, a ragged pair
+    cases2 = [("P (4096, 256) vs 32768 SVs", P, Y, a), ("P (1, 256) vs 32768 SVs", P[:1], Y, a),
+              ("P (3000, 1001) vs 1700 SVs", Pr, Yr, a[:1700].contiguous())]
     records = {}
     for kernel in KernelType:
         kw = {"degree": 3, "gamma": 1.0 / f, "coef0": 1.0}
         exact1 = gm.make_sym_matvec(kernel, X, tier="exact", **kw)(v)
-        exact2 = gm.gram_matvec(kernel, P, a, Y=Y, sqy=sqy, tier="exact", **kw)
         for tier in TIER_BUDGET:
             mv = gm.make_sym_matvec(kernel, X, tier=tier, **kw)
             ops = gm.tier_operands(tier, X)
@@ -1006,24 +1150,45 @@ def phase_k4(dev, rng, probe: bool = False):
             if kernel == KernelType.rbf:
                 records[f"gram_matvec_sym/{tier}"] = {"max_abs_err": err, "ms": ms,
                                                       "plain_ms": plain_ms}
-            if probe:
-                continue
+        for label, Pc, Yc, ac in cases2:
+            kw2 = {"Y": Yc, "sqx": gm.row_sqnorms(Pc), "sqy": gm.row_sqnorms(Yc), "degree": 3,
+                   "gamma": 1.0 / Pc.shape[1], "coef0": 1.0}
+            exact2 = gm.gram_matvec(kernel, Pc, ac, tier="exact", **kw2)
+            for tier in TIER_BUDGET:
+                ops2 = (gm.tier_operands(tier, Pc), gm.tier_operands(tier, Yc))
 
-            def kern2():
-                return gm.gram_matvec(kernel, P, a, Y=Y, sqy=sqy, tier=tier, **kw)
+                def kern2():
+                    return gm.gram_matvec(kernel, Pc, ac, tier=tier, operands=ops2, **kw2)
 
-            def plain2():
-                return gm.gram_matvec_plain(kernel, P, a, Y=Y, sqy=sqy, tier=tier, **kw)
+                def plain2():
+                    return gm.gram_matvec_plain(kernel, Pc, ac, tier=tier, operands=ops2, **kw2)
 
-            got, want = kern2(), plain2()
-            torch.cuda.synchronize()
-            ms, plain_ms = timed_ms(kern2, 20), timed_ms(plain2, 5)
-            err = compare_tier("K2", tier, got, want, exact2, ms, plain_ms,
-                               f"{kernel.name} P (4096, {f}) vs 32768 SVs")
-            if kernel == KernelType.rbf:
-                records[f"gram_matvec_rect/{tier}"] = {"max_abs_err": err, "ms": ms,
-                                                       "plain_ms": plain_ms}
-    del X, Y, P, exact1, exact2, ops
+                def predict2():  # the split or cast of both sides inside, as the predict
+                    return gm.gram_matvec(kernel, Pc, ac, tier=tier, **kw2)
+
+                got, want = kern2(), plain2()
+                torch.cuda.synchronize()
+                repeats_bitwise(f"K2 {tier} {kernel.name} {label}", kern2, got)
+                repeats_bitwise(f"K2 {tier} {kernel.name} {label}, operands prepared inside",
+                                predict2, got)
+                ms, plain_ms = timed_ms(kern2, reps(20)), timed_ms(plain2, reps(5))
+                err = compare_tier("K2", tier, got, want, exact2, ms, plain_ms,
+                                   f"{kernel.name} {label}")
+                if Pc is P:
+                    with_prep = timed_ms(predict2, reps(20))
+                    parts = [device_ms(kern2, reps(20), name)
+                             for name in ("gram_wgmma", "reduce_slab")]
+                    tile_ms, sum_ms = ("not measured" if t is None else f"{t:.3f} ms"
+                                       for t in parts)
+                    print(f"    on the device (profiler): tile walk {tile_ms}, slab "
+                          f"reduction {sum_ms}; with the "
+                          f"{'split' if tier == 'bf16x3' else 'cast'} of both sides inside, as "
+                          f"the predict: {with_prep:.3f} ms per call", flush=True)
+                    if kernel == KernelType.rbf:
+                        records[f"gram_matvec_rect/{tier}"] = {
+                            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "ms_with_preparation": with_prep}
+    del X, Y, P, Pr, Yr, cases2, exact1, exact2, ops, ops2
     # K3's panel pairs: the main path's, the ragged one, one pair of 512-row
     # panels (16 tile pairs on 132 SMs), and the diagonal panel on K1
     for Di, Dj, f, same in [(4096, 4096, 4096, False), (3000, 1700, 1001, False),
@@ -1071,12 +1236,16 @@ def phase_k4(dev, rng, probe: bool = False):
     return records
 
 
-def check_adaptive(tag: str, info: dict, counts: dict, per_mv: dict, eps: float) -> None:
+def check_adaptive(tag: str, info: dict, counts: dict, per_mv: dict, eps: float,
+                   splits_per_mv: int = 0) -> None:
     """An adaptive learn's contract: the final residual is the accurate
     tier's and meets eps^2 delta0, and each tier launched its kernels once
     per A·v of its leg (``per_mv`` launches of each kernel per A·v): the
     fast leg's initial residual, iterations and refreshes on bf16cast; the
-    verify step, the escalated iterations and their refreshes on bf16x3."""
+    verify step, the escalated iterations and their refreshes on bf16x3.
+    The split kernel runs once when the accurate operator is built from a
+    resident matrix (``splits_per_mv`` 0), or ``splits_per_mv`` times per
+    accurate A·v where the panels are densified anew for each."""
     iters, kf = info["iterations"], info["fast_iterations"]
     check(info["delta"] <= eps ** 2 * info["delta0"],
           f"{tag}: residual {info['delta']} above eps^2 delta0 = {eps ** 2 * info['delta0']}")
@@ -1089,6 +1258,9 @@ def check_adaptive(tag: str, info: dict, counts: dict, per_mv: dict, eps: float)
               f"{(n * fast_mvs, n * acc_mvs)} ({kf} fast of {iters} iterations)")
     check(not any(v for k, v in counts.items() if k.endswith("/exact")),
           f"{tag}: an exact kernel launched in an adaptive learn: {nonzero(counts)}")
+    splits = splits_per_mv * acc_mvs if splits_per_mv else 1
+    check(counts["split_bf16"] == splits,
+          f"{tag}: the split kernel launched {counts['split_bf16']} times, expected {splits}")
 
 
 def cg_ms(log: str) -> int:
@@ -1122,7 +1294,8 @@ def phase_adaptive_dense(main):
           f"{info['escalated']}, learn {cg_ms(log)} ms, CLI {train_s:.1f} s, residual "
           f"{info['delta']:.3e} <= eps^2 delta0 {1e-12 * info['delta0']:.3e}, launches "
           f"{nonzero(counts)}", flush=True)
-    launches = {k: counts[k] for k in ("gram_matvec_sym/bf16cast", "gram_matvec_sym/bf16x3")}
+    launches = {k: counts[k] for k in ("gram_matvec_sym/bf16cast", "gram_matvec_sym/bf16x3",
+                                       "split_bf16")}
     for pinned, tier in (("high", "bf16x3"), ("default", "bf16cast")):
         with environ(PLSSVM_MATMUL_PRECISION=pinned):
             gm.reset_launches()
@@ -1132,9 +1305,11 @@ def phase_adaptive_dense(main):
         m = re.search(r"Accuracy = ([0-9.]+)%", log)
         check(rc == 0 and m is not None and float(m.group(1)) >= 95.0,
               f"predict CLI at {pinned}: rc {rc}, accuracy {m and m.group(1)}%")
-        check(nonzero(counts) == {f"gram_matvec_rect/{tier}": 1},
-              f"predict CLI at {pinned} launched {nonzero(counts)}")
+        # one K2; at bf16x3 the split of the points and of the support vectors
+        want = {f"gram_matvec_rect/{tier}": 1, **({"split_bf16": 2} if tier == "bf16x3" else {})}
+        check(nonzero(counts) == want, f"predict CLI at {pinned} launched {nonzero(counts)}")
         launches[f"gram_matvec_rect/{tier}"] = counts[f"gram_matvec_rect/{tier}"]
+        launches["split_bf16"] += counts["split_bf16"]
         print(f"[12 adaptive] predict CLI, PLSSVM_MATMUL_PRECISION={pinned}: accuracy "
               f"{m.group(1)}%, launches {nonzero(counts)}", flush=True)
     return launches
@@ -1149,12 +1324,13 @@ def phase_adaptive_sparse(sparse):
 
     launches = {}
     model, out = os.path.join(WORK, "sparse.adaptive.model"), os.path.join(WORK, "s.predict")
-    for name, env, mode, per_mv in [
+    for name, env, mode, per_mv, splits in [
             ("dense", {"PLSSVM_SPARSE_MODE": "dense"}, "sparse_dense_implicit",
-             {"gram_matvec_sym": 1}),
+             {"gram_matvec_sym": 1}, 0),
+            # 4 panels, densified and split anew for each A·v
             ("implicit", {"PLSSVM_SPARSE_MODE": "implicit",
                           "PLSSVM_K_CACHE_BYTES": str(PANEL_BUDGET)}, "sparse_implicit",
-             {"gram_matvec_sym": 4, "gram_pair_contrib": 6})]:
+             {"gram_matvec_sym": 4, "gram_pair_contrib": 6}, 4)]:
         with environ(PLSSVM_MATMUL_PRECISION="", **env), recording_csvms(train_cli) as made:
             gm.reset_launches()
             t0 = time.perf_counter()
@@ -1168,13 +1344,13 @@ def phase_adaptive_sparse(sparse):
                                               sparse["test"], model, out])
         info = made[-1].last_cg_info
         check(info["mode"] == mode, f"adaptive {name} tier ran mode {info['mode']}")
-        check_adaptive(f"adaptive sparse {name} tier", info, counts, per_mv, 1e-6)
+        check_adaptive(f"adaptive sparse {name} tier", info, counts, per_mv, 1e-6, splits)
         m = re.search(r"Accuracy = ([0-9.]+)%", plog)
         check(rc == 0 and m is not None and float(m.group(1)) >= SPARSE_ACCURACY,
               f"adaptive {name} tier predict: rc {rc}, accuracy {m and m.group(1)}%")
         if name == "implicit":
             launches = {k: counts[k] for k in ("gram_pair_contrib/bf16cast",
-                                               "gram_pair_contrib/bf16x3")}
+                                               "gram_pair_contrib/bf16x3", "split_bf16")}
         print(f"[13 adaptive] sparse {name} tier, {SPARSE_N} x {SPARSE_F} at 1 % (default "
               f"plan): {info['iterations']} CG iterations, fast_iterations "
               f"{info['fast_iterations']}, escalated {info['escalated']}, learn {cg_ms(log)} ms, "
@@ -1254,8 +1430,8 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also run phase 10: torch.profiler over each sparse tier's CG")
     parser.add_argument("--probe", action="store_true",
-                        help="build, show the compiler's resource lines, check K1's and K3's "
-                             "bf16 tiers with one launch each, and stop")
+                        help="build, show the compiler's resource lines, check the split and "
+                             "every bf16 kernel with one launch each, and stop")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU",
@@ -1273,6 +1449,7 @@ def main(argv=None) -> int:
         info = phase_build()
         if args.probe:
             show_build_log(info)
+            phase_split(dev, rng, probe=True)
             phase_k4(dev, rng, probe=True)
             print("probe passed", flush=True)
             return 0
@@ -1286,29 +1463,34 @@ def main(argv=None) -> int:
             phase_timing(dev, rng)
             sparse = phase_sparse_main(dev)
             phase_sparse_more(sparse)
+        records["split_bf16"] = phase_split(dev, rng)
         records.update(phase_k4(dev, rng))
         # each kernel x tier counted over a main path's run: the exact tier's
         # K1 and K2 over the dense train and predict CLIs, K3 over the sparse
         # implicit tier; the bf16 tiers over the adaptive learns and the
-        # predicts with a tier pinned
+        # predicts with a tier pinned; the split over the adaptive dense learn,
+        # the predict on bf16x3 and the adaptive sparse implicit learn together
         launches = {k: dense["launches"][k]
                     for k in ("gram_matvec_sym/exact", "gram_matvec_rect/exact")}
         launches["gram_pair_contrib/exact"] = \
             sparse["launches"]["implicit"]["gram_pair_contrib/exact"]
         launches.update(phase_adaptive_dense(dense))
+        dense_splits = launches["split_bf16"]
         launches.update(phase_adaptive_sparse(sparse))
+        launches["split_bf16"] += dense_splits
         phase_tiers(dev, rng, sparse)
         if args.profile:
             with environ(PLSSVM_MATMUL_PRECISION="highest"):
                 phase_profile(sparse)
         print("library_ms is null for every kernel: no single PyTorch call computes K(X, Y) v "
-              "(a Gram product, a kernel transform and one or two GEMVs); the plain versions are "
-              "those calls in sequence", flush=True)
+              "(a Gram product, a kernel transform and one or two GEMVs) or both parts of the bf16 "
+              "split; the plain versions are those calls in sequence", flush=True)
         kernels = [{"name": name, "route": "cuda", "source": source_of(name),
                     "replaces": REPLACES[name], "launches": launches[name], **rec,
-                    **bound_ms(name, *RECORD_SHAPES[name.split("/")[0]]), "library_ms": None}
+                    **bound_ms(name, *RECORD_SHAPES[name.partition("/")[0]]),
+                    "library_ms": None}
                    for name, rec in records.items()]
-        check(len(kernels) == 9 and all(k["launches"] > 0 for k in kernels),
+        check(len(kernels) == 10 and all(k["launches"] > 0 for k in kernels),
               f"a kernel of the path never launched: {launches}")
     except SmokeError as exc:
         print(f"FAIL: {exc}", flush=True)

@@ -57,8 +57,8 @@
 // from run to run at every tier, and CG iteration counts repeat with it.
 //
 // Ragged shapes: rows beyond D (or N) and features beyond f are masked at
-// the loads (read as 0; by the TMA unit in K1's bf16 tiers) and in the
-// epilogue (K := 0), so callers need not pad to tile multiples.  K1's bf16
+// the loads (read as 0; by the TMA unit at the bf16 tiers) and in the
+// epilogue (K := 0), so callers need not pad to tile multiples.  The bf16
 // tiers need f % 8 == 0 (TMA's 16-byte row stride): the wrapper pads the
 // bf16 operands' feature axis with zeros.
 //
@@ -73,8 +73,6 @@
 #include "gram_tile_wgmma.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 // K1: one CTA per lower-triangular tile pair t -> (i, j), j <= i.
 __global__ void __launch_bounds__(THREADS, 2)
@@ -101,42 +99,13 @@ gram_matvec_rect_kernel(const float* __restrict__ X, const float* __restrict__ Y
     gram_tile(X, D, Y, N, f, vec4, sqx, sqy, nullptr, v, i * BM, j * BM, p, row_out, nullptr);
 }
 
-template <int NPROD>
-__global__ void __launch_bounds__(THREADS, 1)
-gram_matvec_rect_bf16_kernel(const bf16* __restrict__ X, const bf16* __restrict__ X_lo,
-                             const bf16* __restrict__ Y, const bf16* __restrict__ Y_lo,
-                             const float* __restrict__ sqx, const float* __restrict__ sqy,
-                             const float* __restrict__ v, int D, int N, int f, bool vec8,
-                             KernelParams p, float* __restrict__ slab) {
-    const int i = blockIdx.y;
-    const int j = blockIdx.x;
-    float* row_out = slab + ((size_t)i * gridDim.x + j) * BM;
-    gram_tile_bf16<NPROD>(X, X_lo, D, Y, Y_lo, N, f, vec8, sqx, sqy, nullptr, v, i * BM,
-                          j * BM, p, row_out, nullptr);
-}
-
 // K1's bf16 tiers: the wgmma tile walk over the lower-triangular pairs.
 template <int NPROD>
 cudaError_t launch_sym_bf16(const void* X, const void* X_lo, const float* sq, const float* v,
                             int D, int f, int nb, long long pairs, KernelParams p, float* slab,
                             cudaStream_t s) {
     TileArgs args{sq, sq, v, v, slab, nullptr, D, D, nb, nb, 0, pairs, p};
-    return launch_gram_wgmma<NPROD, true>(X, X_lo, X, X_lo, f, args, s);
-}
-
-template <int NPROD>
-cudaError_t launch_rect_bf16(const void* X, const void* X_lo, const void* Y, const void* Y_lo,
-                             const float* sqx, const float* sqy, const float* v, int D, int N,
-                             int f, dim3 grid, KernelParams p, float* slab, cudaStream_t s) {
-    cudaError_t err = allow_bf16_smem<NPROD>(gram_matvec_rect_bf16_kernel<NPROD>);
-    if (err != cudaSuccess) return err;
-    const bool vec8 = (f % 8 == 0) && aligned16(X) && aligned16(Y) &&
-                      (X_lo == nullptr || (aligned16(X_lo) && aligned16(Y_lo)));
-    gram_matvec_rect_bf16_kernel<NPROD><<<grid, THREADS, bf16_tile_smem_bytes<NPROD>(), s>>>(
-        static_cast<const bf16*>(X), static_cast<const bf16*>(X_lo),
-        static_cast<const bf16*>(Y), static_cast<const bf16*>(Y_lo), sqx, sqy, v, D, N, f, vec8,
-        p, slab);
-    return cudaGetLastError();
+    return launch_gram_wgmma<NPROD, TILE_SYM>(X, X_lo, X, X_lo, f, args, s);
 }
 
 }  // namespace
@@ -175,8 +144,9 @@ int gram_matvec_sym(int tier, const void* X, const void* X_lo, const float* sq,
 }
 
 // K2: out (D,) = K(X, Y) v.  X (D, f), Y (N, f) row-major at the tier's
-// types (as gram_matvec_sym), sqx (D,), sqy (N,) row norms, v (N,), slab
-// (nbi, nbj, BM) scratch with nbi = ceil(D / BM), nbj = ceil(N / BM).
+// types and with its demands on f and the bases (as gram_matvec_sym), sqx
+// (D,), sqy (N,) row norms, v (N,), slab (nbi, nbj, BM) scratch with nbi =
+// ceil(D / BM), nbj = ceil(N / BM).
 int gram_matvec_rect(int tier, const void* X, const void* X_lo, const void* Y,
                      const void* Y_lo, const float* sqx, const float* sqy, const float* v,
                      float* slab, float* out, int D, int N, int f, int kernel, int degree,
@@ -184,20 +154,18 @@ int gram_matvec_rect(int tier, const void* X, const void* X_lo, const void* Y,
     const int nbi = (D + BM - 1) / BM;
     const int nbj = (N + BM - 1) / BM;
     const KernelParams p{kernel, degree, gamma, coef0};
-    const dim3 grid(nbj, nbi);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (tier == 0) {
         const bool vec4 = (f % 4 == 0) && aligned16(X) && aligned16(Y);
-        gram_matvec_rect_kernel<<<grid, THREADS, 0, s>>>(
+        gram_matvec_rect_kernel<<<dim3(nbj, nbi), THREADS, 0, s>>>(
             static_cast<const float*>(X), static_cast<const float*>(Y), sqx, sqy, v, D, N, f,
             vec4, p, slab);
         err = cudaGetLastError();
     } else if (tier == 1) {
-        err = launch_rect_bf16<3>(X, X_lo, Y, Y_lo, sqx, sqy, v, D, N, f, grid, p, slab, s);
+        err = launch_gram_wgmma_rows<3>(X, X_lo, Y, Y_lo, sqx, sqy, v, D, N, f, p, slab, s);
     } else if (tier == 2) {
-        err = launch_rect_bf16<1>(X, nullptr, Y, nullptr, sqx, sqy, v, D, N, f, grid, p, slab,
-                                  s);
+        err = launch_gram_wgmma_rows<1>(X, nullptr, Y, nullptr, sqx, sqy, v, D, N, f, p, slab, s);
     } else {
         return (int)cudaErrorInvalidValue;
     }

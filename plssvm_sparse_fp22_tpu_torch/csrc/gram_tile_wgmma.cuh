@@ -1,16 +1,47 @@
-// The bf16 tiers' Gram tile of K1 (gram_matvec.cu) and K3 (pair_contrib.cu),
-// designed for Hopper: operands by TMA, the product by wgmma, one persistent
-// CTA per SM whose two consumer warpgroups take alternate tile pairs, so one
-// tile's transform and GEMVs run while the other's products do.  K2's bf16
-// tiers and every exact tier keep the tiles of gram_tile.cuh.
+// The bf16 tiers' Gram tile of K1, K2 (gram_matvec.cu) and K3
+// (pair_contrib.cu), designed for Hopper: operands by TMA, the product by
+// wgmma, one persistent CTA per SM whose two consumer warpgroups take
+// alternate tile pairs, so one tile's transform and GEMVs run while the
+// other's products do.  Every exact tier keeps the tile of gram_tile.cuh.
 //
-// What it computes is what gram_tile_bf16<NPROD> computes: G = A B^T for one
-// 128 x 128 tile pair from bf16 operands (bf16cast: one product; bf16x3: per
-// 16 features hi hi^T, then hi lo^T, then lo hi^T into one f32 accumulator),
-// the f32 kernel transform, K v_b for the tile's rows into the pair's row
-// slot of the slab and K^T v_a for its columns into the column slot.  Every
-// slot is written by exactly one warpgroup and every sum runs in a fixed
-// order, so the result is bitwise repeatable whatever CTA runs a pair.
+// What it computes: G = A B^T for one 128 x 128 tile pair from bf16 operands
+// (bf16cast: one product; bf16x3: per 16 features hi hi^T, then hi lo^T,
+// then lo hi^T into one f32 accumulator), the f32 kernel transform, K v_b
+// for the tile's rows into the pair's row slot of the slab and, except in
+// K2's mode, K^T v_a for its columns into the column slot.  Every slot is
+// written by exactly one warpgroup and every sum runs in a fixed order, so
+// the result is bitwise repeatable whatever CTA runs a pair.
+//
+// Three modes (TileMode), fixed at compile time:
+//   TILE_SYM   K1: A = B = X, the lower-triangular pairs, one slab; a
+//              diagonal pair has no column side.
+//   TILE_PAIR  K3: every pair of Xi x Xj, a row slab and a column slab.
+//   TILE_ROWS  K2: every pair of X x Y, the row side only.  Its epilogue has
+//              no column side at all: no v of the A side, no column sums, no
+//              shuffles across rows, no pass through shared memory, one
+//              barrier a tile instead of two (the column side's norms and v
+//              are staged in alternate buffers, so a tile's staging cannot
+//              overtake the previous tile's reads), and the two consumers
+//              issue their products in turns (turn_wait).  A one-row
+//              predict still pays for both 64-row halves of its tiles: a
+//              branch around the lower half's wgmma makes ptxas serialise
+//              every wgmma of the kernel (its note C7520).  Where a row
+//              block's whole operand fits shared memory (f <= 576 at
+//              bf16cast, <= 320 at bf16x3), K2 runs gram_wgmma_rows_kernel
+//              instead (below): the same products and epilogue with the A
+//              side resident, half the operand traffic.
+//
+// Tile order.  K1 walks the lower triangle row by row.  K3 and K2 walk
+// groups of PAIR_GROUP = 8 row blocks, column block by column block inside a
+// group, so the 132 tiles in flight at one time are 8 row blocks against
+// about 17 column blocks: every A box is pulled from the L2 17 times and
+// every B box 8 times while it is hot, and B streams from device memory once
+// per group.  K2's predict shape (32 row blocks of points, 256 column blocks
+// of support vectors) would be 4 such groups; its B side, 16 MB in bf16 at
+// f = 256 (32 MB as hi + lo), fits the 50 MB L2 with all of A, so the order
+// only has to keep the boxes of concurrent tiles shared, which it does.  At
+// that f, though, K2 takes gram_wgmma_rows_kernel, whose walk is described
+// there.
 //
 // Layout of one CTA (384 threads, 1 per SM, grid = min(tile pairs, SMs)):
 //
@@ -64,8 +95,9 @@
 // version's scale, which leaves room for its 2 ulp.
 //
 // Nothing that ptxas treats as a function call (printf, a division it does
-// not inline) may run between a tile's first wgmma and its wait: it would
-// serialise every wgmma of the kernel (note C7510 in the build log).
+// not inline) may run between a tile's first wgmma and its wait, and no wgmma
+// may sit under a branch of its own: either serialises every wgmma of the
+// kernel (notes C7510 and C7520 in the build log).
 
 #pragma once
 
@@ -79,7 +111,9 @@ constexpr int WG_THREADS = 128;
 constexpr int WGMMA_THREADS = 3 * WG_THREADS;  // consumers 0, 1 and the producer's warpgroup
 constexpr int KCHUNK = 64;                     // features per stage: 128 bytes, the swizzle span
 constexpr int TILE_BYTES = BM * KCHUNK * 2;    // one 128 x 64 bf16 box
-constexpr int PAIR_GROUP = 8;                  // K3: row blocks per raster group
+constexpr int PAIR_GROUP = 8;                  // K2, K3: row blocks per raster group
+
+enum TileMode { TILE_SYM = 0, TILE_PAIR = 1, TILE_ROWS = 2 };
 
 template <int NPROD>
 __host__ __device__ constexpr int wgmma_stages() {
@@ -87,8 +121,9 @@ __host__ __device__ constexpr int wgmma_stages() {
 }
 
 // 1 KB of slack to align the ring to the swizzle's 1024 bytes, the ring,
-// the column-side sums [2][4][BM], the column-side sq and v [2][2][BM], and
-// the mbarriers: full [2][STAGES] (per consumer), empty [STAGES].
+// the column-side sums [2][4][BM] (TILE_ROWS: the second buffer of sq and v),
+// the column-side sq and v [2][2][BM], and the mbarriers: full [2][STAGES]
+// (per consumer), empty [STAGES].
 template <int NPROD>
 __host__ __device__ constexpr size_t wgmma_smem_bytes() {
     return 1024 + (size_t)wgmma_stages<NPROD>() * (NPROD == 3 ? 4 : 2) * TILE_BYTES +
@@ -98,14 +133,14 @@ __host__ __device__ constexpr size_t wgmma_smem_bytes() {
 struct TileArgs {
     const float* sqa;   // row norms of the A side (na,)
     const float* sqb;   // of the B side (nb,)
-    const float* va;    // v of the A side, contracted on the column side
+    const float* va;    // v of the A side, contracted on the column side (K2: null)
     const float* vb;    // v of the B side, contracted on the row side
-    float* slab_row;    // K1: the one slab; K3: slab_i
-    float* slab_col;    // K3: slab_j (K1: unused)
+    float* slab_row;    // K1, K2: the one slab; K3: slab_i
+    float* slab_col;    // K3: slab_j (K1: unused, K2: null)
     int na, nb;         // rows of each side
     int nbi, nbj;       // 128-row blocks of each side
     int nchunks;        // ceil(f / 64)
-    long long tiles;    // tile pairs: K1 nbi (nbi + 1) / 2, K3 nbi nbj
+    long long tiles;    // tile pairs: K1 nbi (nbi + 1) / 2, K2 and K3 nbi nbj
     KernelParams p;
 };
 
@@ -238,11 +273,27 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
     asm volatile("bar.sync %0, %1;\n" ::"r"(wg + 1), "n"(WG_THREADS) : "memory");
 }
 
+// K2's kernels order the two consumers' products: warpgroup wg waits for its
+// turn before it issues a tile's products and passes the turn on once they
+// are issued (named barriers 3 and 4, counted over both warpgroups: the 128
+// threads that wait and the 128 that pass).  Left alone, the two fall into
+// step, run their products together at half the rate each and then their
+// epilogues together with the tensor cores idle; in turns, one's epilogue
+// runs under the other's products.  Warpgroup 1 passes once before its first
+// tile, so that warpgroup 0 starts.
+__device__ __forceinline__ void turn_wait(int wg) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(wg + 3), "n"(2 * WG_THREADS) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"((wg ^ 1) + 3), "n"(2 * WG_THREADS) : "memory");
+}
+
 // ------------------------------------------------------------ tile walk
 
 // Tile pair t -> (i, j).  K1: the lower triangle in row-major order
-// (tri_pair).  K3: groups of PAIR_GROUP row blocks, column-major inside a
-// group, so the tiles that run at one time share A and B boxes in the L2.
+// (tri_pair).  K2, K3: groups of PAIR_GROUP row blocks, column-major inside
+// a group, so the tiles that run at one time share A and B boxes in the L2.
 template <bool SYM>
 __device__ __forceinline__ void tile_coords(const TileArgs& a, long long t, int& i, int& j) {
     if (SYM) {
@@ -404,11 +455,62 @@ __device__ __forceinline__ void wgmma_epilogue(
     }
 }
 
+// TILE_ROWS: transform and contract one accumulator on the row side alone.
+// Writes the row sums of rows < rows_left to row_out.  GENERAL: columns >=
+// cols_left get K := 0 (rows beyond rows_left are computed, from zero-filled
+// operands, and dropped at the store).  No shuffle leaves the 4
+// lanes of a row, nothing goes through shared memory and there is no barrier.
+template <bool GENERAL, int KIND>
+__device__ __forceinline__ void wgmma_epilogue_rows(
+    const float (&acc0)[64], const float (&acc1)[64], const KernelParams& p,
+    const float (&sqr)[4], int rows_left, int cols_left, const float* __restrict__ sqc,
+    const float* __restrict__ vc, float* __restrict__ row_out, int tid) {
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int r0 = 16 * warp + (lane >> 2);  // row of slot q: r0 + 64 (q / 2) + 8 (q % 2)
+    const int c0 = 2 * (lane & 3);           // column of (j, e): c0 + 8 j + e
+    const float c2g = 2.0f * LOG2E * p.gamma;
+
+    float rs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        const int c = c0 + 8 * j;
+        const float2 sq2 = *reinterpret_cast<const float2*>(sqc + c);
+        const float2 v2 = *reinterpret_cast<const float2*>(vc + c);
+        const bool okc0 = c < cols_left;
+        const bool okc1 = c + 1 < cols_left;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const float g0 = (q < 2) ? acc0[4 * j + 2 * (q & 1)] : acc1[4 * j + 2 * (q & 1)];
+            const float g1 = (q < 2) ? acc0[4 * j + 2 * (q & 1) + 1] : acc1[4 * j + 2 * (q & 1) + 1];
+            float k0 = transform_fast<KIND>(p, c2g, g0, sqr[q], sq2.x);
+            float k1 = transform_fast<KIND>(p, c2g, g1, sqr[q], sq2.y);
+            if (GENERAL) {
+                k0 = okc0 ? k0 : 0.0f;
+                k1 = okc1 ? k1 : 0.0f;
+            }
+            rs[q] = fmaf(k0, v2.x, rs[q]);
+            rs[q] = fmaf(k1, v2.y, rs[q]);
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        rs[q] += __shfl_xor_sync(0xffffffffu, rs[q], 1);
+        rs[q] += __shfl_xor_sync(0xffffffffu, rs[q], 2);
+    }
+    if ((lane & 3) == 0) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int r = r0 + 64 * (q >> 1) + 8 * (q & 1);
+            if (!GENERAL || r < rows_left) row_out[r] = rs[q];
+        }
+    }
+}
+
 // ---------------------------------------------------------------- kernel
 
-// SYM: K1 (A = B = X, lower-triangular pairs, one slab); else K3 (every pair
-// of Xi x Xj, two slabs).  The *_lo maps are read only when NPROD == 3.
-template <int NPROD, bool SYM>
+// MODE: a TileMode.  The *_lo maps are read only when NPROD == 3.
+template <int NPROD, int MODE>
 __global__ void __launch_bounds__(WGMMA_THREADS, 1)
 gram_wgmma_kernel(const __grid_constant__ CUtensorMap map_a_hi,
                   const __grid_constant__ CUtensorMap map_a_lo,
@@ -447,7 +549,7 @@ gram_wgmma_kernel(const __grid_constant__ CUtensorMap map_a_hi,
             int n = 0;
             for (long long t = blockIdx.x; t < a.tiles; t += gridDim.x, ++n) {
                 int i, j;
-                tile_coords<SYM>(a, t, i, j);
+                tile_coords<MODE == TILE_SYM>(a, t, i, j);
                 for (int kc = 0; kc < a.nchunks; ++kc, ++it) {
                     const uint32_t s = it % STAGES;
                     const uint32_t full = full_all + 8 * ((n & 1) * STAGES + s);  // the owner's
@@ -470,34 +572,42 @@ gram_wgmma_kernel(const __grid_constant__ CUtensorMap map_a_hi,
         const int warp = tid >> 5;
         const int lane = tid & 31;
         float* red = red_all + wg * 4 * BM;
-        float* sqc = colv_all + wg * 2 * BM;
-        float* vc = sqc + BM;
+        float* sqc_all = colv_all + wg * 2 * BM;
         const uint32_t full = full_all + 8 * wg * STAGES;
         uint32_t full_parity = 0;  // bit s: the parity of this warpgroup's next use of stage s
 
         float acc0[64] = {}, acc1[64] = {};  // rows 0-63 and 64-127 of the tile
         uint32_t it = 0;
         int n = 0;
+        if (MODE == TILE_ROWS && wg == 1) turn_pass(wg);
         for (long long t = blockIdx.x; t < a.tiles; t += gridDim.x, ++n) {
             if ((n & 1) != wg) {  // the other warpgroup's pair: skip its stages
                 it += a.nchunks;
                 continue;
             }
             int i, j;
-            tile_coords<SYM>(a, t, i, j);
+            tile_coords<MODE == TILE_SYM>(a, t, i, j);
             const int ri0 = i * BM, rj0 = j * BM;
             float* row_out;
             float* col_out;
-            if (SYM) {
+            if (MODE == TILE_SYM) {
                 row_out = a.slab_row + ((size_t)i * a.nbi + j) * BM;
                 col_out = (i != j) ? a.slab_row + ((size_t)j * a.nbi + i) * BM : nullptr;
             } else {
                 row_out = a.slab_row + ((size_t)i * a.nbj + j) * BM;
-                col_out = a.slab_col + ((size_t)j * a.nbi + i) * BM;
+                col_out = MODE == TILE_PAIR ? a.slab_col + ((size_t)j * a.nbi + i) * BM : nullptr;
             }
+            const int rows_left = a.na - ri0, cols_left = a.nb - rj0;
 
             // the column side's sq and v into shared memory, the thread's
-            // four rows into registers, while the first stages arrive
+            // four rows into registers, while the first stages arrive.
+            // TILE_ROWS has no barrier after a tile's reads of them, so the
+            // warpgroup's tiles alternate between two buffers: a warp that
+            // stages tile k + 2 has passed tile k + 1's barrier, which every
+            // warp reaches only after its epilogue of tile k.
+            float* sqc = sqc_all;
+            if (MODE == TILE_ROWS && ((n >> 1) & 1)) sqc = red;
+            float* vc = sqc + BM;
             {
                 const int c = rj0 + tid;
                 sqc[tid] = c < a.nb ? epilogue_norm(a.p, a.sqb[c]) : 0.0f;
@@ -508,7 +618,7 @@ gram_wgmma_kernel(const __grid_constant__ CUtensorMap map_a_hi,
             for (int q = 0; q < 4; ++q) {
                 const int r = ri0 + 16 * warp + (lane >> 2) + 64 * (q >> 1) + 8 * (q & 1);
                 sqr[q] = r < a.na ? epilogue_norm(a.p, a.sqa[r]) : 0.0f;
-                vr[q] = (r < a.na && col_out != nullptr) ? a.va[r] : 0.0f;
+                vr[q] = (MODE != TILE_ROWS && r < a.na && col_out != nullptr) ? a.va[r] : 0.0f;
             }
             warpgroup_sync(wg);  // also: the previous tile's reads of red, sqc, vc are over
 
@@ -518,6 +628,7 @@ gram_wgmma_kernel(const __grid_constant__ CUtensorMap map_a_hi,
             }
             fence_accumulator(acc0);
             fence_accumulator(acc1);
+            if (MODE == TILE_ROWS) turn_wait(wg);
             for (int kc = 0; kc < a.nchunks; ++kc, ++it) {
                 const uint32_t s = it % STAGES;
                 mbar_wait(full + 8 * s, (full_parity >> s) & 1u);
@@ -550,18 +661,24 @@ gram_wgmma_kernel(const __grid_constant__ CUtensorMap map_a_hi,
                     if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
                 }
             }
+            if (MODE == TILE_ROWS) turn_pass(wg);
             wgmma_wait<0>();
             if (a.nchunks > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
             fence_accumulator(acc0);
             fence_accumulator(acc1);
 
-            const int rows_left = a.na - ri0, cols_left = a.nb - rj0;
-#define GRAM_EPILOGUE(GENERAL, KIND)                                                          \
-    wgmma_epilogue<GENERAL, KIND>(acc0, acc1, a.p, sqr, vr, rows_left, cols_left, sqc, vc, red, \
-                                  row_out, col_out, wg, tid)
+#define GRAM_EPILOGUE(GENERAL, KIND)                                                           \
+    do {                                                                                       \
+        if (MODE == TILE_ROWS)                                                                 \
+            wgmma_epilogue_rows<GENERAL, KIND>(acc0, acc1, a.p, sqr, rows_left, cols_left, sqc, \
+                                               vc, row_out, tid);                              \
+        else                                                                                   \
+            wgmma_epilogue<GENERAL, KIND>(acc0, acc1, a.p, sqr, vr, rows_left, cols_left, sqc,  \
+                                          vc, red, row_out, col_out, wg, tid);                 \
+    } while (0)
             // ragged tiles and K1's diagonal ones are few: they take the
             // general epilogue in the kinds' general forms
-            if (rows_left < BM || cols_left < BM || col_out == nullptr) {
+            if (rows_left < BM || cols_left < BM || (MODE != TILE_ROWS && col_out == nullptr)) {
                 if (a.p.kernel == RBF) GRAM_EPILOGUE(true, EPI_RBF);
                 else if (a.p.kernel == POLYNOMIAL) GRAM_EPILOGUE(true, EPI_POLY);
                 else GRAM_EPILOGUE(true, EPI_LINEAR);
@@ -575,6 +692,267 @@ gram_wgmma_kernel(const __grid_constant__ CUtensorMap map_a_hi,
                 }
             }
 #undef GRAM_EPILOGUE
+        }
+    }
+}
+
+// ----------------------------------------------- K2 with the A side resident
+//
+// gram_wgmma_kernel in TILE_ROWS mode pulls both 128 x f operands of every
+// tile from the L2, and at f = 256 that traffic, not wgmma, sets its time
+// (an H100 delivered about 6 TB/s of boxes, whatever the epilogue did).  K2's
+// A side is short:
+// a row block of points against hundreds of column blocks of support
+// vectors.  Where a row block's operand (nchunks boxes of hi, and of lo at
+// bf16x3) fits shared memory beside a ring of at least rows_min_stages()
+// stages, this kernel loads it once per run of column blocks and streams only
+// B through the ring: half the bytes per tile.  launch_gram_wgmma_rows takes
+// it then (f <= 576 at bf16cast, f <= 320 at bf16x3) and the TILE_ROWS mode
+// of gram_wgmma_kernel otherwise.  At bf16x3 and f = 256 the 128 KB of A
+// leave room for three 32 KB stages, to the last 2 KB of the CTA's shared
+// memory; with two, the ring's latency and not the product set the time.
+//
+// Work is cut into units (row block i, run of `run` column blocks); unit u is
+// i = u % nbi, part u / nbi, so the CTAs running at one time hold different
+// row blocks and walk the same column blocks in step: a B box comes from
+// device memory once and from the L2 for every other row block.  `parts` is
+// chosen so that nbi * parts units fill the SMs in one wave where nbi is
+// small (the predict's 32 row blocks: 4 runs of 64 tiles on 128 SMs; one
+// point: 128 runs of 2 tiles); with more row blocks than SMs a unit is a
+// whole row of tiles.  The two consumer warpgroups take a CTA's tiles
+// alternately and in turns (turn_wait), and the epilogue is TILE_ROWS' own.
+//
+// Barriers: the B ring's `full` (one per consumer and stage) and `empty` as in
+// gram_wgmma_kernel; `a_full`, on which the producer's loads of a unit's A
+// complete and both consumers wait once per unit (a consumer without a tile
+// in the unit too: a waiter must see every phase); `a_empty`, on which the 8
+// consumer warps arrive when their products of the unit are done and the
+// producer waits before it overwrites A.
+
+constexpr int ROWS_MAX_STAGES = 8;
+
+template <int NPROD>
+__host__ __device__ constexpr int rows_min_stages() {
+    return NPROD == 3 ? 2 : 4;
+}
+
+// Bytes of one chunk (64 features) of one operand: hi (, lo).
+template <int NPROD>
+__host__ __device__ constexpr uint32_t rows_chunk_bytes() {
+    return (NPROD == 3 ? 2 : 1) * TILE_BYTES;
+}
+
+// Buffers of the column side's sq and v per warpgroup: two, used alternately
+// so that no barrier follows the epilogue (TILE_ROWS), where shared memory
+// has the room; bf16x3 at f = 256 needs those 2 KB for its third stage.
+template <int NPROD>
+__host__ __device__ constexpr int rows_colv_buffers() {
+    return NPROD == 3 ? 1 : 2;
+}
+
+// Beside A and the ring: the column side's sq and v [2 warpgroups][buffers]
+// [2][BM], the mbarriers full [2][MAX], empty [MAX], a_full, a_empty.  No
+// slack to align the boxes: the array is declared 1024-byte aligned.
+template <int NPROD>
+__host__ __device__ constexpr size_t rows_fixed_smem() {
+    return 2 * rows_colv_buffers<NPROD>() * 2 * BM * sizeof(float) +
+           (3 * ROWS_MAX_STAGES + 2) * 8;
+}
+
+constexpr size_t SMEM_PER_BLOCK = 232448;  // what one CTA may use on sm_90
+
+struct RowsArgs {
+    const float* sqa;  // row norms of the A side (na,)
+    const float* sqb;  // of the B side (nb,)
+    const float* vb;   // v of the B side
+    float* slab;       // (nbi, nbj, BM)
+    int na, nb;        // rows of each side
+    int nbi, nbj;      // 128-row blocks of each side
+    int nchunks;       // ceil(f / 64) >= 1
+    int parts, run;    // a row of nbj tiles is cut into `parts` runs of `run`
+    int units;         // nbi * parts
+    int stages;        // of the B ring, 2 .. ROWS_MAX_STAGES
+    KernelParams p;
+};
+
+template <int NPROD>
+__global__ void __launch_bounds__(WGMMA_THREADS, 1)
+gram_wgmma_rows_kernel(const __grid_constant__ CUtensorMap map_a_hi,
+                       const __grid_constant__ CUtensorMap map_a_lo,
+                       const __grid_constant__ CUtensorMap map_b_hi,
+                       const __grid_constant__ CUtensorMap map_b_lo, const RowsArgs a) {
+    constexpr uint32_t CHUNK_BYTES = rows_chunk_bytes<NPROD>();
+    constexpr int BUFS = rows_colv_buffers<NPROD>();
+
+    extern __shared__ __align__(1024) unsigned char smem_rows[];
+    const uint32_t a_res = smem_u32(smem_rows);  // A: nchunks chunks of hi (, lo)
+    if (a_res & 1023u) __trap();                 // the swizzle needs 1024-byte aligned boxes
+    const uint32_t ring = a_res + a.nchunks * CHUNK_BYTES;
+    float* colv_all =
+        reinterpret_cast<float*>(smem_rows + (a.nchunks + a.stages) * CHUNK_BYTES);
+    const uint32_t full_all = smem_u32(colv_all + 2 * BUFS * 2 * BM);  // [2][ROWS_MAX_STAGES]
+    const uint32_t empty = full_all + 2 * 8 * ROWS_MAX_STAGES;
+    const uint32_t a_full = empty + 8 * ROWS_MAX_STAGES;
+    const uint32_t a_empty = a_full + 8;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < a.stages; ++s) {
+            mbar_init(full_all + 8 * s, 1);
+            mbar_init(full_all + 8 * (ROWS_MAX_STAGES + s), 1);
+            mbar_init(empty + 8 * s, 4);  // one arrive per warp of the consuming warpgroup
+        }
+        mbar_init(a_full, 1);
+        mbar_init(a_empty, 8);  // one arrive per consumer warp
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x / WG_THREADS;
+    if (wg == 2) {
+        // ------------------------------------------------------ producer
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+        if (threadIdx.x == 2 * WG_THREADS) {
+            uint32_t s = 0;
+            uint32_t empty_parity = ~0u;  // bit s: the parity of the next wait on stage s
+            int n = 0, un = 0;
+            for (int u = blockIdx.x; u < a.units; u += gridDim.x, ++un) {
+                const int i = u % a.nbi;
+                const int j0 = (u / a.nbi) * a.run;
+                const int j1 = min(a.nbj, j0 + a.run);
+                mbar_wait(a_empty, (un & 1u) ^ 1u);
+                mbar_expect_tx(a_full, a.nchunks * CHUNK_BYTES);
+                for (int kc = 0; kc < a.nchunks; ++kc) {
+                    const uint32_t dst = a_res + kc * CHUNK_BYTES;
+                    tma_load_2d(dst, &map_a_hi, a_full, kc * KCHUNK, i * BM);
+                    if (NPROD == 3)
+                        tma_load_2d(dst + TILE_BYTES, &map_a_lo, a_full, kc * KCHUNK, i * BM);
+                }
+                for (int j = j0; j < j1; ++j, ++n) {
+                    for (int kc = 0; kc < a.nchunks; ++kc) {
+                        const uint32_t full =
+                            full_all + 8 * ((n & 1) * ROWS_MAX_STAGES + s);  // the owner's
+                        mbar_wait(empty + 8 * s, (empty_parity >> s) & 1u);
+                        empty_parity ^= 1u << s;
+                        mbar_expect_tx(full, CHUNK_BYTES);
+                        const uint32_t dst = ring + s * CHUNK_BYTES;
+                        tma_load_2d(dst, &map_b_hi, full, kc * KCHUNK, j * BM);
+                        if (NPROD == 3)
+                            tma_load_2d(dst + TILE_BYTES, &map_b_lo, full, kc * KCHUNK, j * BM);
+                        s = (s + 1 == (uint32_t)a.stages) ? 0 : s + 1;
+                    }
+                }
+            }
+        }
+    } else {
+        // ----------------------------------------------------- consumers
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+        const int tid = threadIdx.x % WG_THREADS;
+        const int warp = tid >> 5;
+        const int lane = tid & 31;
+        float* colv = colv_all + wg * BUFS * 2 * BM;
+        const uint32_t full = full_all + 8 * wg * ROWS_MAX_STAGES;
+        uint32_t full_parity = 0;  // bit s: the parity of this warpgroup's next use of stage s
+
+        float acc0[64] = {}, acc1[64] = {};  // rows 0-63 and 64-127 of the tile
+        uint32_t s = 0;
+        int n = 0, un = 0, mine = 0;
+        if (wg == 1) turn_pass(wg);
+        for (int u = blockIdx.x; u < a.units; u += gridDim.x, ++un) {
+            const int i = u % a.nbi;
+            const int j0 = (u / a.nbi) * a.run;
+            const int j1 = min(a.nbj, j0 + a.run);
+            const int ri0 = i * BM;
+            const int rows_left = a.na - ri0;
+            float sqr[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int r = ri0 + 16 * warp + (lane >> 2) + 64 * (q >> 1) + 8 * (q & 1);
+                sqr[q] = r < a.na ? epilogue_norm(a.p, a.sqa[r]) : 0.0f;
+            }
+            mbar_wait(a_full, un & 1u);
+
+            for (int j = j0; j < j1; ++j, ++n) {
+                if ((n & 1) != wg) {  // the other warpgroup's tile: skip its stages
+                    s = (s + a.nchunks) % a.stages;
+                    continue;
+                }
+                const int rj0 = j * BM;
+                const int cols_left = a.nb - rj0;
+                float* row_out = a.slab + ((size_t)i * a.nbj + j) * BM;
+                // alternate buffers, as in TILE_ROWS: no barrier after the epilogue
+                float* sqc = colv + (mine % BUFS) * 2 * BM;
+                float* vc = sqc + BM;
+                ++mine;
+                {
+                    const int c = rj0 + tid;
+                    sqc[tid] = c < a.nb ? epilogue_norm(a.p, a.sqb[c]) : 0.0f;
+                    vc[tid] = c < a.nb ? a.vb[c] : 0.0f;
+                }
+                warpgroup_sync(wg);
+
+                fence_accumulator(acc0);
+                fence_accumulator(acc1);
+                turn_wait(wg);
+                uint32_t prev = 0;
+                for (int kc = 0; kc < a.nchunks; ++kc) {
+                    mbar_wait(full + 8 * s, (full_parity >> s) & 1u);
+                    full_parity ^= 1u << s;
+                    const uint64_t a_hi = wgmma_desc(a_res + kc * CHUNK_BYTES);
+                    const uint64_t a_lo = wgmma_desc(a_res + kc * CHUNK_BYTES + TILE_BYTES);
+                    const uint64_t b_hi = wgmma_desc(ring + s * CHUNK_BYTES);
+                    const uint64_t b_lo = wgmma_desc(ring + s * CHUNK_BYTES + TILE_BYTES);
+                    wgmma_fence();
+#pragma unroll
+                    for (int k = 0; k < KCHUNK / 16; ++k) {
+                        const uint64_t ko = 2 * k;       // as in gram_wgmma_kernel
+                        const int keep = (kc | k) != 0;  // the tile's first product overwrites
+                        wgmma_m64n128k16(acc0, a_hi + ko, b_hi + ko, keep);
+                        wgmma_m64n128k16(acc1, a_hi + ko + 512, b_hi + ko, keep);
+                        if (NPROD == 3) {
+                            wgmma_m64n128k16(acc0, a_hi + ko, b_lo + ko, 1);
+                            wgmma_m64n128k16(acc1, a_hi + ko + 512, b_lo + ko, 1);
+                            wgmma_m64n128k16(acc0, a_lo + ko, b_hi + ko, 1);
+                            wgmma_m64n128k16(acc1, a_lo + ko + 512, b_hi + ko, 1);
+                        }
+                    }
+                    wgmma_commit();
+                    if (kc > 0) {
+                        // the previous stage's products are done: hand it back
+                        wgmma_wait<1>();
+                        if (lane == 0) mbar_arrive(empty + 8 * prev);
+                    }
+                    prev = s;
+                    s = (s + 1 == (uint32_t)a.stages) ? 0 : s + 1;
+                }
+                turn_pass(wg);
+                wgmma_wait<0>();
+                if (lane == 0) mbar_arrive(empty + 8 * prev);
+                fence_accumulator(acc0);
+                fence_accumulator(acc1);
+
+#define ROWS_EPILOGUE(GENERAL, KIND)                                                         \
+    wgmma_epilogue_rows<GENERAL, KIND>(acc0, acc1, a.p, sqr, rows_left, cols_left, sqc, vc, \
+                                       row_out, tid)
+                if (rows_left < BM || cols_left < BM) {
+                    if (a.p.kernel == RBF) ROWS_EPILOGUE(true, EPI_RBF);
+                    else if (a.p.kernel == POLYNOMIAL) ROWS_EPILOGUE(true, EPI_POLY);
+                    else ROWS_EPILOGUE(true, EPI_LINEAR);
+                } else {
+                    switch (epilogue_kind(a.p)) {
+                        case EPI_RBF: ROWS_EPILOGUE(false, EPI_RBF); break;
+                        case EPI_POLY2: ROWS_EPILOGUE(false, EPI_POLY2); break;
+                        case EPI_POLY3: ROWS_EPILOGUE(false, EPI_POLY3); break;
+                        case EPI_POLY: ROWS_EPILOGUE(false, EPI_POLY); break;
+                        default: ROWS_EPILOGUE(false, EPI_LINEAR); break;
+                    }
+                }
+#undef ROWS_EPILOGUE
+                // one buffer: its readers must be done before the next tile's staging
+                if (BUFS == 1) warpgroup_sync(wg);
+            }
+            // every product of this warp that read the unit's A is complete
+            if (lane == 0) mbar_arrive(a_empty);
         }
     }
 }
@@ -620,35 +998,93 @@ inline cudaError_t make_operand_map(CUtensorMap* map, const void* X, int rows, i
     return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Launch the tile walk over A (na, f) x B (nb, f) on stream s.  SYM: B is A.
+// Launch the tile walk over A (na, f) x B (nb, f) on stream s in TileMode
+// MODE (TILE_SYM: B is A).
 // Returns cudaErrorInvalidValue for operands TMA cannot take (f % 8 != 0 or
 // a base not 16-byte aligned).
-template <int NPROD, bool SYM>
-cudaError_t launch_gram_wgmma(const void* A_hi, const void* A_lo, const void* B_hi,
-                              const void* B_lo, int f, TileArgs args, cudaStream_t s) {
+// The four maps A hi, A lo, B hi, B lo (the lo maps repeat hi unless NPROD ==
+// 3).  cudaErrorInvalidValue for operands TMA cannot take.
+template <int NPROD>
+cudaError_t make_operand_maps(CUtensorMap (&maps)[4], const void* A_hi, const void* A_lo,
+                              const void* B_hi, const void* B_lo, int na, int nb, int f) {
     if (f % 8 != 0 || !aligned16(A_hi) || !aligned16(B_hi) ||
         (NPROD == 3 && (!aligned16(A_lo) || !aligned16(B_lo))))
         return cudaErrorInvalidValue;
-    CUtensorMap maps[4];
     const void* src[4] = {A_hi, NPROD == 3 ? A_lo : A_hi, B_hi, NPROD == 3 ? B_lo : B_hi};
-    const int rows[4] = {args.na, args.na, args.nb, args.nb};
+    const int rows[4] = {na, na, nb, nb};
     for (int m = 0; m < 4; ++m) {
         const cudaError_t err = make_operand_map(&maps[m], src[m], rows[m], f);
         if (err != cudaSuccess) return err;
     }
-    int device = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&device);
+    return cudaSuccess;
+}
+
+inline cudaError_t sm_count(int* sms) {
+    int device = 0;
+    const cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
+template <int NPROD, int MODE>
+cudaError_t launch_gram_wgmma(const void* A_hi, const void* A_lo, const void* B_hi,
+                              const void* B_lo, int f, TileArgs args, cudaStream_t s) {
+    CUtensorMap maps[4];
+    cudaError_t err =
+        make_operand_maps<NPROD>(maps, A_hi, A_lo, B_hi, B_lo, args.na, args.nb, f);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(gram_wgmma_kernel<NPROD, SYM>,
+    int sms = 0;
+    err = sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(gram_wgmma_kernel<NPROD, MODE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)wgmma_smem_bytes<NPROD>());
     if (err != cudaSuccess) return err;
     args.nchunks = (f + KCHUNK - 1) / KCHUNK;
     const unsigned grid = (unsigned)(args.tiles < sms ? args.tiles : sms);
-    gram_wgmma_kernel<NPROD, SYM><<<grid, WGMMA_THREADS, wgmma_smem_bytes<NPROD>(), s>>>(
+    gram_wgmma_kernel<NPROD, MODE><<<grid, WGMMA_THREADS, wgmma_smem_bytes<NPROD>(), s>>>(
         maps[0], maps[1], maps[2], maps[3], args);
+    return cudaGetLastError();
+}
+
+// K2's bf16 tiers: out-of-kernel choice between the resident-A kernel, where
+// a row block's operand fits shared memory beside the ring, and the TILE_ROWS
+// mode of gram_wgmma_kernel.  slab (nbi, nbj, BM).
+template <int NPROD>
+cudaError_t launch_gram_wgmma_rows(const void* A_hi, const void* A_lo, const void* B_hi,
+                                   const void* B_lo, const float* sqa, const float* sqb,
+                                   const float* vb, int na, int nb, int f, KernelParams p,
+                                   float* slab, cudaStream_t s) {
+    const int nbi = (na + BM - 1) / BM, nbj = (nb + BM - 1) / BM;
+    const int nchunks = (f + KCHUNK - 1) / KCHUNK;
+    constexpr int room =
+        (int)((SMEM_PER_BLOCK - rows_fixed_smem<NPROD>()) / rows_chunk_bytes<NPROD>());
+    if (nchunks < 1 || nchunks + rows_min_stages<NPROD>() > room) {
+        TileArgs args{sqa, sqb, nullptr, vb, slab, nullptr, na, nb, nbi, nbj, 0,
+                      (long long)nbi * nbj, p};
+        return launch_gram_wgmma<NPROD, TILE_ROWS>(A_hi, A_lo, B_hi, B_lo, f, args, s);
+    }
+    CUtensorMap maps[4];
+    cudaError_t err = make_operand_maps<NPROD>(maps, A_hi, A_lo, B_hi, B_lo, na, nb, f);
+    if (err != cudaSuccess) return err;
+    int sms = 0;
+    err = sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    int parts = sms / nbi < 1 ? 1 : (sms / nbi > nbj ? nbj : sms / nbi);
+    const int run = (nbj + parts - 1) / parts;
+    parts = (nbj + run - 1) / run;  // no empty run
+    if ((long long)nbi * parts > 2147483647ll) return cudaErrorInvalidValue;
+    const int stages = room - nchunks < ROWS_MAX_STAGES ? room - nchunks : ROWS_MAX_STAGES;
+    const RowsArgs args{sqa, sqb, vb, slab, na, nb, nbi, nbj, nchunks, parts, run,
+                        nbi * parts, stages, p};
+    const size_t smem =
+        rows_fixed_smem<NPROD>() + (size_t)(nchunks + stages) * rows_chunk_bytes<NPROD>();
+    err = cudaFuncSetAttribute(gram_wgmma_rows_kernel<NPROD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const unsigned grid = (unsigned)(args.units < sms ? args.units : sms);
+    gram_wgmma_rows_kernel<NPROD><<<grid, WGMMA_THREADS, smem, s>>>(maps[0], maps[1], maps[2],
+                                                                    maps[3], args);
     return cudaGetLastError();
 }
 

@@ -73,7 +73,7 @@ cudaError_t launch_pair_bf16(const void* Xi, const void* Xi_lo, const void* Xj,
                              int nbj, KernelParams p, float* slab_i, float* slab_j,
                              cudaStream_t s) {
     TileArgs args{sqi, sqj, vi, vj, slab_i, slab_j, Di, Dj, nbi, nbj, 0, (long long)nbi * nbj, p};
-    return launch_gram_wgmma<NPROD, false>(Xi, Xi_lo, Xj, Xj_lo, f, args, s);
+    return launch_gram_wgmma<NPROD, TILE_PAIR>(Xi, Xi_lo, Xj, Xj_lo, f, args, s);
 }
 
 }  // namespace

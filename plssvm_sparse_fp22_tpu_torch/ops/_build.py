@@ -2,10 +2,10 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` (K1/K2 in ``gram_matvec.cu``, K3 in
 ``pair_contrib.cu``, both including ``gram_tile.cuh`` and
-``gram_tile_wgmma.cuh``) into an object, one ``nvcc`` per source, all
-started together, and links them into one shared library with a plain C
-interface, loaded with ``ctypes``; nothing links against PyTorch, so a
-build takes well under a minute.  Nothing links against ``libcuda``
+``gram_tile_wgmma.cuh``; the bf16x3 split in ``split_bf16.cu``) into an
+object, one ``nvcc`` per source, all started together, and links them into
+one shared library with a plain C interface, loaded with ``ctypes``;
+nothing links against PyTorch, so a build takes well under a minute.  Nothing links against ``libcuda``
 either: the wgmma tile's tensor maps need that library's
 ``cuTensorMapEncodeTiled``, which the built code looks up at run time
 through ``cudaGetDriverEntryPoint`` (PyTorch has ``libcuda`` loaded), so no
@@ -119,6 +119,8 @@ def load() -> ctypes.CDLL:
         lib.gram_pair_contrib.argtypes = [I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                           F, F, P]
         lib.gram_pair_contrib.restype = I
+        lib.split_bf16_rows.argtypes = [P, P, P, ctypes.c_longlong, I, I, P]
+        lib.split_bf16_rows.restype = I
         lib.gram_matvec_tile.argtypes = []
         lib.gram_matvec_tile.restype = I
         if lib.gram_matvec_tile() != CUDA_TILE:

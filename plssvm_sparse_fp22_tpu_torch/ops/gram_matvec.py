@@ -28,23 +28,25 @@ Each runs at one of three precision tiers (**K4**, the arms of
 The transform and the two GEMVs of the epilogue stay f32 at every tier.
 float64 always runs ``exact`` (``pallas_matvec.py:306-312``).  K1 and K2
 live in ``csrc/gram_matvec.cu``, K3 in ``csrc/pair_contrib.cu``; both
-include ``csrc/gram_tile.cuh`` (the exact tiles, K2's ``mma.sync`` bf16
-tile, the slab reduction) and ``csrc/gram_tile_wgmma.cuh`` (the TMA-fed
-``wgmma`` tile of K1's and K3's bf16 tiers); ``gram_matvec.cu``'s header
-says what bounds them on the H100 and how the cross-CTA reduction stays
+include ``csrc/gram_tile.cuh`` (the exact tile, the slab reduction) and
+``csrc/gram_tile_wgmma.cuh`` (the TMA-fed ``wgmma`` tile of every bf16
+tier; K2 runs it in its row-only mode); ``gram_matvec.cu``'s header says
+what bounds them on the H100 and how the cross-CTA reduction stays
 deterministic.
 
 The bf16 operands (:func:`tier_operands`) carry their feature axis padded
 with zeros to a multiple of 64 (``CUDA_FEATURE_PAD``): a zero feature
 changes no dot product, the row norms are taken from the float32 rows, and
 the TMA unit gets the 16-byte row stride it needs.  The plain versions take
-the same padded operands.
+the same padded operands.  The bf16x3 split of a CUDA matrix
+(:func:`split_bf16`) is one launch of ``csrc/split_bf16.cu``, which writes
+both parts already padded; the bf16cast operand is one ``Tensor.to``.
 
 A wrapper dispatches on the device of its tensors.  On a CPU tensor it runs
 the plain version at the same tier; on a CUDA tensor it launches its kernel
 or raises — there is no fallback.  Each launch adds one to
-:data:`launches` under ``"<kernel>/<tier>"``, so a run can show that it
-went through the kernels.
+:data:`launches` under ``"<kernel>/<tier>"`` (the split under
+``"split_bf16"``), so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -72,8 +74,9 @@ PRECISION_TIERS = {
 }
 KERNEL_NAMES = ("gram_matvec_sym", "gram_matvec_rect", "gram_pair_contrib")
 
-#: kernel launches per wrapper and tier since the last :func:`reset_launches`
-launches = {f"{name}/{tier}": 0 for name in KERNEL_NAMES for tier in TIERS}
+#: kernel launches per wrapper and tier, and of the split kernel, since the
+#: last :func:`reset_launches`
+launches = {**{f"{name}/{tier}": 0 for name in KERNEL_NAMES for tier in TIERS}, "split_bf16": 0}
 
 
 #: calls of :func:`tier_operands` per tier since the last
@@ -124,7 +127,7 @@ def resolve_tier(tier: str | None, dtype: torch.dtype) -> str:
     return tier if dtype == torch.float32 else "exact"
 
 
-def split_bf16(X: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def split_bf16_plain(X: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact split ``X = hi + lo`` with ``hi, lo`` in bfloat16
     (``_split_bf16``, ``pallas_matvec.py:282-290``): ``hi`` keeps the upper
     16 bits of each float32 (a truncation, so the cast to bf16 is exact),
@@ -139,16 +142,30 @@ def split_bf16(X: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi_f32.to(torch.bfloat16), r.to(torch.bfloat16)
 
 
+def _padded(f: int) -> int:
+    return _cdiv(f, CUDA_FEATURE_PAD) * CUDA_FEATURE_PAD
+
+
 def _pad_features(t: torch.Tensor) -> torch.Tensor:
     """``t`` (rows, f) with its feature axis padded with zeros to a multiple
     of ``CUDA_FEATURE_PAD``; ``t`` itself when f already is one."""
     rows, f = t.shape
-    fp = -(-f // CUDA_FEATURE_PAD) * CUDA_FEATURE_PAD
-    if fp == f:
+    if _padded(f) == f:
         return t
-    out = torch.zeros((rows, fp), dtype=t.dtype, device=t.device)
+    out = torch.zeros((rows, _padded(f)), dtype=t.dtype, device=t.device)
     out[:, :f] = t
     return out
+
+
+def split_bf16(X: torch.Tensor, *, pad: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of :func:`split_bf16_plain`, with ``pad`` the last axis
+    of both padded with zeros to a multiple of ``CUDA_FEATURE_PAD``.  A CUDA
+    tensor (float32, contiguous) takes the split kernel, which writes the
+    padded buffers in its one pass; a CPU tensor the plain version."""
+    if X.is_cuda:
+        return _launch_split(X, pad)
+    parts = split_bf16_plain(X)
+    return tuple(_pad_features(t) for t in parts) if pad else parts
 
 
 def tier_operands(tier: str, X: torch.Tensor, *, pad: bool = True) -> tuple[torch.Tensor, ...]:
@@ -159,13 +176,13 @@ def tier_operands(tier: str, X: torch.Tensor, *, pad: bool = True) -> tuple[torc
     ``CUDA_FEATURE_PAD``, the row stride the wgmma tile's TMA loads need;
     ``pad=False`` (the ``linear`` mode's plain products) leaves the shape."""
     preparations[tier] += 1
+    pad = pad and X.dim() == 2
     if tier == "bf16x3":
-        parts = split_bf16(X)
-    elif tier == "bf16cast":
-        parts = (X.to(torch.bfloat16),)
-    else:
-        return (X,)
-    return tuple(_pad_features(t) for t in parts) if pad and X.dim() == 2 else parts
+        return split_bf16(X, pad=pad)
+    if tier == "bf16cast":
+        cast = X.to(torch.bfloat16)
+        return (_pad_features(cast) if pad else cast,)
+    return (X,)
 
 
 def tier_matmul(tier: str, A: tuple, B: tuple) -> torch.Tensor:
@@ -314,6 +331,30 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _launch_split(X: torch.Tensor, pad: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The split kernel (``csrc/split_bf16.cu``; replaces ``_split_bf16``,
+    ``pallas_matvec.py:282``, nine eager passes and two padding copies in
+    one).  Bound by bytes: 4 read and 4 written per value, which a thread
+    moves as two 16-byte loads and a 16-byte store to each part."""
+    if X.dim() not in (1, 2):
+        raise PLSSVMError(f"split_bf16 takes a vector or a matrix, got shape {tuple(X.shape)}")
+    _check("X", X, tuple(X.shape), X.device)
+    rows, f = (1 if X.dim() == 1 else X.shape[0]), X.shape[-1]
+    fp = _padded(f) if pad else f
+    shape = (*X.shape[:-1], fp)
+    hi = torch.empty(shape, dtype=torch.bfloat16, device=X.device)
+    lo = torch.empty(shape, dtype=torch.bfloat16, device=X.device)
+    if hi.numel() == 0:
+        return hi, lo
+    lib = _build.load()
+    with torch.cuda.device(X.device):
+        rc = lib.split_bf16_rows(X.data_ptr(), hi.data_ptr(), lo.data_ptr(), rows, f, fp,
+                                 torch.cuda.current_stream(X.device).cuda_stream)
+    _raise_on(rc, "split_bf16")
+    launches["split_bf16"] += 1
+    return hi, lo
+
+
 def _launch_sym(kernel, tier, Xo, v, sq, degree, gamma, coef0):
     """K1 (replaces ``_gram_matvec_sym_kernel``, ``pallas_matvec.py:388``).
     Bound on the H100 by f32 FFMA throughput (exact) or by the bf16
@@ -350,10 +391,14 @@ def _launch_sym(kernel, tier, Xo, v, sq, degree, gamma, coef0):
 
 def _launch_rect(kernel, tier, Xo, Yo, v, sqx, sqy, degree, gamma, coef0):
     """K2 (replaces ``_gram_matvec_kernel``, ``pallas_matvec.py:117``).
-    Bound like K1.  Y's rows are split over CTAs so a one-row predict still
-    spreads over the card, but each CTA still runs a full 128-row tile of
-    which all but one row is masked: small batches pay for 128 rows.  The
-    slab holds one partial per tile pair, summed in a fixed order."""
+    Bound like K1.  The exact tier runs one CTA per tile pair; the bf16
+    tiers the persistent ``wgmma`` tile of ``csrc/gram_tile_wgmma.cuh`` with
+    a row-only epilogue (no column side): with X's row block resident in
+    shared memory and only Y streamed where it fits (f <= 576 at bf16cast,
+    <= 320 at bf16x3), else with both operands streamed.  Y's rows are
+    split over tiles so a one-row predict still spreads over the card, but
+    each tile still runs all 128 rows: small batches pay for 128.  The slab
+    holds one partial per tile pair, summed in a fixed order."""
     D, f = Xo[0].shape
     N = Yo[0].shape[0]
     dev = Xo[0].device

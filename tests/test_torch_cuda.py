@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: K1, K2 and K3 against their plain PyTorch
-versions at every precision tier (K1's and K3's bf16 tiers run the TMA-fed
-``wgmma`` tile: ragged rows and features, more tile pairs than SMs, operands
-prepared by the caller), determinism, launch counts, the wrappers' checks, a
+versions at every precision tier (the bf16 tiers run the TMA-fed ``wgmma``
+tile, K2 in its row-only mode: ragged rows and features, more tile pairs
+than SMs, operands prepared by the caller), the one-pass bf16 split bit for
+bit against its plain version, determinism, launch counts, the wrappers' checks, a
 small learn/predict on the ``cuda`` backend against the ``torch`` backend, a
 streaming sparse learn through K3, and the adaptive two-tier learn.
 
@@ -268,9 +269,12 @@ def test_tiers_repeat_bitwise_and_are_counted(dev, tier):
              *gm.pair_gram_contrib(KernelType.rbf, X, Xj, v, vj, same=False, gamma=0.05,
                                    tier=tier)) for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+    # bf16x3: one split when K1's closure is built, two (both sides) in each
+    # call of K2 and K3
     assert gm.launches == _counts(**{f"gram_matvec_sym__{tier}": 2,
                                      f"gram_matvec_rect__{tier}": 2,
-                                     f"gram_pair_contrib__{tier}": 2})
+                                     f"gram_pair_contrib__{tier}": 2,
+                                     "split_bf16": 9 if tier == "bf16x3" else 0})
 
 
 def test_tier_wrappers_check_their_operands(dev):
@@ -283,7 +287,7 @@ def test_tier_wrappers_check_their_operands(dev):
         gm._launch_sym(KernelType.rbf, "bf16cast", (X,), v, sq, 3, 1.0, 0.0)
 
 
-# --- the wgmma tile of K1's and K3's bf16 tiers -----------------------------------
+# --- the wgmma tile of the bf16 tiers -----------------------------------------------
 
 
 def _tier_budget(tier):
@@ -336,6 +340,35 @@ def test_wgmma_k3_ragged_shapes_match_plain(dev, kernel, tier, shape):
 
 
 @pytest.mark.parametrize("tier", BF16_TIERS)
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("shape", [(1, 300, 256), (129, 1, 8), (3000, 1700, 1001),
+                                   (130, 4096, 64), (64, 640, 200), (65, 129, 1),
+                                   (200, 700, 512), (17000, 300, 64), (1, 40000, 256)])
+def test_wgmma_k2_ragged_shapes_match_plain(dev, kernel, tier, shape):
+    """K2's row-only epilogue: one point, 64 and 65 rows (either side of a
+    wgmma's 64 rows), rows and support vectors that end inside a tile,
+    features that end inside a box, more tiles than SMs; a row block
+    resident in shared memory (f <= 256; f = 512 at bf16cast only) and both
+    operands streamed (f = 1001; f = 512 at bf16x3); more row blocks than
+    SMs (17000 rows: a unit is a whole row of tiles, a CTA takes several)
+    and one row block cut into 128 runs (40000 support vectors); with the
+    operands prepared by the caller and, same bits, prepared inside the
+    call."""
+    D, N, f = shape
+    rng = np.random.default_rng(35)
+    P = torch.tensor(rng.normal(size=(D, f)), dtype=torch.float32, device=dev)
+    Y = torch.tensor(rng.normal(size=(N, f)), dtype=torch.float32, device=dev)
+    a = torch.tensor(rng.normal(size=N), dtype=torch.float32, device=dev)
+    ops = (gm.tier_operands(tier, P), gm.tier_operands(tier, Y))
+    got = gm.gram_matvec(kernel, P, a, Y=Y, tier=tier, operands=ops, **_hyper(f))
+    want = gm.gram_matvec_plain(kernel, P, a, Y=Y, tier=tier, operands=ops, **_hyper(f))
+    assert _rel_err(got, want) <= TIER_TOL
+    exact = gm.gram_matvec(kernel, P, a, Y=Y, tier="exact", **_hyper(f))
+    assert _rel_err(got, exact) <= _tier_budget(tier)
+    assert torch.equal(gm.gram_matvec(kernel, P, a, Y=Y, tier=tier, **_hyper(f)), got)
+
+
+@pytest.mark.parametrize("tier", BF16_TIERS)
 @pytest.mark.parametrize("shape", [(129, 4096), (640, 2048)])
 def test_wgmma_k1_long_feature_axis_on_few_rows(dev, tier, shape):
     """f = 4096 on 129 rows and f = 2048 on 640: 64 and 32 chunks a tile, and
@@ -369,9 +402,9 @@ def test_wgmma_k1_long_feature_axis_on_few_rows(dev, tier, shape):
 @pytest.mark.parametrize("tier", BF16_TIERS)
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_wgmma_tiles_repeat_bitwise(dev, kernel, tier):
-    """More tile pairs than SMs (300 for K1, 336 for K3), so the persistent
-    CTAs and their two consumer warpgroups share the pairs: whichever runs a
-    pair, its slab slot gets the same bits."""
+    """More tile pairs than SMs (300 for K1, 336 for K2 and K3), so the
+    persistent CTAs and their two consumer warpgroups share the pairs:
+    whichever runs a pair, its slab slot gets the same bits."""
     rng = np.random.default_rng(33)
     f = 200
     X = torch.tensor(rng.normal(size=(3000, f)), dtype=torch.float32, device=dev)
@@ -380,8 +413,9 @@ def test_wgmma_tiles_repeat_bitwise(dev, kernel, tier):
     vj = torch.tensor(rng.normal(size=1700), dtype=torch.float32, device=dev)
     mv = gm.make_sym_matvec(kernel, X, tier=tier, **_hyper(f))
     ops = (gm.tier_operands(tier, X), gm.tier_operands(tier, Xj))
-    runs = [(mv(v), *gm.pair_gram_contrib(kernel, X, Xj, v, vj, same=False, tier=tier,
-                                          operands=ops, **_hyper(f))) for _ in range(3)]
+    runs = [(mv(v), gm.gram_matvec(kernel, X, vj, Y=Xj, tier=tier, operands=ops, **_hyper(f)),
+             *gm.pair_gram_contrib(kernel, X, Xj, v, vj, same=False, tier=tier,
+                                   operands=ops, **_hyper(f))) for _ in range(3)]
     torch.cuda.synchronize()
     for run in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
@@ -403,9 +437,76 @@ def test_wgmma_wrappers_reject_what_the_tile_does_not_take(dev):
     with pytest.raises(PLSSVMError, match="padded"):
         gm._launch_pair(KernelType.rbf, "bf16x3", gm.tier_operands("bf16x3", X, pad=False),
                         gm.tier_operands("bf16x3", X), v, v, sq, sq, 3, 1.0, 0.0)
+    with pytest.raises(PLSSVMError, match="padded"):
+        gm._launch_rect(KernelType.rbf, "bf16cast", (X.bfloat16(),), (X.bfloat16(),), v, sq, sq,
+                        3, 1.0, 0.0)
+    with pytest.raises(PLSSVMError, match="padded"):
+        gm.gram_matvec(KernelType.rbf, X, v, tier="bf16x3",
+                       operands=(gm.tier_operands("bf16x3", X, pad=False),
+                                 gm.tier_operands("bf16x3", X)))
     with pytest.raises(PLSSVMError, match="float32 only"):
         gm.pair_gram_contrib(KernelType.rbf, X.double(), X.double(), v.double(), v.double(),
                              same=False, tier="bf16cast")
+
+
+# --- the split kernel -------------------------------------------------------------
+
+
+def _special_floats(rng, shape):
+    """Random bit patterns (every exponent, NaNs and infinities of both
+    signs, subnormals), a third normal draws, and the written-out cases:
+    zeros, subnormals, the smallest normal and its neighbour, remainders
+    that are subnormal, rounding ties of the remainder."""
+    n = int(np.prod(shape))
+    bits = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+    normal = rng.normal(size=n).astype(np.float32).view(np.uint32)
+    bits = np.where(rng.random(n) < 1 / 3, normal, bits)
+    cases = [0x00000000, 0x80000000, 0x00000001, 0x80000001, 0x007FFFFF, 0x00800000, 0x00800001,
+             0x80810001, 0x01000001, 0x3F808000, 0x3F818000, 0x3F800180, 0x7F800000, 0xFF800000,
+             0x7FC00000, 0x7F800001]
+    bits[:min(n, len(cases))] = cases[:n]
+    return bits.view(np.float32).reshape(shape)
+
+
+def _same_bits(a, b):
+    """Equal bits; a NaN matches a NaN (a cast makes every NaN canonical)."""
+    nan = a.isnan()
+    return a.shape == b.shape and torch.equal(nan, b.isnan()) and torch.equal(
+        a.view(torch.int16).masked_fill(nan, 0), b.view(torch.int16).masked_fill(nan, 0))
+
+
+@pytest.mark.parametrize("pad", [True, False])
+@pytest.mark.parametrize("shape", [(257, 1001), (64, 4), (33, 12), (3, 1), (130, 63), (129, 256),
+                                   (100003,), (0, 5)])
+def test_split_kernel_equals_plain_bitwise(dev, shape, pad):
+    """Vector and scalar loads (f % 4), vector and scalar stores (the padded
+    and the ragged feature axis), a vector, an empty matrix; the pad columns
+    are zero and a second padding is a no-op."""
+    rng = np.random.default_rng(36)
+    X = torch.tensor(_special_floats(rng, shape), device=dev)
+    pad = pad and X.dim() == 2
+    gm.reset_launches()
+    got = gm.split_bf16(X, pad=pad)
+    want = gm.split_bf16_plain(X)
+    if pad:
+        want = tuple(gm._pad_features(t) for t in want)
+    assert gm.launches["split_bf16"] == (1 if X.numel() else 0)
+    f = shape[-1]
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.is_contiguous() and _same_bits(g, w)
+        assert not g[..., f:].any()
+        assert not pad or gm._pad_features(g) is g
+    assert all(_same_bits(a, b) for a, b in zip(gm.tier_operands("bf16x3", X, pad=pad), got))
+
+
+def test_split_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    X = torch.ones((8, 12), device=dev)
+    with pytest.raises(PLSSVMError, match="float32 only"):
+        gm.split_bf16(X.double())
+    with pytest.raises(PLSSVMError, match="contiguous"):
+        gm.split_bf16(X.T)
+    with pytest.raises(PLSSVMError, match="a vector or a matrix"):
+        gm.split_bf16(X.reshape(2, 4, 12))
 
 
 def test_adaptive_learn_runs_both_tiers(dev, monkeypatch):

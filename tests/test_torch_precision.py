@@ -156,9 +156,12 @@ def test_k1_plain_tier_matches_pallas_interpret(kernel, tier, shape):
 
 @pytest.mark.parametrize("tier", list(TIERS))
 @pytest.mark.parametrize("kernel", KERNELS)
-@pytest.mark.parametrize("shape", [(1, 24, 70), (40, 64, 96)])
+@pytest.mark.parametrize("shape", [(1, 24, 70), (40, 64, 96), (1, 65, 33), (33, 7, 1),
+                                   (70, 100, 45)])
 def test_k2_plain_tier_matches_pallas_interpret(kernel, tier, shape):
-    """Shapes are (points, features, support vectors)."""
+    """Shapes are (points, features, support vectors): one point, one
+    support vector, rows of both sides that end inside a 32-row block and
+    features that end inside a padded box among them."""
     D, f, N = shape
     rng = np.random.default_rng(12)
     P, Y, a = _data(rng, D, f), _data(rng, N, f), _data(rng, N)
@@ -252,6 +255,36 @@ def test_tier_operands_pad_the_feature_axis_with_zeros(tier, f):
     # the exact tier and vectors are left as they are
     assert gm.tier_operands("exact", X)[0] is X
     assert gm.tier_operands(tier, X[0])[0].shape == (f,)
+
+
+@pytest.mark.parametrize("f", [1, 63, 64, 65, 1001])
+def test_split_operands_come_padded_with_special_values(f):
+    """``tier_operands("bf16x3", X)`` on the CPU: padded contiguous buffers,
+    zero bits in the pad columns, and in the data columns the JAX package's
+    bits for rounding ties, subnormals and signed zeros, and the plain
+    version's for infinities and NaNs (``inf`` splits into ``inf + NaN``)."""
+    vals = np.concatenate([_tricky_values(),
+                           _bits_f32([0x7F800000, 0xFF800000, 0x7FC00000, 0x7F800001,
+                                      0x00800001, 0x80810001, 0x01000001])])
+    rows = -(-len(vals) // f)
+    x = np.resize(vals, (rows, f)).astype(np.float32)
+    X = torch.from_numpy(x)
+    hi, lo = gm.tier_operands("bf16x3", X)
+    fp = -(-f // 64) * 64
+    phi, plo = gm.split_bf16_plain(X)
+    jhi, jlo = _split_bf16(jnp.asarray(x))
+    finite = np.isfinite(x)
+    for part, plain, jpart in ((hi, phi, jhi), (lo, plo, jlo)):
+        assert part.shape == (rows, fp) and part.dtype == torch.bfloat16 and part.is_contiguous()
+        assert not part[:, f:].view(torch.int16).any()
+        np.testing.assert_array_equal(_u16(part[:, :f].contiguous()), _u16(plain))
+        np.testing.assert_array_equal(_u16(plain)[finite],
+                                      np.asarray(jpart).view(np.uint16)[finite])
+        assert gm._pad_features(part) is part  # a caller that pads again copies nothing
+    where = torch.from_numpy(x == np.inf)
+    assert torch.isinf(hi[:, :f][where]).all() and torch.isnan(lo[:, :f][where]).all()
+    assert gm.split_bf16(X)[0].shape == (rows, f)  # unpadded unless asked
+    assert gm.launches["split_bf16"] == 0  # the kernel is the card's
 
 
 @pytest.mark.parametrize("f", [1001, 256])

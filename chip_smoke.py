@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on an NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile | --probe]
+    python3 chip_smoke.py [--profile | --probe | --sharded]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the repository around this script; it imports nothing of JAX.  Phases 3-10
@@ -66,9 +66,29 @@ Phases, one line or more each, any failure exits non-zero:
 14. a forced escalation (``PLSSVM_CG_STAG_PATIENCE=2``, eps 1e-9) at rbf
     4096 x 256, and CG it/s at a pinned count per tier (``highest``,
     ``high``, ``default``) at rbf 32768 x 256 and at the sparse
-    ``implicit`` tier.
+    ``implicit`` tier;
+15. the checkpointed dense learn through ``plssvm-train-torch`` on phase
+    6's file (exact tier): a run stopped by ``--max_iter 5`` and resumed
+    from its checkpoint, an uninterrupted ``--checkpoint --verbose_cg`` run
+    (one ``Start Iteration`` line per iteration) and a one-shot learn end on
+    the same iteration count, the first two on byte-equal model files, the
+    third within 1e-6; K1 launches once per A·v; the learn's wall split
+    into set-up and CG milliseconds from a ``Timings`` sink;
+16. the small CLIs: ``plssvm-generate-data-torch`` writes a train and a
+    test file, the train and predict CLIs run on them on the card,
+    ``plssvm-detect-torch --json`` names the card, ``cuda`` and ``nvcc``;
+17. the row-sharded dense learn (``parallel/sharded.py``) over 2 and 4
+    logical shards of the card (and over every card where there are more):
+    the ``implicit`` ring at rbf 32768 x 256 on each pinned tier and on the
+    adaptive plan, every hop one launch of K2 (p squared per A·v), against
+    the single-device learn of the same tier; the ``linear`` and ``cached``
+    modes at 4096 x 256; sharded predict and ``w`` against the
+    single-device ones; a chunked sharded learn interrupted and resumed
+    from its checkpoint; two runs bitwise equal; ms per A·v for p = 1, 2, 4
+    beside K1's.
 
-``--probe`` is the short first run after a change to a kernel source:
+``--sharded`` runs phases 1, 2 and 17 only (the phase that differs on a
+machine with several cards).  ``--probe`` is the short first run after a change to a kernel source:
 phases 1 and 2, the compiler's resource lines of every kernel (the whole
 log goes to ``build.log`` beside the built library), and phase 11's checks
 with one launch each instead of a timing loop; it prints no result line.
@@ -80,7 +100,10 @@ version, and ``bound_ms``, the least time the card could take
 call computes a Gram product, a kernel transform and the GEMVs in one, nor
 both parts of the split.  K2's bf16 records carry the kernel's time on
 prepared operands as ``ms`` and the predict's, split or cast inside, as
-``ms_with_preparation``.  The
+``ms_with_preparation``; K1's exact record also carries its launches under
+the chunked CG loop (phase 15, ``launches_chunked_learn``) and K2's records
+and the split's theirs on the ring of 4 shards (phase 17,
+``launches_ring``).  The
 last line is ``{"ok": true, "device": {...}}``.  Scratch files go to
 ``.smoke_work/`` beside this script and are removed at the end.
 """
@@ -110,6 +133,7 @@ TOL = 1e-4
 #: a bf16 tier against the exact kernel, relative to max|exact|: the budgets
 #: of tests/test_solver.py:133-137
 TIER_BUDGET = {"bf16x3": 1e-3, "bf16cast": 3e-2}
+TIERS_ALL = ("exact", *TIER_BUDGET)
 SOURCES = {
     "gram_matvec_sym": "plssvm_sparse_fp22_tpu_torch/csrc/gram_matvec.cu",
     "gram_matvec_rect": "plssvm_sparse_fp22_tpu_torch/csrc/gram_matvec.cu",
@@ -233,12 +257,17 @@ def environ(**env):
 
 
 @contextlib.contextmanager
-def recording_csvms(cli_module):
-    """Keep the CSVMs a CLI module builds, to read their ``last_cg_info``."""
+def recording_csvms(cli_module, timings: bool = False):
+    """Keep the CSVMs a CLI module builds, to read their ``last_cg_info``;
+    with ``timings`` each gets a ``Timings`` sink for its chunked learn."""
     made, build = [], cli_module.make_csvm
 
     def make(params):
         made.append(build(params))
+        if timings:
+            from plssvm_sparse_fp22_tpu_torch.utils.timing import Timings
+
+            made[-1].timings = Timings()
         return made[-1]
 
     cli_module.make_csvm = make
@@ -585,14 +614,17 @@ def phase_reference(rng):
           flush=True)
 
 
-def dense_system(dev, X, y, gamma):
-    """The reduced rbf CG system of a dense data set on the card, as
-    ``CSVM._learn_dense`` builds it (C = 1): ``(X_pad, q, mask, QA_cost,
-    cost_inv, b)``, padded to a multiple of 256 rows."""
+def dense_system(dev, X, y, gamma, kernel=None):
+    """The reduced CG system (rbf unless ``kernel`` says otherwise) of a dense
+    data set on the card, as ``CSVM._learn_dense`` builds it (C = 1):
+    ``(X_pad, q, mask, QA_cost, cost_inv, b)``, padded to a multiple of 256
+    rows."""
     import torch
 
     from plssvm_sparse_fp22_tpu_torch.ops.kernel_functions import gram_block, kernel_scalar
     from plssvm_sparse_fp22_tpu_torch.types import KernelType
+
+    kernel = KernelType.rbf if kernel is None else kernel
 
     n, f = X.shape
     dept = n - 1
@@ -606,8 +638,8 @@ def dense_system(dev, X, y, gamma):
     b = torch.zeros(D, device=dev)
     b[:dept] = torch.tensor(y[:dept] - y[-1], dtype=torch.float32, device=dev)
     cost_inv = torch.tensor(1.0, device=dev)
-    q = gram_block(KernelType.rbf, Xd, xl[None, :], gamma=gamma)[:, 0] * mask
-    QA = kernel_scalar(KernelType.rbf, xl, xl, gamma=gamma) + cost_inv
+    q = gram_block(kernel, Xd, xl[None, :], gamma=gamma)[:, 0] * mask
+    QA = kernel_scalar(kernel, xl, xl, gamma=gamma) + cost_inv
     return Xd, q, mask, QA, cost_inv, b
 
 
@@ -1421,6 +1453,383 @@ def phase_tiers(dev, rng, sparse):
           flush=True)
 
 
+def phase_checkpoint(main):
+    """Phase 15: the chunked CG loop on the card, through the train CLI on
+    phase 6's file at the exact tier."""
+    from plssvm_sparse_fp22_tpu_torch.cli import train as train_cli
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+
+    base = ["-t", "2", "-e", "1e-6", "--use_float", "-b", "cuda", "-p", "gpu_nvidia"]
+    ckpt_a, ckpt_b = os.path.join(WORK, "cg_a.npz"), os.path.join(WORK, "cg_b.npz")
+    models = {k: os.path.join(WORK, f"ckpt_{k}.model") for k in "abc"}
+
+    def train(tag, extra, model):
+        with recording_csvms(train_cli, timings=True) as made:
+            gm.reset_launches()
+            t0 = time.perf_counter()
+            rc, log = run_cli(train_cli.main, [*base, *extra, main["train"], model])
+            wall = time.perf_counter() - t0
+            counts = dict(gm.launches)
+        check(rc == 0, f"checkpoint phase, run {tag}: train CLI returned {rc}")
+        svm = made[-1]
+        check(svm.last_cg_info["mode"] == "implicit", f"run {tag} ran {svm.last_cg_info['mode']}")
+        check(nonzero(counts) == {"gram_matvec_sym/exact": counts["gram_matvec_sym/exact"]},
+              f"run {tag} launched {nonzero(counts)}, expected K1 on the exact tier only")
+        return svm, log, counts["gram_matvec_sym/exact"], wall
+
+    # (a) stopped after 5 iterations, then resumed to the end
+    part, _, k1_part, _ = train("a, interrupted", ["--checkpoint", ckpt_a,
+                                                  "--checkpoint_interval", "3",
+                                                  "--max_iter", "5"], models["a"])
+    check(part.last_cg_info["iterations"] == 5 and k1_part == 6,
+          f"interrupted run: {part.last_cg_info['iterations']} iterations, {k1_part} K1 launches "
+          "(expected 5 and 6: the initial residual and one per iteration)")
+    resumed, log, k1_resumed, _ = train("a, resumed", ["--checkpoint", ckpt_a,
+                                                      "--checkpoint_interval", "3"], models["a"])
+    check(re.search(r"Resumed CG from checkpoint '.*' at iteration 5\.", log) is not None,
+          "the resumed run did not print its 'Resumed CG ... at iteration 5' line")
+    iters = resumed.last_cg_info["iterations"]
+    check(k1_resumed == iters - 5, f"resumed run launched K1 {k1_resumed} times for "
+          f"{iters - 5} iterations (no initial residual on a resume)")
+    # (b) uninterrupted, with a checkpoint and per-iteration output
+    whole, log, k1_whole, wall = train("b, uninterrupted", ["--checkpoint", ckpt_b,
+                                                          "--verbose_cg"], models["b"])
+    lines = re.findall(r"^Start Iteration (\d+) \(max: 256\) with current residuum \S+ "
+                       r"\(target: \S+\)\. $", log, flags=re.M)
+    check([int(k) for k in lines] == list(range(1, iters + 1)),
+          f"--verbose_cg printed iterations {lines}, expected 1..{iters}")
+    check(k1_whole == iters + 1 + iters // 50, f"uninterrupted run: {k1_whole} K1 launches")
+    # (c) one shot, the same pinned tier
+    shot, _, k1_shot, _ = train("c, one shot", [], models["c"])
+    counts = [s.last_cg_info["iterations"] for s in (resumed, whole, shot)]
+    check(len(set(counts)) == 1, f"resumed / uninterrupted / one-shot iterations differ: {counts}")
+    with open(models["a"], "rb") as fa, open(models["b"], "rb") as fb:
+        check(fa.read() == fb.read(), "the resumed model file differs from the uninterrupted one")
+    scale = float(np.abs(whole.alphas).max())
+    err = float(np.abs(shot.alphas - whole.alphas).max()) / scale
+    check(err <= 1e-6 and abs(shot.bias_ - whole.bias_) <= 1e-6 * max(1.0, abs(whole.bias_)),
+          f"one-shot learn off the chunked one by {err:.2e} of the alphas' scale")
+    spans = whole.timings.summary()
+    print(f"[15 checkpoint] rbf 32768 x 256, exact tier: interrupted at 5 and resumed, "
+          f"uninterrupted (--verbose_cg, {len(lines)} lines) and one-shot learns all end on "
+          f"{iters} iterations; resumed and uninterrupted model files byte-equal; one shot "
+          f"within {err:.1e}; K1 launches {k1_part} + {k1_resumed} / {k1_whole} / {k1_shot}",
+          flush=True)
+    print(f"[15 checkpoint] uninterrupted learn, wall split (Timings sink, device "
+          f"synchronised): set-up {spans['setup']:.1f} ms (system and operator "
+          f"{whole.timings.records['setup'][0]:.1f}, initial residual "
+          f"{whole.timings.records['setup'][1]:.1f}), CG {spans['cg']:.1f} ms in "
+          f"{len(whole.timings.records['cg'])} chunks of one iteration, learn {cg_ms(log)} ms, "
+          f"train CLI {wall:.1f} s", flush=True)
+    return {"gram_matvec_sym/exact": k1_whole}
+
+
+def phase_small_clis():
+    """Phase 16: generate-data, train, predict and detect through their CLIs."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.cli.detect import main as detect_main
+    from plssvm_sparse_fp22_tpu_torch.cli.generate_data import main as generate_main
+    from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
+    from plssvm_sparse_fp22_tpu_torch.cli.train import main as train_main
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+
+    base = os.path.join(WORK, "gen")
+    rc, _ = run_cli(generate_main, ["--output", base, "--format", "libsvm", "--samples", "8192",
+                                    "--test_samples", "1024", "--features", "64",
+                                    "--problem", "blobs", "--seed", str(SEED % 2**31)])
+    check(rc == 0, f"generate-data CLI returned {rc}")
+    train, test = base + ".libsvm", base + "_test.libsvm"
+    model, out = os.path.join(WORK, "gen.model"), os.path.join(WORK, "gen.predict")
+    gm.reset_launches()
+    rc, log = run_cli(train_main, ["-t", "2", "-e", "1e-6", "--use_float", "-b", "cuda",
+                                   "-p", "gpu_nvidia", train, model])
+    check(rc == 0, f"train CLI on the generated file returned {rc}")
+    m = re.search(r"Finished after (\d+) iterations", log)
+    check(m is not None and gm.launches["gram_matvec_sym/bf16cast"] > 0,
+          f"training on the generated file: {nonzero(gm.launches)}")
+    rc, plog = run_cli(predict_main, ["--use_float", "-b", "cuda", "-p", "gpu_nvidia",
+                                      test, model, out])
+    acc = re.search(r"Accuracy = ([0-9.]+)%", plog)
+    check(rc == 0 and acc is not None and float(acc.group(1)) >= 95.0,
+          f"predict CLI on the generated test file: rc {rc}, accuracy {acc and acc.group(1)}%")
+    check(gm.launches["gram_matvec_rect/exact"] == 1, "prediction did not launch K2")
+    print(f"[16 CLIs] generate-data 8192 + 1024 x 64 blobs -> train ({m.group(1)} CG "
+          f"iterations, adaptive plan) -> predict accuracy {acc.group(1)}%, launches "
+          f"{nonzero(gm.launches)}", flush=True)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = detect_main(["--json"])
+    lines = buf.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 1, f"detect --json: rc {rc}, {len(lines)} lines")
+    info = json.loads(lines[0])
+    check(info["platform"] == "cuda" and info["default_backend"] == "cuda"
+          and info["num_devices"] == torch.cuda.device_count()
+          and info["devices"][0]["name"] == torch.cuda.get_device_name(0)
+          and info["devices"][0]["compute_capability"] == "9.0" and info["nvcc"],
+          f"detect --json reports {info}")
+    print(f"[16 CLIs] detect --json: {lines[0]}", flush=True)
+
+
+#: the ring's A·v against the single-device operator (K1) of the same tier,
+#: relative to the result's scale: the same Gram entries summed in another
+#: order (measured 3e-7 to 2e-6 on an H100)
+RING_TOL = 5e-5
+#: what holds a sharded learn: its iteration count (within one of the
+#: single-device learn's), its residual (at or under the target), and its
+#: residual as the exact single-device operator sees it, ``TRUE_RESIDUAL``
+#: times the target at most (the recursive residual of a float32 CG drifts
+#: from the true one, and a bf16 tier's A is not the exact A; measured 0.83 on
+#: every tier).  Its alphas are printed beside the single-device learn's and
+#: not held to them: float32 CG from x0 = 1 stops at eps 1e-6 far from the
+#: solution (the float64 solves at eps 1e-6 and 1e-9 differ by 0.3 of the
+#: alphas' scale) and amplifies any change in the order of the sums.  On an
+#: H100 two correct float32 learns (K1 against K2 on one device, either
+#: against float64) sat 3e-2 to 4e-2 of the scale apart, K1 with its dot
+#: products summed in four parts 0.15, and the linear kernel's 0.5.
+TRUE_RESIDUAL = 4.0
+
+
+def phase_sharded(dev, rng):
+    """Phase 17: the row-sharded dense learn and predict on the card."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch import make_csvm
+    from plssvm_sparse_fp22_tpu_torch.io.libsvm import ParsedData
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.ops.matvec import build_operator, tier_precision
+    from plssvm_sparse_fp22_tpu_torch.parallel import sharded
+    from plssvm_sparse_fp22_tpu_torch.parallel.mesh import make_mesh
+    from plssvm_sparse_fp22_tpu_torch.params import Parameter
+    from plssvm_sparse_fp22_tpu_torch.solver.cg import cg_solve, cg_solve_adaptive
+    from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType
+
+    import scipy.sparse as sp
+
+    cuda, rbf = BackendType.cuda, KernelType.rbf
+    n, f, eps, imax = 32768, 256, 1e-6, 256
+    gamma = 1.0 / f
+    X, y = two_blobs(n, f, rng)
+    Xd, q, mask, QA, cost_inv, b = dense_system(dev, X, y, gamma)
+    x_last = torch.tensor(X[-1], dtype=torch.float32, device=dev)
+    meshes = [("2 logical shards of cuda:0", make_mesh(2, devices=[dev])),
+              ("4 logical shards of cuda:0", make_mesh(4, devices=[dev]))]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards", make_mesh()))
+        meshes.append((f"2 shards on each of {torch.cuda.device_count()} cards",
+                       make_mesh(2 * torch.cuda.device_count())))
+    print(f"[17 sharded] rbf {n} x {f} float32, implicit ring, every hop K2; meshes: "
+          + "; ".join(name for name, _ in meshes), flush=True)
+
+    def single_op(name):
+        return build_operator(rbf, Xd, q, mask, QA, cost_inv, gamma=gamma, mode="implicit",
+                              backend=cuda, precision=tier_precision(name)).matvec
+
+    # the single-device learns (K1), one per tier and the adaptive one
+    tiers = ("highest", "high", "default")
+    ops1 = {name: single_op(name) for name in tiers}
+    single = {name: cg_solve(ops1[name], b, mask, eps, imax) for name in tiers}
+    single["adaptive"] = cg_solve_adaptive(ops1["default"], ops1["high"], b, mask, eps, imax)
+    v = torch.tensor(rng.normal(size=n), dtype=torch.float32, device=dev) * mask
+    want_v = {name: ops1[name](v) for name in tiers}
+
+    def true_residual(x):
+        r = b - ops1["highest"](x)
+        return float(torch.dot(r, r))
+
+    print("  single device (K1): " + ", ".join(
+        f"{name} {res.iterations} iterations, true residual "
+        f"{true_residual(res.x) / (eps * eps * float(res.delta0)):.2f} x target"
+        for name, res in single.items()), flush=True)
+    ring_launches, ring_ops = {}, {}
+    for mesh_name, mesh in meshes:
+        p = len(mesh)
+        Xs, bs, ms = sharded.shard_system(mesh, Xd, b, mask)
+        for name in (*tiers, "adaptive"):
+            plan = ("default", "high") if name == "adaptive" else None
+            if plan is None:
+                # one A·v of the ring against K1 at the same tier
+                gm.reset_launches()
+                mv = sharded._prepare_local(rbf, mesh, Xs, x_last, ms, gamma, 0.0, 1.0, 3,
+                                            "implicit", cuda, "none",
+                                            precision=tier_precision(name))[3]
+                got = mv(v)
+                torch.cuda.synchronize()
+                hops = gm.launches[f"gram_matvec_rect/{tier_precision(name)}"]
+                err_v = float((got - want_v[name]).abs().max()) / float(want_v[name].abs().max())
+                check(hops == p * p and err_v <= RING_TOL,
+                      f"{mesh_name}, {name}: one A·v of the ring launched K2 {hops} times "
+                      f"(expected {p * p}) and is {err_v:.2e} of its scale off K1's "
+                      f"(tol {RING_TOL:g})")
+                ring_ops[(mesh_name, name)] = mv
+            learn = sharded.make_sharded_learn(mesh, rbf, 3, "implicit", backend=cuda,
+                                               mxu_plan=plan)
+            with environ(PLSSVM_MATMUL_PRECISION="" if plan else name):
+                gm.reset_launches()
+                out = learn(Xs, x_last, bs, ms, gamma, 0.0, 1.0, eps, imax)
+                torch.cuda.synchronize()
+                counts = dict(gm.launches)
+            x, iters, delta, delta0 = out[0], out[4], float(out[5]), float(out[6])
+            ref = single[name]
+            target = eps * eps * delta0
+            check(abs(iters - ref.iterations) <= 1, f"{mesh_name}, {name}: {iters} iterations, "
+                  f"the single-device learn took {ref.iterations}")
+            check(delta <= target, f"{mesh_name}, {name}: residual {delta} above its target "
+                  f"{target}")
+            true = true_residual(x) / target
+            check(true <= TRUE_RESIDUAL, f"{mesh_name}, {name}: the exact operator sees a "
+                  f"residual of {true:.2f} x the target (bound {TRUE_RESIDUAL:g})")
+            err = float((x - ref.x).abs().max()) / float(ref.x.abs().max())
+            if plan is None:
+                tier = tier_precision(name)
+                want = {f"gram_matvec_rect/{tier}": p * p * (iters + 1 + iters // 50)}
+                if tier == "bf16x3":
+                    want["split_bf16"] = p  # each shard's operands, once per operator
+            else:
+                kf = out[7]
+                want = {"gram_matvec_rect/bf16cast": p * p * (kf + 1 + kf // 50),
+                        "gram_matvec_rect/bf16x3": p * p * (1 + iters - kf
+                                                            + iters // 50 - kf // 50),
+                        "split_bf16": p}
+            check(nonzero(counts) == want,
+                  f"{mesh_name}, {name}: launches {nonzero(counts)}, expected {want}")
+            if p == 4 and mesh[0] == mesh[-1]:
+                for key in want:
+                    ring_launches[key] = ring_launches.get(key, 0) + counts[key]
+            print(f"  {mesh_name}, {name}: "
+                  + (f"A·v within {err_v:.2e} of K1's (tol {RING_TOL:g}); " if plan is None
+                     else "")
+                  + f"{iters} CG iterations (single device {ref.iterations})"
+                  + (f", {out[7]} on the fast tier" if plan else "")
+                  + f", residual {delta / target:.2f} x target, by the exact operator "
+                  f"{true:.2f} x (bound {TRUE_RESIDUAL:g}), alphas {err:.2e} of their scale "
+                  f"from the single-device learn's (not held), launches {nonzero(counts)}",
+                  flush=True)
+
+        # two runs of the exact ring are the same bits
+        with environ(PLSSVM_MATMUL_PRECISION="highest"):
+            learn = sharded.make_sharded_learn(mesh, rbf, 3, "implicit", backend=cuda)
+            one = learn(Xs, x_last, bs, ms, gamma, 0.0, 1.0, eps, imax)
+            two = learn(Xs, x_last, bs, ms, gamma, 0.0, 1.0, eps, imax)
+        check(one[4] == two[4] and torch.equal(one[0], two[0]) and torch.equal(one[5], two[5]),
+              f"{mesh_name}: two runs of the sharded learn differ")
+
+        # a chunked sharded learn, interrupted and resumed, through the CSVM's chunked CG loop
+        path = os.path.join(WORK, f"ring_{p}_{len(set(mesh))}.npz")
+        small = Parameter(kernel=rbf, gamma=gamma, epsilon=eps, dtype=np.float32, backend=cuda,
+                          checkpoint_path=path, checkpoint_interval=3, print_info=True)
+        small.data = ParsedData(csr=sp.csr_matrix(X[:8]), values=y[:8], _dense=X[:8])
+        small.values = y[:8]
+        chunker = make_csvm(small)
+
+        def chunked(stop_at):
+            setup_fn, chunk_fn = sharded.make_sharded_learn_fns(mesh, rbf, 3, "implicit",
+                                                                backend=cuda)
+            buf = io.StringIO()
+            with environ(PLSSVM_MATMUL_PRECISION="highest"), contextlib.redirect_stdout(buf):
+                _, _, state = chunker._drive_chunked_cg(
+                    lambda: setup_fn(Xs, x_last, bs, ms, gamma, 0.0, 1.0),
+                    lambda q_, QA_, end, st: chunk_fn(Xs, bs, ms, x_last, gamma, 0.0, 1.0, eps,
+                                                      end, st),
+                    stop_at, n - 1, device=mesh[0])
+            return state, buf.getvalue()
+
+        part, _ = chunked(5)
+        check(part.k == 5 and os.path.exists(path), f"{mesh_name}: the interrupted chunked "
+              f"learn stopped at {part.k}")
+        state, log = chunked(imax)
+        check("at iteration 5." in log, f"{mesh_name}: no 'Resumed CG' line: {log!r}")
+        check(state.k == one[4] and torch.equal(state.x, one[0]),
+              f"{mesh_name}: the resumed chunked learn ({state.k} iterations) differs from "
+              f"the one-shot sharded learn ({one[4]})")
+        os.remove(path)
+        print(f"  {mesh_name}: two exact runs bitwise equal; chunked learn interrupted at 5, "
+              f"resumed from its checkpoint, ends on the one-shot learn's bits after {state.k} "
+              f"iterations", flush=True)
+
+        # predict and w against the single-device ones
+        alphas = torch.tensor(rng.normal(size=n), dtype=torch.float32, device=dev)
+        P = torch.tensor(rng.normal(size=(4096, f)), dtype=torch.float32, device=dev)
+        Xsv = torch.tensor(X, dtype=torch.float32, device=dev)
+        bias = torch.tensor(0.25, device=dev)
+        with environ(PLSSVM_MATMUL_PRECISION="highest"):
+            want = gm.gram_matvec(rbf, P, alphas, Y=Xsv, gamma=gamma) + bias
+            gm.reset_launches()
+            got = sharded.make_sharded_predict(mesh, rbf, 3, backend=cuda)(
+                P, sharded.shard_rows(mesh, Xsv), sharded.shard_rows(mesh, alphas), bias,
+                gamma, 0.0)
+            torch.cuda.synchronize()
+        check(gm.launches["gram_matvec_rect/exact"] == p, "the sharded predict did not launch "
+              f"K2 once per shard: {nonzero(gm.launches)}")
+        err_p = float((got - want).abs().max()) / float(want.abs().max())
+        w = sharded.make_sharded_w(mesh)(sharded.shard_rows(mesh, Xsv),
+                                         sharded.shard_rows(mesh, alphas))
+        w_ref = Xsv.T @ alphas
+        err_w = float((w - w_ref).abs().max()) / float(w_ref.abs().max())
+        check(err_p <= TOL and err_w <= TOL, f"{mesh_name}: sharded predict {err_p:.2e}, w "
+              f"{err_w:.2e} off the single-device ones (tol {TOL:g})")
+        print(f"  {mesh_name}: sharded predict (K2 per shard) within {err_p:.2e}, w within "
+              f"{err_w:.2e} of the single-device ones (tol {TOL:g})", flush=True)
+        del Xsv, P, alphas
+
+    # the linear and cached modes at 4096 x 256
+    n2 = 4096
+    X2, y2 = two_blobs(n2, f, rng)
+    for kernel, mode in ((KernelType.linear, "linear"), (rbf, "cached")):
+        Xd2, q2, m2, QA2, ci2, b2 = dense_system(dev, X2, y2, gamma, kernel)
+        xl2 = torch.tensor(X2[-1], dtype=torch.float32, device=dev)
+        with environ(PLSSVM_MATMUL_PRECISION="highest"):
+            op = build_operator(kernel, Xd2, q2, m2, QA2, ci2, gamma=gamma, mode=mode,
+                                backend=cuda)
+            ref = cg_solve(op.matvec, b2, m2, eps, imax)
+            for mesh_name, mesh in meshes:
+                Xs2, bs2, ms2 = sharded.shard_system(mesh, Xd2, b2, m2)
+                _, _, _, mv, _ = sharded._prepare_local(kernel, mesh, Xs2, xl2, ms2, gamma, 0.0,
+                                                        1.0, 3, mode, cuda, "none")
+                v2 = torch.tensor(rng.normal(size=len(b2)), dtype=torch.float32, device=dev) * m2
+                got, want = mv(v2), op.matvec(v2)
+                err_mv = float((got - want).abs().max()) / float(want.abs().max())
+                out = sharded.make_sharded_learn(mesh, kernel, 3, mode, backend=cuda)(
+                    Xs2, xl2, bs2, ms2, gamma, 0.0, 1.0, eps, imax)
+                target = eps * eps * float(out[6])
+                r = b2 - op.matvec(out[0])
+                true = float(torch.dot(r, r)) / target
+                err = float((out[0] - ref.x).abs().max()) / float(ref.x.abs().max())
+                check(err_mv <= RING_TOL and float(out[5]) <= target and true <= TRUE_RESIDUAL
+                      and abs(out[4] - ref.iterations) <= 2,
+                      f"{mode} mode, {mesh_name}: A·v {err_mv:.2e} off (tol {RING_TOL:g}), "
+                      f"{out[4]} iterations against {ref.iterations}, residual "
+                      f"{float(out[5]) / target:.2f} x target, by the single-device operator "
+                      f"{true:.2f} x (bound {TRUE_RESIDUAL:g})")
+                print(f"  {mode} mode, {kernel.name} {n2} x {f}, {mesh_name}: A·v within "
+                      f"{err_mv:.2e} of the single-device operator (tol {RING_TOL:g}), "
+                      f"{out[4]} CG iterations (single device {ref.iterations}), residual by the "
+                      f"single-device operator {true:.2f} x target (bound {TRUE_RESIDUAL:g}), "
+                      f"alphas {err:.2e} of their scale from the single-device learn's (not "
+                      f"held)", flush=True)
+
+    # ms per A·v of the ring beside K1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    smi = "; ".join(f"{smi.count(card)} x {card}" if len(smi) > 1 else card
+                    for card in dict.fromkeys(smi))
+    for name in tiers:
+        cells = [f"K1 (one device, symmetric) {timed_ms(lambda: ops1[name](v), 10):.3f}"]
+        mesh1 = make_mesh(1, devices=[dev])
+        Xs, bs, ms = sharded.shard_system(mesh1, Xd, b, mask)
+        ring_ops[("p = 1", name)] = sharded._prepare_local(
+            rbf, mesh1, Xs, x_last, ms, gamma, 0.0, 1.0, 3, "implicit", cuda, "none",
+            precision=tier_precision(name))[3]
+        for label in ("p = 1", *(mesh_name for mesh_name, _ in meshes)):
+            mv = ring_ops[(label, name)]
+            cells.append(f"ring, {label} {timed_ms(lambda: mv(v), 10):.3f}")
+        print(f"[17 sharded] ms per A·v, rbf {n} x {f}, {name} ({smi}): " + ", ".join(cells)
+              + "; shards that share a card show the ring's overhead, not a scaling",
+              flush=True)
+    return ring_launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1429,6 +1838,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also run phase 10: torch.profiler over each sparse tier's CG")
+    parser.add_argument("--sharded", action="store_true",
+                        help="build, then phase 17 only: the row-sharded learn and predict "
+                             "(over every card where the machine has more than one)")
     parser.add_argument("--probe", action="store_true",
                         help="build, show the compiler's resource lines, check the split and "
                              "every bf16 kernel with one launch each, and stop")
@@ -1453,6 +1865,12 @@ def main(argv=None) -> int:
             phase_k4(dev, rng, probe=True)
             print("probe passed", flush=True)
             return 0
+        if args.sharded:
+            phase_sharded(dev, rng)
+            print("sharded phase passed", flush=True)
+            return 0
+        # phases 3-16 are the one-device paths, whatever the machine holds
+        os.environ["PLSSVM_DEVICES"] = "1"
         # phases 3-10 hold the exact tier; the plan is off while a tier is pinned
         with environ(PLSSVM_MATMUL_PRECISION="highest"):
             records = {"gram_matvec_sym/exact": phase_k1(dev, rng),
@@ -1479,6 +1897,10 @@ def main(argv=None) -> int:
         launches.update(phase_adaptive_sparse(sparse))
         launches["split_bf16"] += dense_splits
         phase_tiers(dev, rng, sparse)
+        with environ(PLSSVM_MATMUL_PRECISION="highest"):
+            chunked = phase_checkpoint(dense)
+        phase_small_clis()
+        ring = phase_sharded(dev, rng)
         if args.profile:
             with environ(PLSSVM_MATMUL_PRECISION="highest"):
                 phase_profile(sparse)
@@ -1490,8 +1912,18 @@ def main(argv=None) -> int:
                     **bound_ms(name, *RECORD_SHAPES[name.partition("/")[0]]),
                     "library_ms": None}
                    for name, rec in records.items()]
+        # the later paths beside the earlier ones: K1 under the chunked CG loop
+        # (phase 15), K2 and the split on the ring of 4 shards (phase 17)
+        for k in kernels:
+            if k["name"] in chunked:
+                k["launches_chunked_learn"] = chunked[k["name"]]
+            if k["name"] in ring:
+                k["launches_ring"] = ring[k["name"]]
         check(len(kernels) == 10 and all(k["launches"] > 0 for k in kernels),
               f"a kernel of the path never launched: {launches}")
+        check(chunked["gram_matvec_sym/exact"] > 0
+              and all(ring.get(f"gram_matvec_rect/{t}", 0) > 0 for t in TIERS_ALL),
+              f"the chunked learn or the ring launched no kernel: {chunked}, {ring}")
     except SmokeError as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1

@@ -1,1 +1,2 @@
-"""Command-line tools: ``plssvm-train-torch`` and ``plssvm-predict-torch``."""
+"""Command-line tools: ``plssvm-train-torch``, ``plssvm-predict-torch``,
+``plssvm-detect-torch`` and ``plssvm-generate-data-torch``."""

@@ -7,18 +7,25 @@ eager PyTorch on the ``CSVM``'s ``torch.device``: q-vector, QA_cost, the
 A·v operator and a host-driven CG loop.  Data at or below
 ``sparse_threshold`` density keeps its CSR form and takes the JAX
 package's sparse tiers (:meth:`CSVM._learn_sparse`, ``models/sparse_learn.py``).
+Dense data on more than one device (``Parameter.devices``,
+``PLSSVM_DEVICES``) takes the row-sharded learn and predict of
+``parallel/sharded.py``.  With ``checkpoint_path`` or ``verbose_cg`` a dense
+learn, sharded or not, runs CG in chunks under
+:meth:`CSVM._drive_chunked_cg`.
 
 What this package does not carry yet raises a :class:`PLSSVMError` that
-names the missing piece — the CG checkpoints and per-iteration output, and
-more than one device — instead of running something else in its place.
+names the missing piece — sparse data on more than one device, and the
+feature-sharded learn — instead of running something else in its place.
 
 Padding: the CG system of size ``dept = n - 1`` is zero-padded to
-``round_up(dept, max(PAD_SIZE, ROW_BLOCK_SIZE))``, the JAX package's
-length, so padded CG vectors compare one to one.
+``round_up(dept, max(PAD_SIZE, ROW_BLOCK_SIZE))`` on one device and to
+``round_up(dept, PAD_SIZE * devices)`` on several, the JAX package's
+lengths, so padded CG vectors compare one to one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -32,11 +39,12 @@ from ..io.libsvm import ParsedData
 from ..io.model import write_model_file
 from ..ops.gram_matvec import gram_matvec, gram_matvec_plain, row_sqnorms
 from ..ops.kernel_functions import gram_block, kernel_scalar
-from ..ops.matvec import (_k_cache_budget_bytes, build_operator, choose_mode, jacobi_minv,
-                          resolve_mxu_plan, tier_precision)
+from ..ops.matvec import (_k_cache_budget_bytes, build_operator, choose_mode,
+                          choose_sharded_mode, jacobi_minv, resolve_mxu_plan, tier_precision)
 from ..params import Parameter
-from ..solver.cg import cg_solve, cg_solve_adaptive
+from ..solver.cg import cg_init, cg_run, cg_solve, cg_solve_adaptive
 from ..types import BackendType, KernelType, TargetPlatform
+from ..utils.timing import scoped_timer
 
 
 def _round_up(x: int, m: int) -> int:
@@ -86,9 +94,9 @@ class CSVM:
         self.print_info = bool(params.print_info)
         self.dtype = _torch_dtype(params.dtype)
         self._np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
-        self._check_one_device()
         self.device = self._resolve_device(params.target)
-        self.backend = self._resolve_backend(params.backend)
+        self.backend = self._resolve_backend(params.backend, self.device)
+        self._num_devices()  # an invalid count raises here, not in learn()
 
         self.data = params.data  # ParsedData (dense + CSR)
         self.values = params.values  # labels (+1/-1) or None
@@ -97,6 +105,11 @@ class CSVM:
         self.QA_cost_ = 0.0
         self.w_: np.ndarray | None = None
         self.last_cg_info: dict = {}
+        #: optional sink ``(label, ms)`` (``utils.timing.Timings``) for the
+        #: chunked learn's spans: ``setup`` (transfer, operator, initial
+        #: residual) and ``cg`` (each chunk), the device synchronised around
+        #: each; ``None`` takes no spans and adds no synchronisation
+        self.timings = None
 
         self.num_data_points = self.data.num_points
         self.num_features = self.data.num_features
@@ -104,28 +117,52 @@ class CSVM:
         # cached device copy of the support vectors and their row norms
         self._X_all_dev = None
         self._X_all_sq = None
+        self._mesh_cache = None
+        self._padded_sv_cache = None
 
     # ------------------------------------------------------- device / backend
 
-    def _check_one_device(self) -> None:
-        """``Parameter.devices`` / ``PLSSVM_DEVICES`` above one would ask for
-        the multi-device learns, which are not ported."""
+    def _num_devices(self) -> int:
+        """Devices to span, mirroring the reference's use of every visible
+        GPU (``CUDA/csvm.cu:52``; ``base.py:333-348`` of the JAX package):
+        ``Parameter.devices``, then ``PLSSVM_DEVICES``, then every visible
+        CUDA device, capped at what is visible.  On the CPU the count asked
+        for (default one) is taken as logical shards of the one device."""
+        visible = torch.cuda.device_count() if self.device.type == "cuda" else None
         try:
             if self.params.devices is not None:
                 n = int(self.params.devices)
             else:
                 env = os.environ.get("PLSSVM_DEVICES", "")
-                n = int(env) if env else 1
+                n = int(env) if env else (visible or 1)
         except (TypeError, ValueError) as exc:
             raise PLSSVMError(
                 f"Invalid device count (Parameter.devices / PLSSVM_DEVICES): "
                 f"{exc}"
             ) from None
-        if n > 1:
+        return max(1, n if visible is None else min(n, visible))
+
+    def _mesh(self, ndev: int) -> list:
+        from ..parallel.mesh import make_mesh
+
+        if self._mesh_cache is None or len(self._mesh_cache) != ndev:
+            devices = None if self.device.type == "cuda" else [self.device]
+            self._mesh_cache = make_mesh(ndev, devices=devices)
+        return self._mesh_cache
+
+    def _shard_axis(self, dept: int, f: int, ndev: int) -> str:
+        """Partition axis of dense data on several devices
+        (``base.py:371-386`` of the JAX package): ``PLSSVM_SHARD_AXIS`` forces
+        ``rows`` / ``features``; ``auto`` shards rows unless each device's
+        feature slice would still exceed the system size (``f / ndev > D``)."""
+        axis = os.environ.get("PLSSVM_SHARD_AXIS", "auto")
+        if axis not in ("auto", "rows", "features"):
             raise PLSSVMError(
-                f"{n} devices requested: the multi-device learns (parallel/*) "
-                "are not ported to the PyTorch package yet; use one device"
-            )
+                f"Invalid PLSSVM_SHARD_AXIS '{axis}' "
+                "(expected auto, rows, or features)")
+        if axis != "auto":
+            return axis
+        return "features" if f // ndev > dept else "rows"
 
     @staticmethod
     def _resolve_device(target: TargetPlatform) -> torch.device:
@@ -138,8 +175,9 @@ class CSVM:
                 "Target platform 'gpu_nvidia' requested, but no CUDA device is visible!")
         return torch.device("cpu")
 
-    def _resolve_backend(self, backend: BackendType) -> BackendType:
-        on_gpu = self.device.type == "cuda"
+    @staticmethod
+    def _resolve_backend(backend: BackendType, device: torch.device) -> BackendType:
+        on_gpu = device.type == "cuda"
         if backend == BackendType.automatic:
             return BackendType.cuda if on_gpu else BackendType.torch
         if backend == BackendType.cuda and not on_gpu:
@@ -187,19 +225,40 @@ class CSVM:
 
         start = time.perf_counter()
         imax = self.params.max_iter if self.params.max_iter is not None else f
-        D = _round_up(dept, max(PAD_SIZE, ROW_BLOCK_SIZE))
-        b_pad, mask = self._padded_vectors(D, dept, y)
-        if self._use_sparse():
-            mode, out = self._learn_sparse(D, dept, f, b_pad, mask, imax)
+        # don't spread a tiny system over devices: rows per shard >= PAD_SIZE
+        # (the analog of devices_ = min(device_count, num_features),
+        # CUDA/csvm.cu:52, with rows as the scaling axis)
+        ndev_req = self._num_devices()
+        ndev = min(ndev_req, max(1, dept // PAD_SIZE))
+        if (not self._use_sparse() and ndev_req > 1
+                and self._shard_axis(dept, f, ndev_req) == "features"):
+            raise PLSSVMError(
+                f"{ndev_req} devices with the feature axis sharded "
+                f"(PLSSVM_SHARD_AXIS=features, or auto with {f} features over "
+                f"{ndev_req} devices against a system of {dept}): the "
+                "feature-sharded learn (make_feature_sharded_learn, "
+                "shard_system_feature of parallel/sharded.py) is not ported to "
+                "the PyTorch package yet; set PLSSVM_SHARD_AXIS=rows or use "
+                "one device (Parameter.devices / PLSSVM_DEVICES = 1)")
+        if self._use_sparse() and ndev > 1:
+            raise PLSSVMError(
+                f"sparse data on {ndev} devices: the sharded sparse learns "
+                "(make_sharded_sparse_linear_learn, make_sharded_sparse_panel_learn, "
+                "make_sharded_sparse_streaming_learn of parallel/sharded.py) are "
+                "not ported to the PyTorch package yet; use one device "
+                "(Parameter.devices / PLSSVM_DEVICES = 1) or the dense path "
+                "(sparse_threshold = 0)")
+        if not self._use_sparse() and ndev > 1:
+            # every visible device, as the reference's learn()
+            # (gpu_csvm.cpp:130-157)
+            mode, out = self._learn_dense_sharded(dept, f, y, imax, ndev)
         else:
-            if self.params.checkpoint_path is not None or self.params.verbose_cg:
-                raise PLSSVMError(
-                    "--checkpoint/--verbose_cg need the chunked CG loop "
-                    "(solver/checkpoint.py, CSVM._drive_chunked_cg), which is not "
-                    "ported to the PyTorch package yet"
-                )
-            mode, out = self._learn_dense(D, dept, f, b_pad, mask, imax)
+            D = _round_up(dept, max(PAD_SIZE, ROW_BLOCK_SIZE))
+            b_pad, mask = self._padded_vectors(D, dept, y)
+            learn = self._learn_sparse if self._use_sparse() else self._learn_dense
+            mode, out = learn(D, dept, f, b_pad, mask, imax)
         x, s, t, QA_cost, iters, delta, delta0 = out[:7]
+        D = x.shape[0]  # padded system size (depends on the strategy)
         # the learns that take the adaptive plan also return the fast-tier
         # iteration count (== iters on one fixed tier)
         k_fast = int(out[7]) if len(out) > 7 else int(iters)
@@ -248,14 +307,19 @@ class CSVM:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, dtype=self._np_dtype)).to(self.device)
 
-    def _learn_dense(self, D, dept, f, b_pad, mask, imax, mode=None):
-        """The body of the JAX package's ``_learn_jit`` (``base.py:44-92``)
-        as eager torch: q-vector, QA_cost, operator, CG.  ``mode`` forces the
-        operator's mode (the sparse ``dense`` tier runs ``implicit``,
-        ``base.py:871-879``); sparse data is densified from its CSR rows.
-        Where :func:`~..ops.matvec.resolve_mxu_plan` gives a plan, the
-        operator is built at its two tiers and CG runs
-        :func:`~..solver.cg.cg_solve_adaptive` (``base.py:76-88``)."""
+    def _span(self, label: str, device=None):
+        """A timed span into :attr:`timings` (the device synchronised around
+        it), or nothing where no sink is set."""
+        if self.timings is None:
+            return contextlib.nullcontext()
+        return scoped_timer(label, print_info=False, sink=self.timings,
+                            device=self.device if device is None else device)
+
+    def _dense_system(self, D, dept, f, b_pad, mask, mode):
+        """The padded system of a dense learn on the device: ``(b, m, q,
+        QA_cost, minv, make_op)`` with ``make_op(tier)`` the A·v operator at
+        a precision tier (``None``: the backend's fixed tier).  Sparse data
+        (the sparse ``dense`` tier) is densified from its CSR rows."""
         X_pad = np.zeros((D, f), dtype=self._np_dtype)
         if self._use_sparse():
             X_pad[:dept] = self.data.csr[:dept].toarray()
@@ -263,9 +327,6 @@ class CSVM:
         else:
             X_pad[:dept] = self.data.dense[:dept]
             x_last = self.data.dense[-1]
-        if mode is None:
-            mode = choose_mode(self.kernel, dept, self.dtype, num_features=f,
-                               backend=self.backend)
         Xd, x_last = self._to_device(X_pad), self._to_device(x_last)
         b, m = self._to_device(b_pad), self._to_device(mask)
         kw = {"degree": self.degree, "gamma": self.gamma, "coef0": self.coef0}
@@ -285,6 +346,25 @@ class CSVM:
             return build_operator(self.kernel, Xd, q, m, QA_cost, cost_inv, mode=mode,
                                   backend=self.backend, precision=tier, **kw)
 
+        return b, m, q, QA_cost, minv, make_op
+
+    def _learn_dense(self, D, dept, f, b_pad, mask, imax, mode=None):
+        """The body of the JAX package's ``_learn_jit`` (``base.py:44-92``)
+        as eager torch: q-vector, QA_cost, operator, CG.  ``mode`` forces the
+        operator's mode (the sparse ``dense`` tier runs ``implicit``,
+        ``base.py:871-879``).  Where
+        :func:`~..ops.matvec.resolve_mxu_plan` gives a plan, the operator is
+        built at its two tiers and CG runs
+        :func:`~..solver.cg.cg_solve_adaptive` (``base.py:76-88``).  With a
+        checkpoint path or ``verbose_cg`` the chunked CG loop runs instead, on
+        the fixed tier (``base.py:539-544``): a checkpoint's state does not
+        depend on a tier, and the adaptive solve is one uninterrupted run."""
+        if mode is None:
+            mode = choose_mode(self.kernel, dept, self.dtype, num_features=f,
+                               backend=self.backend)
+        if self.params.checkpoint_path is not None or self.params.verbose_cg:
+            return self._learn_dense_checkpointed(D, dept, f, b_pad, mask, imax, mode)
+        b, m, q, QA_cost, minv, make_op = self._dense_system(D, dept, f, b_pad, mask, mode)
         plan = resolve_mxu_plan(mode, self.dtype, self.backend)
         if plan is None:
             res = cg_solve(make_op(None).matvec, b, m, self.epsilon, imax, minv=minv)
@@ -297,6 +377,125 @@ class CSVM:
         s = torch.sum(res.x)
         t = torch.dot(q, res.x)
         return mode, (res.x, s, t, QA_cost, res.iterations, res.delta, res.delta0, k_fast)
+
+    def _learn_dense_checkpointed(self, D, dept, f, b_pad, mask, imax, mode):
+        """Dense learn with periodic CG-state checkpoints (resume-capable)
+        and optional per-iteration output (``base.py:556-587`` of the JAX
+        package; an extension over the reference, whose only checkpoint is
+        the final model file).  ``cg_init`` is the set-up and ``cg_run`` to
+        ``imax_end`` a chunk, Jacobi ``minv`` in both.  The operator is built
+        once and shared by every chunk: a rebuild per chunk would redo the
+        ``cached`` mode's K every interval."""
+        with self._span("setup"):
+            b, m, q0, QA0, minv, make_op = self._dense_system(D, dept, f, b_pad, mask, mode)
+            matvec = make_op(None).matvec
+
+        def setup():
+            return q0, QA0, cg_init(matvec, b, m, minv=minv)
+
+        def chunk(q, QA_cost, imax_end, state):
+            return cg_run(matvec, b, m, self.epsilon, imax_end, state, minv=minv)
+
+        q, QA_cost, state = self._drive_chunked_cg(setup, chunk, imax, dept)
+        s = torch.sum(state.x)
+        t = torch.dot(q, state.x)
+        return mode, (state.x, s, t, QA_cost, state.k, state.delta, state.delta0)
+
+    def _drive_chunked_cg(self, setup, chunk, imax, dept, device=None):
+        """Host-side chunked CG loop shared by the dense and the sharded
+        learns (``base.py:491-528`` of the JAX package): periodic checkpoints
+        and optional per-iteration residual output
+        (``gpu_csvm.cpp:245-247``).  ``setup() -> (q, QA_cost, state)``;
+        ``chunk(q, QA_cost, imax_end, state) -> state``.  A checkpoint's
+        tensors are loaded onto ``device`` (default: the CSVM's) in the
+        learn's dtype, its ``k`` exactly, so the 50-step residual refresh
+        falls where it would have without the interruption."""
+        from ..solver.checkpoint import load_cg_checkpoint, save_cg_checkpoint
+
+        device = self.device if device is None else device
+        path = self.params.checkpoint_path
+        interval = max(1, int(self.params.checkpoint_interval))
+        if self.params.verbose_cg:
+            interval = 1  # per-iteration residual output (gpu_csvm.cpp:245-247)
+
+        loaded = None
+        if path is not None:
+            loaded = load_cg_checkpoint(path, device=device, dtype=self.dtype)
+        if loaded is not None:
+            state, q, QA_cost, meta = loaded
+            if (int(meta.get("dept", -1)) != dept
+                    or int(meta.get("kernel", -1)) != int(self.kernel)):
+                raise PLSSVMError(
+                    f"Checkpoint '{path}' does not match this training problem!"
+                )
+            if self.print_info:
+                print(f"Resumed CG from checkpoint '{path}' at iteration {int(state.k)}.")
+        else:
+            with self._span("setup", device):
+                q, QA_cost, state = setup()
+
+        target = float(self.epsilon) ** 2 * float(state.delta0)
+        meta = {"dept": dept, "kernel": int(self.kernel)}
+        # float(state.delta) waits for the device: once per chunk boundary
+        while int(state.k) < imax and float(state.delta) > target:
+            if self.params.verbose_cg and self.print_info:
+                # reference per-iteration line (gpu_csvm.cpp:245-247)
+                print(
+                    f"Start Iteration {int(state.k) + 1} (max: {imax}) with current "
+                    f"residuum {float(state.delta)} (target: {target}). "
+                )
+            end = min(int(state.k) + interval, imax)
+            with self._span("cg", device):
+                state = chunk(q, QA_cost, end, state)
+            if path is not None:
+                save_cg_checkpoint(path, state, q, QA_cost, meta)
+        return q, QA_cost, state
+
+    def _learn_dense_sharded(self, dept, f, y, imax, ndev):
+        """Row-sharded multi-device learn (``parallel/sharded.py``;
+        ``base.py:439-489`` of the JAX package): no new flags, the same
+        outputs, the twin of the reference's multi-device ``learn()``
+        (``gpu_csvm.cpp:130-157``)."""
+        from ..parallel.sharded import (make_sharded_learn, make_sharded_learn_fns,
+                                        shard_system)
+
+        # every shard PAD_SIZE-aligned; the kernels mask ragged tiles themselves
+        D = _round_up(dept, PAD_SIZE * ndev)
+        b_pad, mask = self._padded_vectors(D, dept, y)
+        X = self.data.dense
+        X_pad = np.zeros((D, f), dtype=self._np_dtype)
+        X_pad[:dept] = X[:dept]
+        mode = choose_sharded_mode(self.kernel, dept, self.dtype, ndev, num_features=f,
+                                   backend=self.backend)
+        mesh = self._mesh(ndev)
+        with self._span("setup", mesh):
+            Xs, b, m = shard_system(mesh, X_pad, b_pad, mask)
+            x_last = torch.from_numpy(np.ascontiguousarray(X[-1], dtype=self._np_dtype))
+        precond = str(self.params.precond)
+        mode_name = f"sharded_{mode}[{ndev}]"
+        scalars = (self.gamma, self.coef0, self.cost)
+
+        if self.params.checkpoint_path is not None or self.params.verbose_cg:
+            setup_fn, chunk_fn = make_sharded_learn_fns(
+                mesh, self.kernel, self.degree, mode, backend=self.backend, precond=precond)
+
+            def setup():
+                return setup_fn(Xs, x_last, b, m, *scalars)
+
+            def chunk(q, QA_cost, imax_end, state):
+                return chunk_fn(Xs, b, m, x_last, *scalars, self.epsilon, imax_end, state)
+
+            q, QA_cost, state = self._drive_chunked_cg(setup, chunk, imax, dept,
+                                                       device=mesh[0])
+            x_np = state.x.cpu().numpy().astype(np.float64)
+            s = x_np.sum()
+            t = q.cpu().numpy().astype(np.float64) @ x_np
+            return mode_name, (state.x, s, t, QA_cost, state.k, state.delta, state.delta0)
+
+        learn = make_sharded_learn(
+            mesh, self.kernel, self.degree, mode, backend=self.backend, precond=precond,
+            mxu_plan=resolve_mxu_plan(mode, self.dtype, self.backend))
+        return mode_name, learn(Xs, x_last, b, m, *scalars, self.epsilon, imax)
 
     # ----------------------------------------------------------- sparse learn
 
@@ -470,6 +669,23 @@ class CSVM:
             self._X_all_sq = row_sqnorms(self._X_all_dev)
         return self._X_all_dev
 
+    def _padded_sv(self, ndev: int):
+        """Support vectors and alphas as ``ndev`` row blocks on the mesh,
+        zero-padded so the axis splits evenly (padding rows carry zero
+        alphas: harmless).  The support vectors' blocks are kept."""
+        from ..parallel.sharded import shard_rows
+
+        n, f = self.num_data_points, self.num_features
+        Np = _round_up(n, ndev * 8)
+        mesh = self._mesh(ndev)
+        if self._padded_sv_cache is None or self._padded_sv_cache[0] != Np:
+            X_sv = np.zeros((Np, f), dtype=self._np_dtype)
+            X_sv[:n] = self.data.dense
+            self._padded_sv_cache = (Np, shard_rows(mesh, X_sv))
+        a_sv = np.zeros(Np, dtype=self._np_dtype)
+        a_sv[:n] = self.alphas
+        return self._padded_sv_cache[1], shard_rows(mesh, a_sv)
+
     def _check_points(self, points: np.ndarray) -> np.ndarray:
         points = np.asarray(points, np.float64)
         if points.ndim == 1:
@@ -492,12 +708,21 @@ class CSVM:
             raise PLSSVMError("No alphas provided for prediction!")
 
         alphas_dev = self._to_device(self.alphas)
+        ndev = self._num_devices()
         if self.kernel == KernelType.linear:
             # w fast path (gpu_csvm.cpp:83-91)
             if self.w_ is None:
                 if self._use_sparse():
                     # w = X^T alpha through sparse BLAS; X never densifies
                     self.w_ = np.asarray(self.data.csr.T @ self.alphas, np.float64).ravel()
+                elif ndev > 1:
+                    # multi-device update_w (gpu_csvm.cpp:327-350): each shard
+                    # contracts its row slice, the partials are summed
+                    from ..parallel.sharded import make_sharded_w
+
+                    Xs_sv, a_sv = self._padded_sv(ndev)
+                    w = make_sharded_w(self._mesh(ndev))(Xs_sv, a_sv)
+                    self.w_ = w.cpu().numpy().astype(np.float64)
                 else:
                     w = self._X_all_device().T @ alphas_dev
                     self.w_ = w.cpu().numpy().astype(np.float64)
@@ -508,6 +733,18 @@ class CSVM:
             Gc = np.asarray((csr @ points.T).T, np.float64)
             sq_sv = np.asarray(csr.multiply(csr).sum(axis=1)).ravel()
             out = self._predict_cross_gram(Gc, np.sum(points * points, axis=1), sq_sv)
+        elif ndev > 1:
+            # multi-device kernel expansion: the support-vector axis sharded,
+            # the decision values summed (gpu_csvm.cpp:52-127 over all devices)
+            from ..parallel.sharded import make_sharded_predict
+
+            mesh = self._mesh(ndev)
+            Xs_sv, a_sv = self._padded_sv(ndev)
+            P = self._to_device(points).to(mesh[0])
+            bias = torch.as_tensor(self.bias_, dtype=self.dtype, device=mesh[0])
+            run = make_sharded_predict(mesh, self.kernel, self.degree, backend=self.backend)
+            out = run(P, Xs_sv, a_sv, bias, self.gamma, self.coef0)
+            out = out.cpu().numpy().astype(np.float64)
         else:
             P = self._to_device(points)
             X_sv = self._X_all_device()

@@ -107,10 +107,11 @@ def fixed_tier(backend: BackendType) -> str:
 
 def choose_mode(kernel: KernelType, dept: int, dtype: torch.dtype,
                 num_features: int | None = None,
-                backend: BackendType | None = None) -> str:
+                backend: BackendType | None = None, budget_scale: int = 1) -> str:
     """Pick the execution mode (``matvec.py:113-135`` of the JAX package).
     float64 keeps the exact cached GEMV while K fits the budget: the CUDA
-    kernels are float32 only."""
+    kernels are float32 only.  ``budget_scale`` multiplies the K-cache
+    budget (the sharded learn splits the cached K over that many devices)."""
     if kernel == KernelType.linear:
         return "linear"
     if (
@@ -120,9 +121,18 @@ def choose_mode(kernel: KernelType, dept: int, dtype: torch.dtype,
         and dtype.itemsize <= 4
     ):
         return "implicit"
-    if dept * dept * dtype.itemsize <= _k_cache_budget_bytes():
+    if dept * dept * dtype.itemsize <= _k_cache_budget_bytes() * budget_scale:
         return "cached"
     return "implicit"
+
+
+def choose_sharded_mode(kernel: KernelType, dept: int, dtype: torch.dtype, ndev: int,
+                        num_features: int | None = None,
+                        backend: BackendType | None = None) -> str:
+    """Mode selection for the row-sharded multi-device learn: one policy
+    (:func:`choose_mode`) with the K-cache budget applied per device."""
+    return choose_mode(kernel, dept, dtype, num_features=num_features, backend=backend,
+                       budget_scale=ndev)
 
 
 def jacobi_minv_from_kii(kii, q, mask, QA_cost, cost_inv):

@@ -61,8 +61,9 @@ class Parameter:
     #: CG max-iteration override; ``None`` -> ``num_features`` (``csvm.cpp:256``)
     max_iter: int | None = None
 
-    #: CG-state checkpoints (``solver/checkpoint.py`` of the JAX package);
-    #: not ported yet, so ``CSVM.learn`` refuses a set path
+    #: CG-state checkpoints (``solver/checkpoint.py``): the dense learns save
+    #: the CG state to this ``.npz`` every ``checkpoint_interval`` iterations
+    #: and resume from it when it exists; sparse learns refuse a set path
     checkpoint_path: str | None = None
     checkpoint_interval: int = 50
 
@@ -72,7 +73,7 @@ class Parameter:
     sparse_threshold: float = 0.25
 
     #: print the residual of every CG iteration (``gpu_csvm.cpp:245-247``);
-    #: not ported yet, so ``CSVM.learn`` refuses it
+    #: dense learns only
     verbose_cg: bool = False
 
     #: CG preconditioner: "none" (reference semantics) or "jacobi"
@@ -80,9 +81,11 @@ class Parameter:
     #: ill-conditioned systems while keeping the same stopping criterion)
     precond: str = "none"
 
-    #: number of devices to train/predict over; ``None`` -> one.  The
-    #: multi-device learns (``parallel/*``) are not ported yet, so ``CSVM``
-    #: refuses more than one (``PLSSVM_DEVICES`` is read the same way)
+    #: number of devices to train/predict over; ``None`` -> ``PLSSVM_DEVICES``,
+    #: else every visible CUDA device (one on the CPU, where a larger count
+    #: gives logical shards).  Dense data takes the row-sharded learn and
+    #: predict (``parallel/sharded.py``); sparse data and the feature axis on
+    #: more than one device are not ported yet and raise
     devices: int | None = None
 
     # ------------------------------------------------------------------ files

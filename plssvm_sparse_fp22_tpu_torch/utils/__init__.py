@@ -1,1 +1,1 @@
-"""Utility subsystems: assertions."""
+"""Utility subsystems: assertions, timers and the numpy oracle."""

@@ -344,23 +344,43 @@ def test_sparse_data_raises_instead_of_densifying():
 
 
 @pytest.mark.parametrize("flag", [{"checkpoint_path": "cg.npz"}, {"verbose_cg": True}])
-def test_chunked_cg_flags_raise(flag):
+def test_chunked_cg_flags_raise(flag, tmp_path):
+    """The chunked CG loop serves dense learns only: sparse data refuses
+    both flags by name, dense data trains with them."""
+    if "checkpoint_path" in flag:
+        flag = {"checkpoint_path": str(tmp_path / flag["checkpoint_path"])}
     X, y = make_blobs(12, 3)
-    svm = tp.make_csvm(_params("torch", X, y=y, **flag))
-    with pytest.raises(TError, match="solver/checkpoint.py"):
+    svm = tp.make_csvm(_params("torch", X, y=y, sparse_threshold=1.0, **flag))
+    with pytest.raises(TError, match="not supported on the sparse learn path"):
         svm.learn()
+    dense = tp.make_csvm(_params("torch", X, y=y, **flag))
+    dense.learn()
+    plain = _learn("torch", X, y)
+    assert dense.last_cg_info["iterations"] == plain.last_cg_info["iterations"]
+    np.testing.assert_allclose(dense.alphas, plain.alphas, rtol=1e-9, atol=1e-12)
 
 
 def test_more_than_one_device_raises(monkeypatch):
-    X, y = make_blobs(12, 3)
-    p = _params("torch", X, y=y)
+    """What is not ported raises by name on more than one device: sparse
+    data, and the feature axis.  (Dense rows are sharded:
+    ``test_torch_sharded_api.py``.)"""
+    X, y = make_blobs(300, 3)
+    p = _params("torch", X, y=y, sparse_threshold=1.0)
     p.devices = 2
-    with pytest.raises(TError, match=r"parallel/\*"):
-        tp.CSVM(p)
+    with pytest.raises(TError, match="make_sharded_sparse_linear_learn"):
+        tp.CSVM(p).learn()
     p.devices = None
-    monkeypatch.setenv("PLSSVM_DEVICES", "4")
-    with pytest.raises(TError, match=r"parallel/\*"):
-        tp.CSVM(p)
+    monkeypatch.setenv("PLSSVM_DEVICES", "2")
+    with pytest.raises(TError, match="sparse data on 2 devices"):
+        tp.CSVM(p).learn()
+    monkeypatch.setenv("PLSSVM_SHARD_AXIS", "features")
+    dense = _params("torch", X, y=y)
+    dense.devices = None
+    with pytest.raises(TError, match="make_feature_sharded_learn"):
+        tp.CSVM(dense).learn()
+    monkeypatch.setenv("PLSSVM_DEVICES", "two")
+    with pytest.raises(TError, match="Invalid device count"):
+        tp.CSVM(dense)
 
 
 def test_gpu_requests_without_a_gpu_raise():

@@ -85,9 +85,21 @@ Phases, one line or more each, any failure exits non-zero:
     modes at 4096 x 256; sharded predict and ``w`` against the
     single-device ones; a chunked sharded learn interrupted and resumed
     from its checkpoint; two runs bitwise equal; ms per A·v for p = 1, 2, 4
-    beside K1's.
+    beside K1's;
+18. the rest of ``parallel/sharded.py`` on 2 and 4 logical shards of the
+    card (and over every card where there are more), float32, each against
+    its one-device counterpart: (a) the feature-sharded learn at 4096 x
+    65536 (f / p > D), linear, polynomial and rbf, and a chunked rbf learn
+    interrupted and resumed; (b) the sparse linear ring on phase 8's set;
+    (c) the panel ring, rbf, over 2 shards at the largest K-cache budget
+    that routes a learn there, every panel pair one launch of K2 (p² nP²
+    per A·v) on ``highest`` and on ``default``, and a learn; (d) the gather
+    ring on phase 9's 8192 x 262144 set.  One A·v of each within
+    ``RING_TOL`` of the one-device operator, each learn's iterations within
+    one of the one-device learn's, its residual at the target and by the
+    one-device operator under ``TRUE_RESIDUAL`` times it; ms per A·v.
 
-``--sharded`` runs phases 1, 2 and 17 only (the phase that differs on a
+``--sharded`` runs phases 1, 2, 17 and 18 only (the phases that differ on a
 machine with several cards).  ``--probe`` is the short first run after a change to a kernel source:
 phases 1 and 2, the compiler's resource lines of every kernel (the whole
 log goes to ``build.log`` beside the built library), and phase 11's checks
@@ -103,7 +115,8 @@ prepared operands as ``ms`` and the predict's, split or cast inside, as
 ``ms_with_preparation``; K1's exact record also carries its launches under
 the chunked CG loop (phase 15, ``launches_chunked_learn``) and K2's records
 and the split's theirs on the ring of 4 shards (phase 17,
-``launches_ring``).  The
+``launches_ring``), K2's exact record its launches in the panel ring's learn
+(phase 18, ``launches_sparse_ring``).  The
 last line is ``{"ok": true, "device": {...}}``.  Scratch files go to
 ``.smoke_work/`` beside this script and are removed at the end.
 """
@@ -184,6 +197,7 @@ SPARSE_GAMMA = 256.0 / SPARSE_F
 #: the panel tier's K-cache budget: 4 panels of 4096 rows (bench.py:150-154
 #: keeps the decomposition honest the same way)
 PANEL_BUDGET = 512 * 1024**2
+PANEL_ROWS = 4096
 #: the three sparse tiers solve one system to eps 1e-6 in float32, each
 #: stopping with its own residual after 7 iterations: on an H100 the dense
 #: and implicit tiers' decision values sat 4.0e-3 and 4.2e-3 of the largest
@@ -302,26 +316,32 @@ def device_ms(fn, reps: int, kernel_name: str) -> float | None:
     over ``reps`` calls of ``fn``, from ``torch.profiler``: for a kernel of
     a few tens of microseconds, CUDA events around the calls would time the
     host's launch path instead.  ``None`` where the profiler cannot trace
-    the device (it saw none of the launches)."""
+    the device (it saw none of the launches), or where it saw another count
+    of launches than ``fn`` made twice in a row (on an H100 it once reported
+    10 of 20), so that no time is given for a wrong count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel_name in ev.key:
-            us = getattr(ev, "self_device_time_total", None)
-            total_us += getattr(ev, "self_cuda_time_total", 0) if us is None else us
-            count += ev.count
-    if count == 0 or total_us <= 0:
-        return None
-    check(count == reps, f"the profiler saw {count} launches of {kernel_name} in {reps} calls")
-    return total_us / count / 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for ev in prof.key_averages():
+            if kernel_name in ev.key:
+                us = getattr(ev, "self_device_time_total", None)
+                total_us += getattr(ev, "self_cuda_time_total", 0) if us is None else us
+                count += ev.count
+        if count == 0 or total_us <= 0:
+            return None
+        if count == reps:
+            return total_us / count / 1e3
+    print(f"    the profiler saw {count} launches of {kernel_name} in {reps} calls, twice: its "
+          "time is not taken", flush=True)
+    return None
 
 
 def bound_ms(name: str, Di: int, Dj: int, f: int) -> dict:
@@ -793,9 +813,8 @@ def phase_sparse_main(dev):
     from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
     from plssvm_sparse_fp22_tpu_torch.ops import sparse as ops_sparse
 
-    rng = np.random.default_rng(SEED + 1)
     n, f = SPARSE_N, SPARSE_F
-    csr, y = planted_sparse(n + SPARSE_TEST, f, SPARSE_DENSITY, rng)
+    csr, y = main_sparse_set()
     train, test = os.path.join(WORK, "sparse.libsvm"), os.path.join(WORK, "sparse.test.libsvm")
     t0 = time.perf_counter()
     write_libsvm_sparse(train, csr[:n], y[:n])
@@ -1591,6 +1610,14 @@ RING_TOL = 5e-5
 TRUE_RESIDUAL = 4.0
 
 
+def cards() -> str:
+    """The cards' names and power limits, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    return "; ".join(f"{smi.count(card)} x {card}" if len(smi) > 1 else card
+                     for card in dict.fromkeys(smi))
+
+
 def phase_sharded(dev, rng):
     """Phase 17: the row-sharded dense learn and predict on the card."""
     import torch
@@ -1810,10 +1837,7 @@ def phase_sharded(dev, rng):
                       f"held)", flush=True)
 
     # ms per A·v of the ring beside K1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    smi = "; ".join(f"{smi.count(card)} x {card}" if len(smi) > 1 else card
-                    for card in dict.fromkeys(smi))
+    smi = cards()
     for name in tiers:
         cells = [f"K1 (one device, symmetric) {timed_ms(lambda: ops1[name](v), 10):.3f}"]
         mesh1 = make_mesh(1, devices=[dev])
@@ -1830,6 +1854,364 @@ def phase_sharded(dev, rng):
     return ring_launches
 
 
+#: phase 18: the feature-sharded learn's dense set, wide enough that f / p > D
+#: at p = 2 and 4 (1 GiB of float32), and the gather ring's sparse set (phase
+#: 9's shape, density and seed)
+FEATURE_N, FEATURE_F = 4096, 65536
+GATHER_N, GATHER_F, GATHER_DENSITY = 8192, 262144, 1e-4
+
+
+def main_sparse_set():
+    """The sparse main path's planted set (phases 8, 9 and 18): ``(csr, y)``
+    of ``SPARSE_N + SPARSE_TEST`` rows, the first ``SPARSE_N`` to train."""
+    return planted_sparse(SPARSE_N + SPARSE_TEST, SPARSE_F, SPARSE_DENSITY,
+                          np.random.default_rng(SEED + 1))
+
+
+def phase_sharded_rest(dev, sparse=None):
+    """Phase 18: the feature-sharded learn and the three sparse rings on
+    logical shards of the card (and on the cards, where there are several),
+    float32, each against its one-device counterpart.  ``sparse`` is phase
+    8's set (made again where phase 8 did not run).  Returns K2's launches
+    in the panel ring's learn."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch import make_csvm
+    from plssvm_sparse_fp22_tpu_torch.io.libsvm import ParsedData
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse as ops_sparse
+    from plssvm_sparse_fp22_tpu_torch.ops.kernel_functions import gram_block, kernel_scalar
+    from plssvm_sparse_fp22_tpu_torch.ops.matvec import (_corrections, build_operator,
+                                                         tier_precision)
+    from plssvm_sparse_fp22_tpu_torch.parallel import sharded
+    from plssvm_sparse_fp22_tpu_torch.parallel.mesh import make_mesh
+    from plssvm_sparse_fp22_tpu_torch.params import Parameter
+    from plssvm_sparse_fp22_tpu_torch.solver.cg import cg_solve
+    from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType, TargetPlatform
+
+    import scipy.sparse as sp
+
+    on_card = dev.type == "cuda"
+    backend = BackendType.cuda if on_card else BackendType.torch
+    target = TargetPlatform.automatic if on_card else TargetPlatform.cpu
+    rbf, eps, imax = KernelType.rbf, 1e-6, 256
+    ndev = torch.cuda.device_count() if on_card else 1
+    meshes = [(f"{p} logical shards of {dev}", make_mesh(p, devices=[dev])) for p in (2, 4)]
+    if ndev > 1:
+        meshes.append((f"{ndev} cards", make_mesh(ndev)))
+    label = cards() if on_card else str(dev)
+    ms_lines = []
+
+    def padded(dept, D):
+        b, m = np.zeros(D, np.float32), np.zeros(D, np.float32)
+        m[:dept] = 1.0
+        return b, m
+
+    def csvm(csr, y, kernel, **params):
+        """A one-device float32 CSVM on sparse data."""
+        p = Parameter(kernel=kernel, epsilon=eps, dtype=np.float32, backend=backend,
+                      target=target, devices=1, print_info=False, **params)
+        p.data = ParsedData(csr=csr, values=y)
+        p.values = y
+        return make_csvm(p)
+
+    def learn_csvm(csr, y, kernel, **params):
+        svm = csvm(csr, y, kernel, **params)
+        svm.learn()
+        return svm
+
+    def held(tag, out, ref_iters, true_op, b, cap=imax, slack=1):
+        """A sharded learn's iterations (within ``slack`` of the one-device
+        learn's), residual (falling; at its target unless the learn ran to
+        ``cap``) and residual by the one-device operator; returns the
+        printable part."""
+        iters, delta, delta0 = out[4], float(out[5]), float(out[6])
+        goal = eps * eps * delta0
+        check(abs(iters - ref_iters) <= slack, f"{tag}: {iters} iterations, the one-device "
+              f"learn took {ref_iters} (slack {slack})")
+        check(delta < delta0 and (delta <= goal or iters == cap)
+              and bool(torch.isfinite(out[0]).all()),
+              f"{tag}: residual {delta} from {delta0}, target {goal}, {iters} iterations")
+        r = b - true_op(out[0])
+        true = float(torch.dot(r, r)) / goal
+        check(iters == cap or true <= TRUE_RESIDUAL, f"{tag}: the one-device operator sees a "
+              f"residual of {true:.2f} x the target (bound {TRUE_RESIDUAL:g})")
+        return (f"{iters} CG iterations (one device {ref_iters}), residual {delta / goal:.2f} x "
+                f"target, by the one-device operator {true:.2f} x (bound {TRUE_RESIDUAL:g})")
+
+    def av_close(tag, got, want):
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        check(err <= RING_TOL, f"{tag}: one A·v is {err:.2e} of its scale off the one-device "
+              f"operator's (tol {RING_TOL:g})")
+        return err
+
+    # (a) the feature-sharded learn, dense 4096 x 65536: f / p > D.  Rows of
+    # independent gaussians are nearly orthogonal at this width and CG ends
+    # in two or three iterations; rows on a 64-dimensional subspace (labels
+    # on its first axis) take more
+    n, f, rank = FEATURE_N, FEATURE_F, 64
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    y = torch.where(torch.arange(n, device=dev) % 2 == 0, 1.0, -1.0)
+    Z = torch.randn((n, rank), generator=gen, device=dev)
+    Z[:, 0] += y
+    W = torch.randn((rank, f), generator=gen, device=dev) / rank ** 0.5
+    dept = n - 1
+    D = -(-dept // 256) * 256
+    X_pad = torch.zeros((D, f), device=dev)
+    X_pad[:dept] = Z[:dept] @ W
+    x_last = Z[-1] @ W
+    del Z, W
+    b, mask = torch.zeros(D, device=dev), torch.zeros(D, device=dev)
+    b[:dept], mask[:dept] = y[:dept] - y[-1], 1.0
+    v = torch.randn(D, generator=gen, device=dev) * mask
+    one = torch.tensor(1.0, device=dev)
+    print(f"[18 sharded rest] (a) feature-sharded learn, {n} x {f} float32 (f / p > D at p = 2, "
+          f"4): each A·v against the one-device exact operator (tol {RING_TOL:g})", flush=True)
+    for kernel in KernelType:
+        kw = {"degree": 3, "gamma": 1.0 / f, "coef0": 1.0 if kernel == KernelType.polynomial
+              else 0.0}
+        q = gram_block(kernel, X_pad, x_last[None, :], **kw)[:, 0] * mask
+        QA = kernel_scalar(kernel, x_last, x_last, **kw) + one
+        op = build_operator(kernel, X_pad, q, mask, QA, one, backend=backend, precision="exact",
+                            mode="linear" if kernel == KernelType.linear else "implicit",
+                            **kw).matvec
+        ref = cg_solve(op, b, mask, eps, imax)
+        cells = [f"one device ({'two GEMVs' if kernel == KernelType.linear else 'K1'}) "
+                 f"{timed_ms(lambda: op(v), 5):.3f}"]
+        for mesh_name, mesh in meshes:
+            tag = f"(a) {kernel.name}, {mesh_name}"
+            Xs, xls, bs, ms = sharded.shard_system_feature(mesh, X_pad, x_last, b, mask)
+            mv = sharded._prepare_feature_local(kernel, mesh, Xs, xls, ms, kw["gamma"],
+                                                kw["coef0"], 1.0, 3, "none")[3]
+            err = av_close(tag, mv(v), op(v))
+            learn = sharded.make_feature_sharded_learn(mesh, kernel, 3)
+            out = learn(Xs, xls, bs, ms, kw["gamma"], kw["coef0"], 1.0, eps, imax)
+            line = held(tag, out, ref.iterations, op, b)
+            dist = float((out[0] - ref.x).abs().max()) / float(ref.x.abs().max())
+            extra = ""
+            if kernel == rbf:
+                # a chunked learn interrupted at 5 and resumed ends on the one-shot bits
+                path = os.path.join(WORK, f"feature_{len(mesh)}.npz")
+                small = Parameter(kernel=rbf, gamma=kw["gamma"], epsilon=eps, dtype=np.float32,
+                                  checkpoint_path=path, checkpoint_interval=3, print_info=True,
+                                  target=target)
+                X8 = np.ones((8, 2))
+                small.data = ParsedData(csr=sp.csr_matrix(X8), values=np.ones(8), _dense=X8)
+                small.values = np.ones(8)
+                chunker = make_csvm(small)
+
+                def chunked(stop_at):
+                    setup_fn, chunk_fn = sharded.make_feature_sharded_learn_fns(mesh, rbf, 3)
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        return chunker._drive_chunked_cg(
+                            lambda: setup_fn(Xs, xls, bs, ms, kw["gamma"], 0.0, 1.0),
+                            lambda q_, QA_, end, st: chunk_fn(Xs, bs, ms, xls, kw["gamma"], 0.0,
+                                                              1.0, eps, end, st),
+                            stop_at, dept, device=mesh[0])[2]
+
+                stop = max(1, min(5, out[4] - 1))
+                check(chunked(stop).k == stop, f"{tag}: the interrupted chunked learn did not "
+                      f"stop at {stop}")
+                state = chunked(imax)
+                check(state.k == out[4] and torch.equal(state.x, out[0]),
+                      f"{tag}: the resumed chunked learn ({state.k} iterations) differs from "
+                      f"the one-shot learn ({out[4]})")
+                os.remove(path)
+                extra = f"; interrupted at {stop} and resumed, the one-shot learn's bits"
+            print(f"  {tag}: A·v within {err:.2e}; {line}; alphas {dist:.2e} of their scale "
+                  f"from the one-device learn's (not held){extra}", flush=True)
+            cells.append(f"{mesh_name} {timed_ms(lambda: mv(v), 5):.3f}")
+            del Xs, xls, mv
+        ms_lines.append(f"(a) feature-sharded {kernel.name} {n} x {f}: " + ", ".join(cells))
+    del X_pad, op
+
+    # (b) the sparse linear ring on the sparse main path's set
+    csr, ys = (sparse["csr"], sparse["y"]) if sparse else \
+        (lambda c, l: (c[:SPARSE_N], l[:SPARSE_N]))(*main_sparse_set())
+    n, f = csr.shape
+    dept = n - 1
+    x_last = torch.tensor(csr[-1].toarray().ravel(), dtype=torch.float32, device=dev)
+    D = -(-dept // 256) * 256
+    Xd = torch.zeros((D, f), device=dev)
+    Xd[:dept] = torch.tensor(csr[:dept].toarray(), dtype=torch.float32, device=dev)
+    b, mask = torch.zeros(D, device=dev), torch.zeros(D, device=dev)
+    b[:dept] = torch.tensor(ys[:dept] - ys[-1], dtype=torch.float32, device=dev)
+    mask[:dept] = 1.0
+    v = torch.tensor(np.random.default_rng(SEED + 18).normal(size=D), dtype=torch.float32,
+                     device=dev) * mask
+    lin = KernelType.linear
+    q = (Xd @ x_last) * mask
+    op = build_operator(lin, Xd, q, mask, torch.dot(x_last, x_last) + one, one, mode="linear",
+                        backend=backend, precision="exact").matvec
+    single = learn_csvm(csr, ys, lin)
+    check(single.last_cg_info["mode"] == "sparse_linear", "(b): the one-device learn took "
+          f"{single.last_cg_info['mode']}")
+    h1 = ops_sparse.HybridSparse.from_csr(csr[:dept], dtype=np.float32, pad_rows=D, device=dev)
+    xt = ops_sparse.HybridSparse.from_csr(csr[:dept].T.tocsr(), dtype=np.float32, device=dev)
+    sparse_op = (lambda u: _corrections(ops_sparse.hybrid_matvec(h1, ops_sparse.hybrid_matvec(
+        xt, u)), u, q, mask, torch.dot(x_last, x_last) + one, one))
+    cells = [f"one device (ELL+COO, as sparse_linear) {timed_ms(lambda: sparse_op(v), 10):.3f}"]
+    print(f"[18 sharded rest] (b) sparse linear ring, {n} x {f} at {SPARSE_DENSITY:.0%}: A·v "
+          f"against the dense one-device operator", flush=True)
+    for mesh_name, mesh in meshes:
+        tag = f"(b) {mesh_name}"
+        p = len(mesh)
+        Dp = -(-dept // (128 * p)) * (128 * p)
+        check(Dp == D, f"{tag}: padded to {Dp} rows, the one-device system has {D}")
+        h = ops_sparse.HybridSparse.from_csr(csr[:dept], dtype=np.float32, pad_rows=Dp)
+        system = sharded.shard_sparse_system(mesh, h, b.cpu().numpy(), mask.cpu().numpy())
+        mv = sharded._prepare_sparse_linear(mesh, *system[:5], x_last, system[6], 1.0, "none")[3]
+        err = av_close(tag, mv(v), op(v))
+        gm.reset_launches()
+        out = sharded.make_sharded_sparse_linear_learn(mesh)(*system[:5], x_last, *system[5:],
+                                                             1.0, eps, imax)
+        check(not any(gm.launches.values()), f"{tag}: the sparse linear ring launched "
+              f"{nonzero(gm.launches)}")
+        # the linear kernel's float32 CG moves by up to two iterations with the
+        # order of the sums, as phase 17's linear mode does
+        line = held(tag, out, single.last_cg_info["iterations"], op, b, slack=2)
+        print(f"  {tag}: A·v within {err:.2e}; {line}", flush=True)
+        cells.append(f"{mesh_name} {timed_ms(lambda: mv(v), 10):.3f}")
+    ms_lines.append(f"(b) sparse linear ring {n} x {f}: " + ", ".join(cells))
+
+    # (c) the panel ring, rbf, over 2 shards, at the largest budget that routes
+    # the learn there: dense X beyond the budget of both devices, the Gram too
+    gamma = SPARSE_GAMMA
+    ring_launches = {}
+    p = 2
+    budget = (D * f * 4 - 1) // p
+    check(D * D * 4 > budget, "(c): the Gram would fit the budget")
+    with environ(PLSSVM_K_CACHE_BYTES=str(budget)):
+        plan = csvm(csr, ys, rbf, gamma=gamma)._plan_sparse_panel(csr, dept, D, ndev=p)
+    check(plan is not None, "(c): no panel plan for 2 shards")
+    th = plan[0]
+    panel_rows = ops_sparse.stream_panel_rows(D // p, th.tell.padded_features, 4, budget)
+    nP = -(-(D // p) // panel_rows)
+    # the one-device panel tier on phase 8's 4096-row panels
+    with environ(PLSSVM_SPARSE_MODE="implicit", PLSSVM_K_CACHE_BYTES=str(PANEL_BUDGET),
+                 PLSSVM_MATMUL_PRECISION="highest"):
+        single = learn_csvm(csr, ys, rbf, gamma=gamma, max_iter=20)
+    check(single.last_cg_info["mode"] == "sparse_implicit", "(c): the one-device learn took "
+          f"{single.last_cg_info['mode']}")
+    th1 = ops_sparse.TiledHybrid.from_csr(csr[:dept], dtype=np.float32, pad_rows=D, device=dev)
+    hs = np.zeros(D, np.float32)
+    if len(th1.heavy_idx):
+        hrows = csr[th1.heavy_idx]
+        hs[th1.heavy_idx] = np.asarray(hrows.multiply(hrows).sum(axis=1)).ravel()
+    print(f"[18 sharded rest] (c) panel ring, rbf {n} x {f}, 2 shards, PLSSVM_K_CACHE_BYTES "
+          f"{budget} (dense X needs {D * f * 4} over 2 devices): panels of {panel_rows} rows, "
+          f"{nP} per shard, {len(th.heavy_idx)} heavy rows; K2 launches p² nP² = "
+          f"{p * p * nP * nP} per A·v", flush=True)
+    panel_meshes = [m for m in meshes if len(m[1]) == 2]
+    if ndev > 1:
+        panel_meshes.append(("2 cards", make_mesh(2)))
+    for mesh_name, mesh in panel_meshes:
+        tv, tc, hv, hr, bs, ms = sharded.shard_sparse_tiled_system(mesh, th, b.cpu().numpy(),
+                                                                   mask.cpu().numpy())
+        shape = {"ntiles": th.tell.ntiles, "Lt": th.tell.Lt}
+        for name in ("highest", "default"):
+            tag = f"(c) {mesh_name}, {name}"
+            tier = tier_precision(name)
+            q_r, QA_r, ci_r, mv, _ = sharded._prepare_sparse_panel_local(
+                rbf, mesh, tv, tc, hv, hr, x_last, ms, gamma, 0.0, 1.0, 3, panel_rows=panel_rows,
+                backend=backend, precond="none", precision=tier, **shape)
+            kv1 = ops_sparse.make_tiled_panel_matvec(
+                th1.tell.vals, th1.tell.lcols, int(rbf), 3, gamma, 0.0, panel_rows=PANEL_ROWS,
+                use_cuda=backend == BackendType.cuda, heavy=th1.heavy,
+                heavy_rows=tuple(int(r) for r in th1.heavy_idx),
+                heavy_sq_vec=torch.from_numpy(hs).to(dev), precision=tier, **shape)[0]
+
+            def op1(u):
+                return _corrections(kv1(u), u, q_r, ms, QA_r, ci_r)
+
+            gm.reset_launches()
+            got = mv(v)
+            torch.cuda.synchronize()
+            hops = gm.launches[f"gram_matvec_rect/{tier}"]
+            check(hops == p * p * nP * nP, f"{tag}: one A·v launched K2 {hops} times, "
+                  f"expected {p * p * nP * nP}")
+            err = av_close(tag, got, op1(v))
+            ring_ms, one_ms = timed_ms(lambda: mv(v), 3), timed_ms(lambda: op1(v), 3)
+            if name == "highest":
+                true_op, exact_av = op1, got
+            off = float((got - exact_av).abs().max()) / float(exact_av.abs().max())
+            print(f"  {tag}: A·v within {err:.2e} of the one-device panel operator at this "
+                  f"tier, {off:.2e} from the ring's exact A·v, {hops} K2 launches", flush=True)
+            ms_lines.append(f"(c) panel ring rbf {n} x {f}, {name}: one device (K1/K3 on "
+                            f"{PANEL_ROWS}-row panels) {one_ms:.3f}, {mesh_name} {ring_ms:.3f}")
+        learn = sharded.make_sharded_sparse_panel_learn(mesh, rbf, 3, panel_rows=panel_rows,
+                                                        backend=backend, **shape)
+        with environ(PLSSVM_MATMUL_PRECISION="highest"):
+            gm.reset_launches()
+            out = learn(tv, tc, hv, hr, x_last, bs, ms, gamma, 0.0, 1.0, eps, 20)
+            torch.cuda.synchronize()
+            counts = dict(gm.launches)
+        iters = out[4]
+        want = {"gram_matvec_rect/exact": p * p * nP * nP * (iters + 1 + iters // 50)}
+        check(nonzero(counts) == want, f"(c) {mesh_name}: the learn's launches "
+              f"{nonzero(counts)}, expected {want}")
+        if mesh[0] == mesh[-1]:
+            ring_launches = want
+        line = held(f"(c) {mesh_name}", out, single.last_cg_info["iterations"], true_op, b,
+                    cap=20)
+        print(f"  (c) {mesh_name}, learn on highest to eps {eps:g}: {line}, launches "
+              f"{nonzero(counts)}", flush=True)
+    del Xd, th1
+
+    # (d) the gather ring on phase 9's 8192 x 262144 set at 0.01 %
+    gcsr, gy = planted_sparse(GATHER_N, GATHER_F, GATHER_DENSITY, np.random.default_rng(SEED + 2))
+    gamma = 1.0 / 32
+    n, f = gcsr.shape
+    dept = n - 1
+    D = -(-dept // 256) * 256
+    with environ(PLSSVM_SPARSE_MODE="implicit"):
+        single = learn_csvm(gcsr, gy, rbf, gamma=gamma, max_iter=20)
+    check(single.last_cg_info["mode"] == "sparse_implicit", "(d): the one-device learn took "
+          f"{single.last_cg_info['mode']}")
+    x_last = torch.tensor(gcsr[-1].toarray().ravel(), dtype=torch.float32, device=dev)
+    b, mask = torch.zeros(D, device=dev), torch.zeros(D, device=dev)
+    b[:dept] = torch.tensor(gy[:dept] - gy[-1], dtype=torch.float32, device=dev)
+    mask[:dept] = 1.0
+    v = torch.tensor(np.random.default_rng(SEED + 19).normal(size=D), dtype=torch.float32,
+                     device=dev) * mask
+    h1 = ops_sparse.HybridSparse.from_csr(gcsr[:dept], dtype=np.float32, pad_rows=D, device=dev)
+    kv1, sq1 = ops_sparse.make_streaming_gram_matvec(h1, int(rbf), 3, gamma, 0.0)
+    q, QA = ops_sparse.sparse_q_qa_kii(int(rbf), 3, gamma, 0.0,
+                                       ops_sparse.hybrid_matvec(h1, x_last),
+                                       torch.dot(x_last, x_last), sq1, mask, one)[:2]
+
+    def op1(u):
+        return _corrections(kv1(u), u, q, mask, QA, one)
+
+    cells = [f"one device (gather arm) {timed_ms(lambda: op1(v), 3):.3f}"]
+    print(f"[18 sharded rest] (d) gather ring, rbf {n} x {f} at {GATHER_DENSITY:.2%} "
+          f"({gcsr.nnz} nonzeros)", flush=True)
+    for mesh_name, mesh in meshes:
+        tag = f"(d) {mesh_name}"
+        p = len(mesh)
+        check(-(-dept // (128 * p)) * (128 * p) == D, f"{tag}: padded otherwise than the "
+              "one-device system")
+        h = ops_sparse.HybridSparse.from_csr(gcsr[:dept], dtype=np.float32, pad_rows=D)
+        system = sharded.shard_sparse_system(mesh, h, b.cpu().numpy(), mask.cpu().numpy())
+        mv = sharded._prepare_sparse_gather_local(rbf, mesh, *system[:5], x_last, system[6],
+                                                  gamma, 0.0, 1.0, 3, "none")[3]
+        err = av_close(tag, mv(v), op1(v))
+        gm.reset_launches()
+        out = sharded.make_sharded_sparse_streaming_learn(mesh, rbf, 3)(
+            *system[:5], x_last, *system[5:], gamma, 0.0, 1.0, eps, 20)
+        check(not any(gm.launches.values()), f"{tag}: the gather ring launched "
+              f"{nonzero(gm.launches)}")
+        line = held(tag, out, single.last_cg_info["iterations"], op1, b, cap=20)
+        print(f"  {tag}: A·v within {err:.2e}; {line}", flush=True)
+        cells.append(f"{mesh_name} {timed_ms(lambda: mv(v), 3):.3f}")
+    ms_lines.append(f"(d) gather ring rbf {n} x {f}: " + ", ".join(cells))
+
+    for line in ms_lines:
+        print(f"[18 sharded rest] ms per A·v ({label}), {line}; shards that share a card show "
+              "the ring's overhead, not a scaling", flush=True)
+    return ring_launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1839,8 +2221,8 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also run phase 10: torch.profiler over each sparse tier's CG")
     parser.add_argument("--sharded", action="store_true",
-                        help="build, then phase 17 only: the row-sharded learn and predict "
-                             "(over every card where the machine has more than one)")
+                        help="build, then phases 17 and 18 only: the sharded learns and "
+                             "predict (over every card where the machine has more than one)")
     parser.add_argument("--probe", action="store_true",
                         help="build, show the compiler's resource lines, check the split and "
                              "every bf16 kernel with one launch each, and stop")
@@ -1867,7 +2249,9 @@ def main(argv=None) -> int:
             return 0
         if args.sharded:
             phase_sharded(dev, rng)
-            print("sharded phase passed", flush=True)
+            check(phase_sharded_rest(dev).get("gram_matvec_rect/exact", 0) > 0,
+                  "the panel ring's learn launched no K2")
+            print("sharded phases passed", flush=True)
             return 0
         # phases 3-16 are the one-device paths, whatever the machine holds
         os.environ["PLSSVM_DEVICES"] = "1"
@@ -1901,6 +2285,7 @@ def main(argv=None) -> int:
             chunked = phase_checkpoint(dense)
         phase_small_clis()
         ring = phase_sharded(dev, rng)
+        sparse_ring = phase_sharded_rest(dev, sparse)
         if args.profile:
             with environ(PLSSVM_MATMUL_PRECISION="highest"):
                 phase_profile(sparse)
@@ -1913,17 +2298,22 @@ def main(argv=None) -> int:
                     "library_ms": None}
                    for name, rec in records.items()]
         # the later paths beside the earlier ones: K1 under the chunked CG loop
-        # (phase 15), K2 and the split on the ring of 4 shards (phase 17)
+        # (phase 15), K2 and the split on the ring of 4 shards (phase 17), K2
+        # on the sparse panel ring of 2 shards (phase 18)
         for k in kernels:
             if k["name"] in chunked:
                 k["launches_chunked_learn"] = chunked[k["name"]]
             if k["name"] in ring:
                 k["launches_ring"] = ring[k["name"]]
+            if k["name"] in sparse_ring:
+                k["launches_sparse_ring"] = sparse_ring[k["name"]]
         check(len(kernels) == 10 and all(k["launches"] > 0 for k in kernels),
               f"a kernel of the path never launched: {launches}")
         check(chunked["gram_matvec_sym/exact"] > 0
-              and all(ring.get(f"gram_matvec_rect/{t}", 0) > 0 for t in TIERS_ALL),
-              f"the chunked learn or the ring launched no kernel: {chunked}, {ring}")
+              and all(ring.get(f"gram_matvec_rect/{t}", 0) > 0 for t in TIERS_ALL)
+              and sparse_ring.get("gram_matvec_rect/exact", 0) > 0,
+              f"the chunked learn or a ring launched no kernel: {chunked}, {ring}, "
+              f"{sparse_ring}")
     except SmokeError as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1

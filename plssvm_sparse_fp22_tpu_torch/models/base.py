@@ -7,15 +7,21 @@ eager PyTorch on the ``CSVM``'s ``torch.device``: q-vector, QA_cost, the
 A·v operator and a host-driven CG loop.  Data at or below
 ``sparse_threshold`` density keeps its CSR form and takes the JAX
 package's sparse tiers (:meth:`CSVM._learn_sparse`, ``models/sparse_learn.py``).
-Dense data on more than one device (``Parameter.devices``,
-``PLSSVM_DEVICES``) takes the row-sharded learn and predict of
-``parallel/sharded.py``.  With ``checkpoint_path`` or ``verbose_cg`` a dense
-learn, sharded or not, runs CG in chunks under
-:meth:`CSVM._drive_chunked_cg`.
 
-What this package does not carry yet raises a :class:`PLSSVMError` that
-names the missing piece — sparse data on more than one device, and the
-feature-sharded learn — instead of running something else in its place.
+Several devices (``Parameter.devices``, else ``PLSSVM_DEVICES``, else every
+visible CUDA device; on the CPU the count asked for is taken as logical
+shards of the one device) take the sharded learns of
+``parallel/sharded.py``, by the JAX package's rules and under its mode
+names: dense data row-sharded (``sharded_<mode>[p]``), or feature-sharded
+where each device's slice of the features would still outnumber the rows
+(``sharded_feature[p]``; ``PLSSVM_SHARD_AXIS=rows|features`` forces the
+axis); sparse data row-sharded as ELL+COO slabs (linear,
+``sharded_sparse_linear[p]``), densified onto the dense sharded learn where
+dense X fits the budget over all devices, on one device where the Gram
+matrix fits, else ringed (``sharded_sparse_implicit[p]``: tiled slabs on K2
+panel pairs, or the ``gather`` arm).  With ``checkpoint_path`` or
+``verbose_cg`` a dense learn, sharded or not, runs CG in chunks under
+:meth:`CSVM._drive_chunked_cg`.
 
 Padding: the CG system of size ``dept = n - 1`` is zero-padded to
 ``round_up(dept, max(PAD_SIZE, ROW_BLOCK_SIZE))`` on one device and to
@@ -232,23 +238,12 @@ class CSVM:
         ndev = min(ndev_req, max(1, dept // PAD_SIZE))
         if (not self._use_sparse() and ndev_req > 1
                 and self._shard_axis(dept, f, ndev_req) == "features"):
-            raise PLSSVMError(
-                f"{ndev_req} devices with the feature axis sharded "
-                f"(PLSSVM_SHARD_AXIS=features, or auto with {f} features over "
-                f"{ndev_req} devices against a system of {dept}): the "
-                "feature-sharded learn (make_feature_sharded_learn, "
-                "shard_system_feature of parallel/sharded.py) is not ported to "
-                "the PyTorch package yet; set PLSSVM_SHARD_AXIS=rows or use "
-                "one device (Parameter.devices / PLSSVM_DEVICES = 1)")
-        if self._use_sparse() and ndev > 1:
-            raise PLSSVMError(
-                f"sparse data on {ndev} devices: the sharded sparse learns "
-                "(make_sharded_sparse_linear_learn, make_sharded_sparse_panel_learn, "
-                "make_sharded_sparse_streaming_learn of parallel/sharded.py) are "
-                "not ported to the PyTorch package yet; use one device "
-                "(Parameter.devices / PLSSVM_DEVICES = 1) or the dense path "
-                "(sparse_threshold = 0)")
-        if not self._use_sparse() and ndev > 1:
+            # wide dense data (f / p > D): the reference's own multi-GPU split
+            # (feature_ranges_, gpu_csvm.cpp:130-157) for all three kernels
+            mode, out = self._learn_dense_feature_sharded(dept, f, y, imax, ndev_req)
+        elif self._use_sparse() and ndev > 1:
+            mode, out = self._learn_sparse_sharded(dept, f, y, imax, ndev)
+        elif not self._use_sparse() and ndev > 1:
             # every visible device, as the reference's learn()
             # (gpu_csvm.cpp:130-157)
             mode, out = self._learn_dense_sharded(dept, f, y, imax, ndev)
@@ -473,43 +468,86 @@ class CSVM:
             x_last = torch.from_numpy(np.ascontiguousarray(X[-1], dtype=self._np_dtype))
         precond = str(self.params.precond)
         mode_name = f"sharded_{mode}[{ndev}]"
-        scalars = (self.gamma, self.coef0, self.cost)
 
         if self.params.checkpoint_path is not None or self.params.verbose_cg:
-            setup_fn, chunk_fn = make_sharded_learn_fns(
-                mesh, self.kernel, self.degree, mode, backend=self.backend, precond=precond)
-
-            def setup():
-                return setup_fn(Xs, x_last, b, m, *scalars)
-
-            def chunk(q, QA_cost, imax_end, state):
-                return chunk_fn(Xs, b, m, x_last, *scalars, self.epsilon, imax_end, state)
-
-            q, QA_cost, state = self._drive_chunked_cg(setup, chunk, imax, dept,
-                                                       device=mesh[0])
-            x_np = state.x.cpu().numpy().astype(np.float64)
-            s = x_np.sum()
-            t = q.cpu().numpy().astype(np.float64) @ x_np
-            return mode_name, (state.x, s, t, QA_cost, state.k, state.delta, state.delta0)
+            fns = make_sharded_learn_fns(mesh, self.kernel, self.degree, mode,
+                                         backend=self.backend, precond=precond)
+            return mode_name, self._learn_sharded_chunked(fns, Xs, x_last, b, m, imax, dept,
+                                                          mesh[0])
 
         learn = make_sharded_learn(
             mesh, self.kernel, self.degree, mode, backend=self.backend, precond=precond,
             mxu_plan=resolve_mxu_plan(mode, self.dtype, self.backend))
-        return mode_name, learn(Xs, x_last, b, m, *scalars, self.epsilon, imax)
+        return mode_name, learn(Xs, x_last, b, m, self.gamma, self.coef0, self.cost,
+                                self.epsilon, imax)
+
+    def _learn_dense_feature_sharded(self, dept, f, y, imax, ndev):
+        """Feature-sharded multi-device learn (``base.py:388-437`` of the JAX
+        package): the features of the padded system, padded with zeros to a
+        multiple of ``ndev``, split over the mesh; with a checkpoint path or
+        ``verbose_cg`` CG runs in chunks."""
+        from ..parallel.sharded import (make_feature_sharded_learn,
+                                        make_feature_sharded_learn_fns, shard_system_feature)
+
+        D = _round_up(dept, max(PAD_SIZE, ROW_BLOCK_SIZE))
+        b_pad, mask = self._padded_vectors(D, dept, y)
+        fp = _round_up(f, ndev)
+        X = self.data.dense
+        X_pad = np.zeros((D, fp), dtype=self._np_dtype)
+        X_pad[:dept, :f] = X[:dept]
+        x_last = np.zeros(fp, dtype=self._np_dtype)
+        x_last[:f] = X[-1]
+        mesh = self._mesh(ndev)
+        with self._span("setup", mesh):
+            Xs, x_lasts, b, m = shard_system_feature(mesh, X_pad, x_last, b_pad, mask)
+        precond = str(self.params.precond)
+        mode_name = f"sharded_feature[{ndev}]"
+        if self.params.checkpoint_path is not None or self.params.verbose_cg:
+            fns = make_feature_sharded_learn_fns(mesh, self.kernel, self.degree, precond=precond)
+            return mode_name, self._learn_sharded_chunked(fns, Xs, x_lasts, b, m, imax, dept,
+                                                          mesh[0])
+        learn = make_feature_sharded_learn(mesh, self.kernel, self.degree, precond=precond)
+        return mode_name, learn(Xs, x_lasts, b, m, self.gamma, self.coef0, self.cost,
+                                self.epsilon, imax)
+
+    def _learn_sharded_chunked(self, fns, Xs, x_last, b, m, imax, dept, home):
+        """The chunked arm of the dense sharded learns: ``fns = (setup,
+        chunk)`` of ``parallel/sharded.py`` under :meth:`_drive_chunked_cg`,
+        ``sum(x)`` and ``q.x`` taken on the host in float64, as the JAX
+        package does (``base.py:423-428, 475-480``)."""
+        setup_fn, chunk_fn = fns
+        scalars = (self.gamma, self.coef0, self.cost)
+
+        def setup():
+            return setup_fn(Xs, x_last, b, m, *scalars)
+
+        def chunk(q, QA_cost, imax_end, state):
+            return chunk_fn(Xs, b, m, x_last, *scalars, self.epsilon, imax_end, state)
+
+        q, QA_cost, state = self._drive_chunked_cg(setup, chunk, imax, dept, device=home)
+        x_np = state.x.cpu().numpy().astype(np.float64)
+        t = q.cpu().numpy().astype(np.float64) @ x_np
+        return state.x, x_np.sum(), t, QA_cost, state.k, state.delta, state.delta0
 
     # ----------------------------------------------------------- sparse learn
 
-    def _plan_sparse_panel(self, csr, dept, D):
+    def _plan_sparse_panel(self, csr, dept, D, ndev: int = 1):
         """``(TiledHybrid, use_cuda, sweep)`` when the streaming ``panel``
         strategy applies at this density and packing, else ``None``
-        (``base.py:694-754``, one device): the density pre-check, the
-        skew-robust packing, the half-dense guard, and the sweep schedule
-        with its memory envelope.  ``use_cuda`` is the ``cuda`` backend,
-        where the panel pairs run K1/K3 and float64 is refused; on the
-        ``torch`` backend their plain versions run.  Each pair splits or
-        casts its two panels itself and drops the copies with the pair, so
-        the bf16 tiers add at most two panels' bytes to the sweep and the
-        4x envelope stands."""
+        (``base.py:694-754``): the density pre-check, the skew-robust
+        packing, the half-dense guard, and the sweep schedule with its
+        memory envelope.  ``use_cuda`` is the ``cuda`` backend, where the
+        panel pairs run K1/K3 and float64 is refused; on the ``torch``
+        backend their plain versions run.  Each pair splits or casts its two
+        panels itself and drops the copies with the pair, so the bf16 tiers
+        add at most two panels' bytes to the sweep and the 4x envelope
+        stands.
+
+        ``ndev > 1`` plans the panel ring: the packing is built on the host,
+        to be sharded, and the envelope applies to each device's ``1/ndev``
+        share (its own panels and the one in flight), as if each shard had
+        a device of its own; float64 is not refused, since the ring's hops
+        take the plain product for it, as the dense ring's do."""
         from ..ops.sparse import TiledHybrid, panel_sweep_strategy, streaming_stream_strategy
 
         f = csr.shape[1]
@@ -517,7 +555,7 @@ class CSVM:
         if streaming_stream_strategy(L_est, f) != "panel":
             return None
         th = TiledHybrid.from_csr(csr[:dept], dtype=self._np_dtype, pad_rows=D,
-                                  device=self.device)
+                                  device=self.device if ndev == 1 else "cpu")
         itemsize = self.dtype.itemsize
         dense_bytes = D * th.tell.padded_features * itemsize
         packed_bytes = th.tell.vals.numel() * (itemsize + 4) + th.heavy.numel() * itemsize
@@ -526,6 +564,11 @@ class CSVM:
         if 2 * packed_bytes > dense_bytes:
             return None
         physical = self._device_memory_bytes()
+        use_cuda = self.backend == BackendType.cuda
+        if ndev > 1:
+            if 4 * dense_bytes // ndev > physical:
+                return None
+            return th, use_cuda, "unrolled"
         sweep = panel_sweep_strategy(2, dense_bytes, physical)
         if sweep == "unrolled":
             if 4 * dense_bytes > physical:
@@ -534,7 +577,6 @@ class CSVM:
             eff_budget = min(_k_cache_budget_bytes(), physical // 3)
             if packed_bytes + eff_budget > (9 * physical) // 10:
                 return None
-        use_cuda = self.backend == BackendType.cuda
         if use_cuda and self.dtype != torch.float32:
             raise PLSSVMError(
                 "the sparse panel tier on the CUDA backend needs float32: the "
@@ -558,6 +600,87 @@ class CSVM:
                 "--checkpoint/--verbose_cg are not supported on the sparse "
                 "learn path; set sparse_threshold=0 to force the dense path"
             )
+
+    def _learn_sparse_sharded(self, dept, f, y, imax, ndev):
+        """Sparse data on ``ndev`` devices (``base.py:589-692`` of the JAX
+        package), the first arm that applies:
+
+        1. linear: the row-sharded ELL+COO learn, ``sharded_sparse_linear[p]``;
+        2. dense X within the K-cache budget of all devices together, and
+           each device's share with its bf16 operands within its memory:
+           densify and take the dense sharded learn;
+        3. the (D, D) Gram within the budget (wide data), or a forced
+           ``PLSSVM_SPARSE_MODE``: the one-device sparse tiers;
+        4. a panel plan (:meth:`_plan_sparse_panel` with ``ndev``): the panel
+           ring, else the ``gather`` ring, both ``sharded_sparse_implicit[p]``.
+
+        The ring arms refuse the chunked-CG flags, as the sparse tiers do."""
+        from ..ops.sparse import stream_panel_rows
+        from ..parallel.sharded import (make_sharded_sparse_linear_learn,
+                                        make_sharded_sparse_panel_learn,
+                                        make_sharded_sparse_streaming_learn,
+                                        shard_sparse_tiled_system)
+
+        precond = str(self.params.precond)
+        if self.kernel == KernelType.linear:
+            self._reject_chunk_flags_on_sparse()
+            mesh, system, x_last = self._sparse_sharded_system(dept, y, ndev)
+            learn = make_sharded_sparse_linear_learn(mesh, precond=precond)
+            return (f"sharded_sparse_linear[{ndev}]",
+                    learn(*system[:5], x_last, *system[5:], self.cost, self.epsilon, imax))
+
+        itemsize = self.dtype.itemsize
+        D = _round_up(dept, PAD_SIZE * ndev)
+        budget = _k_cache_budget_bytes()
+        forced_tier = os.environ.get("PLSSVM_SPARSE_MODE", "auto") != "auto"
+        if not forced_tier and (D * f * itemsize <= budget * ndev
+                                and 5 * D * f * itemsize // (2 * ndev)
+                                <= self._device_memory_bytes()):
+            return self._learn_dense_sharded(dept, f, y, imax, ndev)
+        if forced_tier or D * D * itemsize <= budget:
+            D1 = _round_up(dept, max(PAD_SIZE, ROW_BLOCK_SIZE))
+            b_pad, mask = self._padded_vectors(D1, dept, y)
+            return self._learn_sparse(D1, dept, f, b_pad, mask, imax)
+
+        self._reject_chunk_flags_on_sparse()
+        mode_name = f"sharded_sparse_implicit[{ndev}]"
+        scalars = (self.gamma, self.coef0, self.cost, self.epsilon, imax)
+        plan = self._plan_sparse_panel(self.data.csr, dept, D, ndev=ndev)
+        if plan is not None:
+            th = plan[0]
+            mesh = self._mesh(ndev)
+            b_pad, mask = self._padded_vectors(D, dept, y)
+            tvals, tlcols, heavy, hrow, b, m = shard_sparse_tiled_system(mesh, th, b_pad, mask)
+            learn = make_sharded_sparse_panel_learn(
+                mesh, self.kernel, self.degree, ntiles=th.tell.ntiles, Lt=th.tell.Lt,
+                panel_rows=stream_panel_rows(D // ndev, th.tell.padded_features, itemsize,
+                                             budget),
+                precond=precond, backend=self.backend)
+            return mode_name, learn(tvals, tlcols, heavy, hrow, self._sparse_x_last(mesh[0]), b,
+                                    m, *scalars)
+        mesh, system, x_last = self._sparse_sharded_system(dept, y, ndev)
+        learn = make_sharded_sparse_streaming_learn(mesh, self.kernel, self.degree,
+                                                    precond=precond)
+        return mode_name, learn(*system[:5], x_last, *system[5:], *scalars)
+
+    def _sparse_x_last(self, device) -> torch.Tensor:
+        """The last data point, dense, on ``device``."""
+        x_last = self.data.csr[-1].toarray().ravel()
+        return torch.from_numpy(np.ascontiguousarray(x_last, dtype=self._np_dtype)).to(device)
+
+    def _sparse_sharded_system(self, dept, y, ndev):
+        """``(mesh, system, x_last)`` of the sparse linear and gather rings
+        (``base.py:793-804``): the first ``dept`` rows packed ELL+COO on the
+        host, padded to a multiple of ``PAD_SIZE * ndev`` rows and sharded
+        (:func:`~..parallel.sharded.shard_sparse_system`)."""
+        from ..ops.sparse import HybridSparse
+        from ..parallel.sharded import shard_sparse_system
+
+        D = _round_up(dept, PAD_SIZE * ndev)
+        b_pad, mask = self._padded_vectors(D, dept, y)
+        h = HybridSparse.from_csr(self.data.csr[:dept], dtype=self._np_dtype, pad_rows=D)
+        mesh = self._mesh(ndev)
+        return mesh, shard_sparse_system(mesh, h, b_pad, mask), self._sparse_x_last(mesh[0])
 
     def _learn_sparse(self, D, dept, f, b_pad, mask, imax):
         """The sparse tiers of ``base.py:806-968``.  Linear: the ELL+COO

@@ -100,10 +100,10 @@ def ell_matvec(ell: ELLMatrix, u: torch.Tensor) -> torch.Tensor:
 def ell_rmatvec(ell: ELLMatrix, v: torch.Tensor) -> torch.Tensor:
     """X^T @ v for dense v (n,): add row contributions per column.
 
-    Off the learn path on purpose: the linear learn forms X^T v as
-    ``hybrid_matvec`` on the transposed packing, whose fixed row order keeps
-    CG repeatable on the card; this scatter form is kept as the JAX
-    package's counterpart (``sparse.py:74-93``) and held against it."""
+    Off the one-device learn's path: it forms X^T v as ``hybrid_matvec`` on
+    the transposed packing, faster on the card; the sparse linear ring
+    (``parallel/sharded.py``) takes this scatter form, the JAX package's
+    (``sparse.py:74-93``), for each shard's partial."""
     contributions = (ell.values * v[:, None]).reshape(-1)
     return segment_sum(contributions, ell.cols.reshape(-1), ell.shape[1])
 
@@ -170,8 +170,7 @@ def hybrid_matvec(h: HybridSparse, u: torch.Tensor) -> torch.Tensor:
 
 
 def hybrid_rmatvec(h: HybridSparse, v: torch.Tensor) -> torch.Tensor:
-    """X^T @ v over the ELL part + COO tail; off the learn path, as
-    :func:`ell_rmatvec` is."""
+    """X^T @ v over the ELL part + COO tail (see :func:`ell_rmatvec`)."""
     out = ell_rmatvec(h.ell, v)
     if h.coo_vals.shape[0]:
         out = out + segment_sum(h.coo_vals * v[h.coo_rows], h.coo_cols, h.ell.shape[1])

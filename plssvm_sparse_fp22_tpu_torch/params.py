@@ -83,9 +83,9 @@ class Parameter:
 
     #: number of devices to train/predict over; ``None`` -> ``PLSSVM_DEVICES``,
     #: else every visible CUDA device (one on the CPU, where a larger count
-    #: gives logical shards).  Dense data takes the row-sharded learn and
-    #: predict (``parallel/sharded.py``); sparse data and the feature axis on
-    #: more than one device are not ported yet and raise
+    #: gives logical shards).  Dense data takes the row- or feature-sharded
+    #: learn and the row-sharded predict, sparse data the sparse sharded
+    #: learns (``parallel/sharded.py``)
     devices: int | None = None
 
     # ------------------------------------------------------------------ files

@@ -361,23 +361,32 @@ def test_chunked_cg_flags_raise(flag, tmp_path):
 
 
 def test_more_than_one_device_raises(monkeypatch):
-    """What is not ported raises by name on more than one device: sparse
-    data, and the feature axis.  (Dense rows are sharded:
-    ``test_torch_sharded_api.py``.)"""
+    """More than one device: sparse data and the feature axis take their
+    sharded learns under the JAX package's mode names and give the
+    one-device result; an invalid device count still raises.  (The routes
+    are held in ``test_torch_sparse_sharded.py`` and
+    ``test_torch_feature_sharded.py``.)"""
     X, y = make_blobs(300, 3)
     p = _params("torch", X, y=y, sparse_threshold=1.0)
+    one = tp.CSVM(p)
+    one.learn()
     p.devices = 2
-    with pytest.raises(TError, match="make_sharded_sparse_linear_learn"):
-        tp.CSVM(p).learn()
+    svm = tp.CSVM(p)
+    svm.learn()
+    assert svm.last_cg_info["mode"] == "sharded_sparse_linear[2]"
+    np.testing.assert_allclose(svm.alphas, one.alphas, rtol=1e-6, atol=1e-6)
     p.devices = None
     monkeypatch.setenv("PLSSVM_DEVICES", "2")
-    with pytest.raises(TError, match="sparse data on 2 devices"):
-        tp.CSVM(p).learn()
+    svm = tp.CSVM(p)
+    svm.learn()
+    assert svm.last_cg_info["mode"] == "sharded_sparse_linear[2]"
     monkeypatch.setenv("PLSSVM_SHARD_AXIS", "features")
     dense = _params("torch", X, y=y)
     dense.devices = None
-    with pytest.raises(TError, match="make_feature_sharded_learn"):
-        tp.CSVM(dense).learn()
+    svm = tp.CSVM(dense)
+    svm.learn()
+    assert svm.last_cg_info["mode"] == "sharded_feature[2]"  # 3 features padded to 4
+    np.testing.assert_allclose(svm.alphas, one.alphas, rtol=1e-6, atol=1e-6)
     monkeypatch.setenv("PLSSVM_DEVICES", "two")
     with pytest.raises(TError, match="Invalid device count"):
         tp.CSVM(dense)

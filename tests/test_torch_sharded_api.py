@@ -5,8 +5,10 @@ The dense cases of ``tests/test_sharded_api.py``: ``Parameter.devices`` and
 ``PLSSVM_DEVICES`` route a dense learn to the row-sharded path (mode
 ``sharded_<mode>[p]``), results agree with the numpy oracle, with the port's
 single-device learn and with the JAX package's sharded learn, and the
-checkpoint / Jacobi / verbose flags work there as on one device.  What the
-port does not carry yet (sparse data, the feature axis) raises by name.
+checkpoint / Jacobi / verbose flags work there as on one device.  Sparse
+data and the feature axis take their sharded routes (the functions are held
+in ``tests/test_torch_sparse_sharded.py`` and
+``tests/test_torch_feature_sharded.py``).
 Tolerances as in ``tests/test_sharded_api.py``: converged float64 runs at
 eps 1e-10 differ by their CG trajectories, 1e-4 per alpha and 5e-3 on the
 sums (the last alpha, the bias).
@@ -222,24 +224,33 @@ def test_cross_package_sharded_checkpoint(blobs, tmp_path):
 
 
 def test_what_is_not_ported_raises_by_name(blobs, monkeypatch):
+    """What raised by name before the sparse and feature-sharded learns were
+    ported now takes the JAX package's routes and mode names: sparse data on
+    several devices (densified onto the dense sharded learn within the
+    budget, ringed beyond it; linear on the ELL+COO slabs), the feature axis
+    where it is forced or the data is wide.  One device, or a system too
+    small to spread, keeps the sparse tiers; ``PLSSVM_SHARD_AXIS=rows`` and
+    the invalid-axis error still hold."""
     X, y = blobs
-    with pytest.raises(PLSSVMError, match="sparse data on 4 devices.*"
-                                          "make_sharded_sparse_streaming_learn"):
-        _train(X, y, KernelType.rbf, devices=4, sparse_threshold=1.0)
-    with pytest.raises(PLSSVMError, match="make_sharded_sparse_linear_learn"):
-        _train(X, y, KernelType.linear, devices=2, sparse_threshold=1.0)
+    assert _train(X, y, KernelType.rbf, devices=4,
+                  sparse_threshold=1.0).last_cg_info["mode"] == "sharded_cached[4]"
+    assert _train(X, y, KernelType.linear, devices=2,
+                  sparse_threshold=1.0).last_cg_info["mode"] == "sharded_sparse_linear[2]"
+    monkeypatch.setenv("PLSSVM_K_CACHE_BYTES", "1024")
+    assert _train(X, y, KernelType.rbf, devices=4, sparse_threshold=1.0,
+                  max_iter=5).last_cg_info["mode"] == "sharded_sparse_implicit[4]"
+    monkeypatch.delenv("PLSSVM_K_CACHE_BYTES")
     # one device, or a system too small to spread, keeps the sparse tiers
     assert _train(X, y, KernelType.rbf, devices=1,
                   sparse_threshold=1.0).last_cg_info["mode"].startswith("sparse_")
     assert _train(X[:200], y[:200], KernelType.rbf, devices=4,
                   sparse_threshold=1.0).last_cg_info["mode"].startswith("sparse_")
     monkeypatch.setenv("PLSSVM_SHARD_AXIS", "features")
-    with pytest.raises(PLSSVMError, match="make_feature_sharded_learn"):
-        _train(X, y, KernelType.linear, devices=2)
+    assert _train(X, y, KernelType.linear, devices=2).last_cg_info["mode"] == "sharded_feature[2]"
     monkeypatch.setenv("PLSSVM_SHARD_AXIS", "auto")
     wide, yw = make_blobs(40, 400, seed=2)  # f / p > dept: auto picks the feature axis
-    with pytest.raises(PLSSVMError, match="feature axis"):
-        _train(wide, yw, KernelType.linear, devices=2)
+    assert _train(wide, yw, KernelType.linear,
+                  devices=2).last_cg_info["mode"] == "sharded_feature[2]"
     monkeypatch.setenv("PLSSVM_SHARD_AXIS", "rows")
     assert _train(X, y, KernelType.linear, devices=2).last_cg_info["mode"] == "sharded_linear[2]"
     monkeypatch.setenv("PLSSVM_SHARD_AXIS", "columns")

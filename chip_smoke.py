@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on an NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile | --probe | --sharded]
+    python3 chip_smoke.py [--profile | --probe | --sharded | --distributed]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the repository around this script; it imports nothing of JAX.  Phases 3-10
@@ -97,10 +97,25 @@ Phases, one line or more each, any failure exits non-zero:
     ring on phase 9's 8192 x 262144 set.  One A·v of each within
     ``RING_TOL`` of the one-device operator, each learn's iterations within
     one of the one-device learn's, its residual at the target and by the
-    one-device operator under ``TRUE_RESIDUAL`` times it; ms per A·v.
+    one-device operator under ``TRUE_RESIDUAL`` times it; ms per A·v;
+19. the row-sharded learns and predict across two processes
+    (``parallel/distributed.py``), each a worker of this script with two
+    logical shards, a global mesh of four: both ranks on the card over gloo
+    (blocks staged through host memory), and, where there are two cards or
+    more, one rank per card over NCCL.  At phase 17's rbf 32768 x 256: one
+    A·v of the ring on ``highest`` and on ``default``, the ring learn on
+    ``highest`` and on the adaptive plan (K2 counted in each worker, half
+    the one-process launches each), the chunked learn stopped at 5 by one
+    pair (rank 0 writes the checkpoint) and resumed by a fresh pair, the
+    sharded predict of 4096 points; the gather ring on phase 9's set.  Every
+    result is bitwise the one-process run's over the same four shards, on
+    both ranks; a worker that fails, hangs (``DIST_TIMEOUT``) or exits
+    non-zero fails the phase.  Prints the transport, ms per A·v beside the
+    one-process ring's and the learns' seconds.
 
-``--sharded`` runs phases 1, 2, 17 and 18 only (the phases that differ on a
-machine with several cards).  ``--probe`` is the short first run after a change to a kernel source:
+``--sharded`` runs phases 1, 2, 17, 18 and 19 only (the phases that differ
+on a machine with several cards); ``--distributed`` phases 1, 2 and 19.
+``--probe`` is the short first run after a change to a kernel source:
 phases 1 and 2, the compiler's resource lines of every kernel (the whole
 log goes to ``build.log`` beside the built library), and phase 11's checks
 with one launch each instead of a timing loop; it prints no result line.
@@ -116,7 +131,9 @@ prepared operands as ``ms`` and the predict's, split or cast inside, as
 the chunked CG loop (phase 15, ``launches_chunked_learn``) and K2's records
 and the split's theirs on the ring of 4 shards (phase 17,
 ``launches_ring``), K2's exact record its launches in the panel ring's learn
-(phase 18, ``launches_sparse_ring``).  The
+(phase 18, ``launches_sparse_ring``), K2's records and the split's theirs in
+the ring learns across two processes, summed over the ranks (phase 19,
+``launches_distributed``).  The
 last line is ``{"ok": true, "device": {...}}``.  Scratch files go to
 ``.smoke_work/`` beside this script and are removed at the end.
 """
@@ -2212,6 +2229,276 @@ def phase_sharded_rest(dev, sparse=None):
     return ring_launches
 
 
+#: phase 19: two ranks of two logical shards each, the global mesh of four;
+#: the dense main path's shape, phase 9's gather set; seconds a pair of
+#: workers may take (rendezvous, build check and all)
+DIST_RANKS, DIST_SHARDS, DIST_TIMEOUT = 2, 4, 300
+DIST_SPEC = {"n": 32768, "f": 256, "gather": [GATHER_N, GATHER_F, GATHER_DENSITY]}
+#: the chunked learn stops here and is resumed by a fresh pair of workers
+DIST_CKPT_AT = 5
+
+
+def dist_problem(dev, spec: dict) -> dict:
+    """Phase 19's data on ``dev``, from a seed: the same bits in the parent
+    and in every worker."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse as ops_sparse
+
+    rng = np.random.default_rng(SEED + 19)
+    n, f = spec["n"], spec["f"]
+    X, y = two_blobs(n, f, rng)
+    Xd, _q, mask, _QA, _ci, b = dense_system(dev, X, y, 1.0 / f)
+    on = {"dtype": torch.float32, "device": dev}
+    data = {"Xd": Xd, "b": b, "mask": mask, "x_last": torch.tensor(X[-1], **on),
+            "v": torch.tensor(rng.normal(size=len(b)), **on) * mask,
+            "P": torch.tensor(rng.normal(size=(4096, f)), **on),
+            "Xsv": torch.tensor(X, **on), "alphas": torch.tensor(rng.normal(size=n), **on),
+            "gamma": 1.0 / f}
+    gn, gf, density = spec["gather"]
+    gcsr, gy = planted_sparse(gn, gf, density, np.random.default_rng(SEED + 2))
+    dept = gn - 1
+    D = -(-dept // 256) * 256
+    gb, gmask = np.zeros(D, np.float32), np.zeros(D, np.float32)
+    gb[:dept], gmask[:dept] = gy[:dept] - gy[-1], 1.0
+    data["gather"] = {"h": ops_sparse.HybridSparse.from_csr(gcsr[:dept], dtype=np.float32,
+                                                           pad_rows=D),
+                      "b": gb, "mask": gmask,
+                      "x_last": torch.tensor(gcsr[-1].toarray().ravel(), **on),
+                      "v": torch.tensor(np.random.default_rng(SEED + 19).normal(size=D),
+                                        **on) * torch.tensor(gmask, device=dev)}
+    return data
+
+
+def dist_runs(mesh, data, stage: str, ckpt: str) -> dict:
+    """What phase 19 computes on ``mesh``: the parent runs it on one
+    process's four logical shards, each worker on the global mesh of two
+    ranks; the results (CPU tensors, launch counts, seconds) are compared
+    bit for bit.  ``stage`` "main": one A·v of the ring on ``highest`` and on
+    ``default`` and their ms, the ring learn on ``highest`` and on the
+    adaptive plan, the chunked learn stopped at ``DIST_CKPT_AT`` (rank 0
+    writes ``ckpt``), the sharded predict and the gather ring's A·v and
+    learn; "resume": the chunked learn resumed from ``ckpt``."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.ops.matvec import tier_precision
+    from plssvm_sparse_fp22_tpu_torch.parallel import distributed, sharded
+    from plssvm_sparse_fp22_tpu_torch.parallel.mesh import local_shards
+    from plssvm_sparse_fp22_tpu_torch.solver.checkpoint import (load_cg_checkpoint,
+                                                                save_cg_checkpoint)
+    from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType
+
+    on_card = mesh[0].type == "cuda"
+    backend = BackendType.cuda if on_card else BackendType.torch
+    rbf, eps, imax, gamma = KernelType.rbf, 1e-6, 256, data["gamma"]
+    rank = getattr(mesh, "rank", 0)
+    n = data["Xd"].shape[0]
+    # this rank's rows: an equal share of them per rank
+    Xs = distributed.make_global_row_sharded(
+        mesh, data["Xd"].chunk(len(mesh) // len(local_shards(mesh)))[rank])
+    b, ms, x_last = data["b"], data["mask"], data["x_last"]
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    res = {}
+
+    def timed(fn):
+        sync()
+        start = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - start
+
+    setup, chunk = sharded.make_sharded_learn_fns(mesh, rbf, 3, "implicit", backend=backend)
+    with environ(PLSSVM_MATMUL_PRECISION="highest"):
+        if stage == "resume":
+            state = load_cg_checkpoint(ckpt, device=sharded._home(mesh))[0]
+            check(state.k == DIST_CKPT_AT, f"the checkpoint holds k = {state.k}")
+            state = chunk(Xs, b, ms, x_last, gamma, 0.0, 1.0, eps, imax, state)
+            return {"resumed_x": state.x.cpu(), "resumed_k": state.k}
+        # one A·v of the ring on the exact and on the bf16cast tier: the
+        # blocks that cross ranks are half the bytes on the second
+        for tier in ("highest", "default"):
+            mv = sharded._prepare_local(rbf, mesh, Xs, x_last, ms, gamma, 0.0, 1.0, 3,
+                                        "implicit", backend, "none",
+                                        precision=tier_precision(tier))[3]
+            res[f"av_{tier}"] = mv(data["v"]).cpu()
+            res[f"av_ms_{tier}"] = timed_ms(lambda: mv(data["v"]), 10) if on_card else 0.0
+            del mv
+        for name, plan in (("highest", None), ("adaptive", ("default", "high"))):
+            learn = sharded.make_sharded_learn(mesh, rbf, 3, "implicit", backend=backend,
+                                               mxu_plan=plan)
+            with environ(PLSSVM_MATMUL_PRECISION="" if plan else "highest"):
+                gm.reset_launches()
+                out, seconds = timed(lambda: learn(Xs, x_last, b, ms, gamma, 0.0, 1.0, eps,
+                                                   imax))
+            res[name] = {"x": out[0].cpu(), "iters": out[4], "delta": out[5].cpu(),
+                         "fast": out[7] if plan else out[4], "seconds": seconds,
+                         "launches": nonzero(gm.launches)}
+        q, QA, state = setup(Xs, x_last, b, ms, gamma, 0.0, 1.0)
+        state = chunk(Xs, b, ms, x_last, gamma, 0.0, 1.0, eps, DIST_CKPT_AT, state)
+        if rank == 0:
+            save_cg_checkpoint(ckpt, state, q, QA, {"dept": n - 1, "kernel": int(rbf)})
+        if sharded.spans_processes(mesh):
+            torch.distributed.barrier()
+        gm.reset_launches()
+        res["predict"] = sharded.make_sharded_predict(mesh, rbf, 3, backend=backend)(
+            data["P"], sharded.shard_rows(mesh, data["Xsv"]),
+            sharded.shard_rows(mesh, data["alphas"]), torch.tensor(0.25, device=b.device),
+            gamma, 0.0).cpu()
+        res["predict_launches"] = nonzero(gm.launches)
+    g = data["gather"]
+    system = sharded.shard_sparse_system(mesh, g["h"], g["b"], g["mask"])
+    mvg = sharded._prepare_sparse_gather_local(rbf, mesh, *system[:5], g["x_last"], system[6],
+                                               1.0 / 32, 0.0, 1.0, 3, "none")[3]
+    res["gather_av"] = mvg(g["v"]).cpu()
+    del mvg
+    out, seconds = timed(lambda: sharded.make_sharded_sparse_streaming_learn(mesh, rbf, 3)(
+        *system[:5], g["x_last"], *system[5:], 1.0 / 32, 0.0, 1.0, eps, 20))
+    res["gather"] = {"x": out[0].cpu(), "iters": out[4], "seconds": seconds}
+    return res
+
+
+def dist_worker(spec: dict) -> int:
+    """One rank of phase 19 (``--worker``): joins the group, runs
+    :func:`dist_runs` on the global mesh and saves what it got."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.parallel import distributed
+    from plssvm_sparse_fp22_tpu_torch.parallel.mesh import GlobalMesh, make_mesh
+
+    rank, backend = spec["rank"], spec["backend"]
+    check(distributed.initialize_distributed(spec["coordinator"], DIST_RANKS, rank,
+                                             backend=backend, timeout=DIST_TIMEOUT / 2),
+          "the process group did not form")
+    check(distributed.transport() == backend, f"transport {distributed.transport()}")
+    dev = torch.device(spec["device"]) if backend == "gloo" else distributed.rank_device()
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh(DIST_SHARDS, devices=[dev])
+    check(isinstance(mesh, GlobalMesh) and mesh.ranks == (0, 0, 1, 1),
+          f"the global mesh's owners are {getattr(mesh, 'ranks', None)}")
+    res = dist_runs(mesh, dist_problem(dev, spec), spec["stage"], spec["ckpt"])
+    res["device"] = str(dev)
+    torch.save(res, spec["out"])
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_workers(spec: dict) -> list:
+    """Two worker processes of this script, one per rank, with a rendezvous
+    on 127.0.0.1; each under ``DIST_TIMEOUT`` seconds, killed beyond it.
+    Their results, in rank order; a worker that fails, hangs or exits
+    non-zero fails the phase, its output printed."""
+    import socket
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    outs = [os.path.join(WORK, f"dist_{spec['backend']}_{spec['stage']}_{r}.pt")
+            for r in range(DIST_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker",
+         json.dumps({**spec, "coordinator": f"127.0.0.1:{port}", "rank": r, "out": outs[r]})],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "LOCAL_WORLD_SIZE": str(DIST_RANKS), "LOCAL_RANK": str(r)})
+        for r in range(DIST_RANKS)]
+    deadline = time.monotonic() + DIST_TIMEOUT
+    logs = []
+    try:
+        for proc in procs:
+            try:
+                logs.append(proc.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                logs.append("(killed at the time limit)")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"phase 19 worker, rank {r} of {spec['stage']} on "
+              f"{spec['backend']}, exited with {proc.returncode}:\n{log[-4000:]}")
+    return [torch.load(out, weights_only=True) for out in outs]
+
+
+def phase_distributed(dev, spec: dict = DIST_SPEC):
+    """Phase 19: the row-sharded learns and predict across two processes
+    (``parallel/distributed.py``), each holding two logical shards: both on
+    ``dev`` over gloo, and, where there are two cards or more, one per card
+    over NCCL; every result bitwise the one-process learn's over the same
+    four shards.  Returns K2's and the split's launches in the distributed
+    ring learns, summed over the ranks."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.parallel.mesh import make_local_mesh
+
+    on_card = dev.type == "cuda"
+    ckpt = os.path.join(WORK, "dist_cg.npz")
+    data = dist_problem(dev, spec)
+    one = dist_runs(make_local_mesh(DIST_SHARDS, devices=[dev]), data, "main",
+                    os.path.join(WORK, "one_cg.npz"))
+    del data
+    n, f = spec["n"], spec["f"]
+    label = cards() if on_card else str(dev)
+    print(f"[19 distributed] rbf {n} x {f} float32, implicit ring over {DIST_SHARDS} shards on "
+          f"{DIST_RANKS} processes ({label})", flush=True)
+    setups = [("gloo", f"both ranks on {dev}")]
+    if on_card and torch.cuda.device_count() > 1:
+        setups.append(("nccl", "one rank per card"))
+    launches = {}
+    for backend, where in setups:
+        base = {"backend": backend, "device": str(dev), "ckpt": ckpt, **spec}
+        start = time.perf_counter()
+        ranks = spawn_workers({**base, "stage": "main"})
+        resumed = spawn_workers({**base, "stage": "resume"})
+        wall = time.perf_counter() - start
+        tag = f"{backend}, {where}"
+        for r, (got, back) in enumerate(zip(ranks, resumed)):
+            for key in ("av_highest", "av_default", "predict", "gather_av"):
+                check(torch.equal(got[key], one[key]), f"{tag}, rank {r}: {key} differs from "
+                      "the one-process run's")
+            for name in ("highest", "adaptive", "gather"):
+                check(got[name]["iters"] == one[name]["iters"]
+                      and torch.equal(got[name]["x"], one[name]["x"]),
+                      f"{tag}, rank {r}: the {name} learn ({got[name]['iters']} iterations) "
+                      f"differs from the one-process one ({one[name]['iters']})")
+            check(back["resumed_k"] == one["highest"]["iters"]
+                  and torch.equal(back["resumed_x"], one["highest"]["x"]),
+                  f"{tag}, rank {r}: the resumed chunked learn ({back['resumed_k']} "
+                  "iterations) differs from the one-shot learn")
+            if on_card:
+                for name in ("highest", "adaptive"):
+                    mine = got[name]["launches"]
+                    want = {k: v // DIST_RANKS for k, v in one[name]["launches"].items()}
+                    check(mine == want, f"{tag}, rank {r}: the {name} learn launched {mine}, "
+                          f"expected half the one-process learn's {want}")
+                check(got["predict_launches"] == {"gram_matvec_rect/exact": 2},
+                      f"{tag}, rank {r}: the predict launched {got['predict_launches']}")
+        if backend == "gloo":
+            for name in ("highest", "adaptive"):
+                for key in one[name]["launches"]:
+                    launches[key] = launches.get(key, 0) + sum(
+                        got[name]["launches"][key] for got in ranks)
+        hi, ad, ga = (ranks[0][k] for k in ("highest", "adaptive", "gather"))
+        print(f"  {tag}: A·v, predict, gather A·v and the {hi['iters']}-, "
+              f"{ad['iters']}- ({ad['fast']} fast) and {ga['iters']}-iteration learns "
+              "bitwise the one-process run's on both ranks; the chunked learn stopped at "
+              f"{DIST_CKPT_AT} and resumed by a fresh pair ends on the one-shot bits; "
+              f"launches per rank {hi['launches']} (highest), {ad['launches']} (adaptive)",
+              flush=True)
+        print(f"[19 distributed] {tag} ({label}): ms per A·v (ranks 0 / 1, one process) "
+              + ", ".join(f"{tier} {ranks[0][f'av_ms_{tier}']:.3f} / "
+                          f"{ranks[1][f'av_ms_{tier}']:.3f}, {one[f'av_ms_{tier}']:.3f}"
+                          for tier in ("highest", "default"))
+              + f"; learn s highest {hi['seconds']:.3f} (one process "
+              f"{one['highest']['seconds']:.3f}), adaptive {ad['seconds']:.3f} "
+              f"({one['adaptive']['seconds']:.3f}), gather ring {ga['seconds']:.3f} "
+              f"({one['gather']['seconds']:.3f}); two launches of two workers {wall:.1f} s",
+              flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2221,12 +2508,20 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also run phase 10: torch.profiler over each sparse tier's CG")
     parser.add_argument("--sharded", action="store_true",
-                        help="build, then phases 17 and 18 only: the sharded learns and "
+                        help="build, then phases 17, 18 and 19 only: the sharded learns and "
                              "predict (over every card where the machine has more than one)")
+    parser.add_argument("--distributed", action="store_true",
+                        help="build, then phase 19 only: the sharded learns and predict "
+                             "across two processes")
+    parser.add_argument("--worker", metavar="SPEC",
+                        help="one rank of phase 19 (started by phase 19 itself)")
     parser.add_argument("--probe", action="store_true",
                         help="build, show the compiler's resource lines, check the split and "
                              "every bf16 kernel with one launch each, and stop")
     args = parser.parse_args(argv)
+    if args.worker:
+        sys.path.insert(0, ROOT)
+        return dist_worker(json.loads(args.worker))
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU",
               flush=True)
@@ -2251,7 +2546,12 @@ def main(argv=None) -> int:
             phase_sharded(dev, rng)
             check(phase_sharded_rest(dev).get("gram_matvec_rect/exact", 0) > 0,
                   "the panel ring's learn launched no K2")
+            phase_distributed(dev)
             print("sharded phases passed", flush=True)
+            return 0
+        if args.distributed:
+            phase_distributed(dev)
+            print("distributed phase passed", flush=True)
             return 0
         # phases 3-16 are the one-device paths, whatever the machine holds
         os.environ["PLSSVM_DEVICES"] = "1"
@@ -2286,6 +2586,7 @@ def main(argv=None) -> int:
         phase_small_clis()
         ring = phase_sharded(dev, rng)
         sparse_ring = phase_sharded_rest(dev, sparse)
+        distributed = phase_distributed(dev)
         if args.profile:
             with environ(PLSSVM_MATMUL_PRECISION="highest"):
                 phase_profile(sparse)
@@ -2299,7 +2600,8 @@ def main(argv=None) -> int:
                    for name, rec in records.items()]
         # the later paths beside the earlier ones: K1 under the chunked CG loop
         # (phase 15), K2 and the split on the ring of 4 shards (phase 17), K2
-        # on the sparse panel ring of 2 shards (phase 18)
+        # on the sparse panel ring of 2 shards (phase 18), K2 and the split on
+        # the ring of 4 shards across two processes (phase 19, both ranks)
         for k in kernels:
             if k["name"] in chunked:
                 k["launches_chunked_learn"] = chunked[k["name"]]
@@ -2307,13 +2609,17 @@ def main(argv=None) -> int:
                 k["launches_ring"] = ring[k["name"]]
             if k["name"] in sparse_ring:
                 k["launches_sparse_ring"] = sparse_ring[k["name"]]
+            if k["name"] in distributed:
+                k["launches_distributed"] = distributed[k["name"]]
         check(len(kernels) == 10 and all(k["launches"] > 0 for k in kernels),
               f"a kernel of the path never launched: {launches}")
         check(chunked["gram_matvec_sym/exact"] > 0
               and all(ring.get(f"gram_matvec_rect/{t}", 0) > 0 for t in TIERS_ALL)
-              and sparse_ring.get("gram_matvec_rect/exact", 0) > 0,
+              and sparse_ring.get("gram_matvec_rect/exact", 0) > 0
+              and all(distributed.get(f"gram_matvec_rect/{t}", 0) > 0 for t in TIERS_ALL)
+              and distributed.get("split_bf16", 0) > 0,
               f"the chunked learn or a ring launched no kernel: {chunked}, {ring}, "
-              f"{sparse_ring}")
+              f"{sparse_ring}, {distributed}")
     except SmokeError as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1

@@ -149,11 +149,13 @@ class CSVM:
         return max(1, n if visible is None else min(n, visible))
 
     def _mesh(self, ndev: int) -> list:
-        from ..parallel.mesh import make_mesh
+        """The devices of this process, also where a process group spans
+        several (the JAX ``CSVM`` would span every process's devices)."""
+        from ..parallel.mesh import make_local_mesh
 
         if self._mesh_cache is None or len(self._mesh_cache) != ndev:
             devices = None if self.device.type == "cuda" else [self.device]
-            self._mesh_cache = make_mesh(ndev, devices=devices)
+            self._mesh_cache = make_local_mesh(ndev, devices=devices)
         return self._mesh_cache
 
     def _shard_axis(self, dept: int, f: int, ndev: int) -> str:

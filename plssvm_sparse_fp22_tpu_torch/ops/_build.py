@@ -13,11 +13,19 @@ link flag and no stub path are needed.  The library goes to
 ``plssvm_sparse_fp22_tpu_torch/_build/`` (listed in ``.gitignore``) at first
 use and is rebuilt when the hash of any source or header, or of the flags,
 changes.  There is no fallback: a failed build raises.
+
+Builds are serialised twice: a thread lock within the process and a file
+lock (``flock`` on ``_build/lock``) across processes, so ranks that reach
+the kernels at once on a fresh tree run ``nvcc`` once, the others load what
+it built.  The operating system releases an ``flock`` when its holder
+exits, however it exits, so a build cut short leaves no stale lock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -35,6 +43,7 @@ CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libgram_matvec.so")
 _STAMP = LIBRARY + ".sha256"
+_LOCK_FILE = "lock"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -67,17 +76,33 @@ def _source_hash() -> str:
     return digest.hexdigest()
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """The build directory to this process alone (it waits for the lock)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, _LOCK_FILE), "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build() -> dict:
-    """Compile the library unless a build of the current sources exists.
-    Returns ``{"path", "seconds", "log", "cached"}``: the wall time of the
-    whole build and the compilers' output (``-Xptxas -v`` register and
-    spill counts of every kernel)."""
+    """Compile the library unless a build of the current sources exists,
+    under the build lock.  Returns ``{"path", "seconds", "log",
+    "cached"}``: the wall time of the whole build and the compilers' output
+    (``-Xptxas -v`` register and spill counts of every kernel)."""
+    with _build_lock():
+        return _build()
+
+
+def _build() -> dict:
     digest = _source_hash()
     if os.path.exists(LIBRARY) and os.path.exists(_STAMP):
         with open(_STAMP) as fh:
             if fh.read().strip() == digest:
                 return {"path": LIBRARY, "seconds": 0.0, "log": "", "cached": True}
-    os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     start = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:

@@ -6,10 +6,22 @@ Port of the JAX package's ``parallel/sharded.py``.  The reference splits the
 (``CUDA/csvm.cu:61-63``); here the *row* axis of the padded system is cut
 into ``p`` equal blocks over a mesh (``parallel/mesh.py``: a list of
 ``torch.device``, one entry per shard), and the feature axis where the data
-is wide, for all three kernels.  **One process drives every device**, as the
-reference does.  A mesh may name one device several times: its shards are
-then logical, which is how the sharded learns run on the CPU and how several
-ring shards run on one card.
+is wide, for all three kernels.  One process drives every device of a
+plain mesh, as the reference does.  A mesh may name one device several
+times: its shards are then logical, which is how the sharded learns run on
+the CPU and how several ring shards run on one card.
+
+A mesh may also span processes (``mesh.GlobalMesh``, from
+``parallel/distributed.py``): each rank then holds and computes its own
+shards (the entries of other ranks' shards are None), and the CG vectors are
+whole on every rank's home device, where every rank runs the same CG on the
+same bits.  The shards' rows of K·v are all-gathered, their partials
+all-gathered and added in global shard order, and a ring block owned by
+another rank arrives by a matched send and receive (:class:`_Exchange`);
+so a learn across processes gives, bit for bit, the one-process learn over
+the same shards.  The row-sharded dense learns, predict and ``w`` and the
+sparse gather ring cross processes; the feature-sharded learn, the sparse
+linear ring and the panel ring raise ``PLSSVMError`` on such a mesh.
 
 Where the vectors live: the data matrix, the largest thing by far, is
 sharded; the CG vectors (``x, r, d, b, q, mask``: D floats each) are held
@@ -34,7 +46,8 @@ The three modes of A·v:
   ``(i - s) mod p`` and adds ``K(X_i, X_j) v_j`` to its rows' sum.  On the
   ``cuda`` backend every such hop is kernel K2 (``ops/gram_matvec.py``) at
   the operator's precision tier; on the ``torch`` backend, and for
-  float64, its plain version.  A block that lies on another device is
+  float64, its plain version.  A block that lies on another device of the
+  process is
   copied into the shard's one receive buffer on side streams (two row
   blocks per shard at most), ordered against the hops by events; the
   tier's operands (``tier_operands``) are prepared once per operator and
@@ -80,6 +93,8 @@ from ..ops.sparse import (TILE, ELLMatrix, HybridSparse, _heavy_by_panel, densif
                           make_streaming_cross_contrib, sparse_q_qa_kii, tiled_matvec)
 from ..solver.cg import CGState, cg_init, cg_run, cg_solve, cg_solve_adaptive
 from ..types import BackendType, KernelType
+from . import distributed
+from .mesh import local_shards, place_local, spans_processes
 
 #: bytes of the partial Gram blocks a feature-sharded A·v holds at once on
 #: the home device; the row blocks are as tall as that allows, at least
@@ -88,7 +103,7 @@ FEATURE_BLOCK_BYTES = 256 * 1024**2
 
 
 def _psum(parts):
-    """Sum of the shards' partials (tensors on one device), in shard order."""
+    """Sum of partials (tensors on one device), in shard order."""
     total = parts[0]
     for part in parts[1:]:
         total = total + part
@@ -97,7 +112,8 @@ def _psum(parts):
 
 def _psum_dot(a, b, num: int):
     """Deterministic sharded dot: one partial per row block, summed in
-    shard order."""
+    shard order.  The vectors are whole on every rank, so each rank holds
+    every shard's partial already and the sum is the same bits on all."""
     return _psum([torch.dot(ai, bi) for ai, bi in zip(a.chunk(num), b.chunk(num))])
 
 
@@ -109,9 +125,15 @@ def _local_corrections(Kv, v, q, mask, QA_cost, cost_inv, num: int):
     return mask * Kv + (QA_cost * s - t) * mask - s * q + cost_inv * v
 
 
+def _home(mesh) -> torch.device:
+    """Where the CG vectors live: the device of this process's first shard."""
+    return mesh[local_shards(mesh)[0]]
+
+
 def _devices(mesh) -> list:
-    """The distinct devices of a mesh, in order of first appearance."""
-    return list(dict.fromkeys(mesh))
+    """The distinct devices of this process's shards, in order of first
+    appearance."""
+    return list(dict.fromkeys(mesh[i] for i in local_shards(mesh)))
 
 
 def _to(t: torch.Tensor, device) -> torch.Tensor:
@@ -119,13 +141,35 @@ def _to(t: torch.Tensor, device) -> torch.Tensor:
 
 
 def _scatter(v: torch.Tensor, mesh) -> dict:
-    """``v`` on every device of the mesh."""
+    """``v`` on every device of this process's shards."""
     return {dev: _to(v, dev) for dev in _devices(mesh)}
 
 
-def _gather(parts, home) -> torch.Tensor:
-    """The shards' row slices joined on the home device."""
-    return torch.cat([_to(part, home) for part in parts])
+def _gather(mesh, parts) -> torch.Tensor:
+    """The shards' row slices joined on the home device; ``parts[i]`` is
+    shard ``i``'s, for this process's shards.  Across processes, one
+    all-gather brings every rank's rows."""
+    home = _home(mesh)
+    mine = torch.cat([_to(parts[i], home) for i in local_shards(mesh)])
+    return torch.cat(distributed.all_gather(mine)) if spans_processes(mesh) else mine
+
+
+def _reduce(mesh, parts) -> torch.Tensor:
+    """The shards' partials (``parts[i]``, for this process's shards) added
+    on the home device in global shard order: across processes every rank
+    gathers all of them first, so every rank, and a one-process run over
+    the same shards, gets the same bits."""
+    home = _home(mesh)
+    mine = [_to(parts[i], home) for i in local_shards(mesh)]
+    if spans_processes(mesh):
+        mine = [t for rank_parts in distributed.all_gather(torch.stack(mine)) for t in rank_parts]
+    return _psum(mine)
+
+
+def _one_process(mesh, name: str) -> None:
+    if spans_processes(mesh):
+        raise PLSSVMError(f"{name} runs in one process; its mesh spans "
+                          f"{len(set(mesh.ranks))} processes")
 
 
 class _Ring:
@@ -133,7 +177,8 @@ class _Ring:
     a hop reads of block ``j`` as shard ``i`` sees it.  A block is a tuple of
     tensors, of any dtypes, equal in shape from block to block: a dense
     block's tier operands and row norms, a sparse shard's packing and row
-    norms."""
+    norms.  ``blocks[j]`` is None where another process holds shard ``j``;
+    such a block arrives through :class:`_Exchange`."""
 
     def __init__(self, mesh, blocks):
         self.mesh, self.blocks = mesh, blocks
@@ -146,10 +191,26 @@ class _Ring:
                 # the copies' streams start after the operands are prepared
                 self.side[dev] = torch.cuda.Stream(device=dev)
                 self.side[dev].wait_stream(torch.cuda.current_stream(dev))
+        self.exchange = _Exchange(mesh, blocks) if spans_processes(mesh) else None
+
+    def hops(self):
+        """``(i, j)`` of every hop this process runs, step by step: at step
+        ``s`` shard ``i`` reads block ``(i - s) mod p``.  Across processes
+        each step begins with its transfers, which every rank posts at the
+        same point."""
+        p = len(self.mesh)
+        for s in range(p):
+            if self.exchange is not None:
+                self.exchange.begin(s)
+            for i in local_shards(self.mesh):
+                yield i, (i - s) % p
 
     def fetch(self, i: int, j: int):
         """Block ``j`` for shard ``i``: the owner's tensors where both lie
-        on one device, else a copy into shard ``i``'s receive buffer."""
+        on one device, else a copy into shard ``i``'s receive buffer, or
+        what arrived from the rank that holds it."""
+        if self.blocks[j] is None:
+            return self.exchange.block(i)
         src, dst = self.mesh[j], self.mesh[i]
         if src == dst:
             return self.blocks[j]
@@ -183,19 +244,104 @@ class _Ring:
             self.free[i].record(torch.cuda.current_stream(self.mesh[i]))
 
 
+class _Exchange:
+    """The ring's hops between processes.  At step ``s`` each of this rank's
+    shards ``i`` whose block ``j = (i - s) mod p`` lies on another rank
+    receives it, and each of its shards ``j`` whose reader ``(j + s) mod p``
+    lies on another rank sends its block there: a matched send and receive
+    per tensor of the block, posted together (``distributed.post``).  Step
+    ``s + 1``'s transfers are posted as step ``s`` begins, so they travel
+    while step ``s`` computes; each shard has two receive buffers, one per
+    parity of ``s``.  Step 0 reads only a shard's own block.
+
+    Through host memory (gloo and CUDA tensors) a rank sends host copies of
+    its blocks, made once, receives into pinned host buffers and copies a
+    block to its shard's device buffer on the compute stream, in order with
+    the hops; a host buffer is written again only after that copy is done.
+    NCCL moves device tensors; its stream waits for the hops queued before
+    a transfer is posted, and the hops after it wait for the transfer."""
+
+    def __init__(self, mesh, blocks):
+        self.mesh, self.ranks, self.rank = mesh, mesh.ranks, mesh.rank
+        self.local = local_shards(mesh)
+        template = blocks[self.local[0]]
+        self.staged = distributed.through_host(template[0])
+        self.out = {j: tuple(_host_copy(t) for t in blocks[j]) if self.staged else blocks[j]
+                    for j in self.local}
+        self.template = self.out[self.local[0]]
+        self.inbox = {}      # (i, parity) -> the receive buffers
+        self.on_dev = {}     # i -> the device buffers a staged block is copied to
+        self.copied = {}     # parity -> event: the host-to-device copies are done
+        self.works, self.arrived, self.ready = [], {}, {}
+
+    def _buffers(self, i: int, parity: int):
+        if (i, parity) not in self.inbox:
+            self.inbox[i, parity] = tuple(
+                torch.empty(t.shape, dtype=t.dtype, device=t.device, pin_memory=self.staged)
+                for t in self.template)
+        return self.inbox[i, parity]
+
+    def _post(self, s: int) -> None:
+        p, parity = len(self.mesh), s % 2
+        for event in self.copied.pop(parity, ()):
+            event.synchronize()
+
+        def tag(j, k):
+            return (parity * p + j) * len(self.template) + k
+
+        sends = [(t, self.ranks[(j + s) % p], tag(j, k))
+                 for j in self.local if self.ranks[(j + s) % p] != self.rank
+                 for k, t in enumerate(self.out[j]) if t.numel()]
+        recv_from = sorted(((i - s) % p, i) for i in self.local
+                           if self.ranks[(i - s) % p] != self.rank)
+        recvs = [(t, self.ranks[j], tag(j, k)) for j, i in recv_from
+                 for k, t in enumerate(self._buffers(i, parity)) if t.numel()]
+        self.works = distributed.post(sends, recvs)
+        self.arrived = {i: self._buffers(i, parity) for _, i in recv_from}
+
+    def begin(self, s: int) -> None:
+        """Wait for step ``s``'s transfers and post step ``s + 1``'s."""
+        if s > 0:
+            for work in self.works:
+                work.wait()
+            if self.staged:
+                for i, host in self.arrived.items():
+                    if i not in self.on_dev:
+                        self.on_dev[i] = tuple(torch.empty_like(t, device=self.mesh[i])
+                                               for t in host)
+                    for t_dev, t_host in zip(self.on_dev[i], host):
+                        t_dev.copy_(t_host, non_blocking=True)
+                self.copied[s % 2] = [torch.cuda.Event() for _ in _devices(self.mesh)]
+                for event, dev in zip(self.copied[s % 2], _devices(self.mesh)):
+                    event.record(torch.cuda.current_stream(dev))
+                self.arrived = {i: self.on_dev[i] for i in self.arrived}
+            self.ready = self.arrived
+        if s + 1 < len(self.mesh):
+            self._post(s + 1)
+
+    def block(self, i: int):
+        """What arrived for shard ``i`` at the current step."""
+        return self.ready[i]
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
 def _build_local_matvec(kernel, mesh, Xs, q, mask, QA_cost, cost_inv, degree, gamma, coef0,
                         mode, K_locs=None, backend: BackendType = BackendType.torch,
                         precision: str | None = None):
     """A·v of the sharded system: ``v`` (D,) on the home device -> ``A v``
-    there, the Gram product computed shard by shard.
+    there, the Gram product computed shard by shard (this process's
+    shards; ``K_locs`` maps them to their slabs of K).
 
     ``precision`` is the tier of the per-iteration products (``linear`` and
     ``implicit`` modes; ``None``: the backend's fixed tier) — the adaptive
     two-tier CG builds the same matvec at two tiers, as the single-device
     ``build_operator`` does."""
-    p, home = len(mesh), mesh[0]
-    dtype = Xs[0].dtype
-    m = Xs[0].shape[0]
+    p, mine = len(mesh), local_shards(mesh)
+    dtype = Xs[mine[0]].dtype
+    m = Xs[mine[0]].shape[0]
     tier = resolve_tier(fixed_tier(backend) if precision is None else precision, dtype)
 
     def corrections(Kv, v):
@@ -206,54 +352,51 @@ def _build_local_matvec(kernel, mesh, Xs, q, mask, QA_cost, cost_inv, degree, ga
             raise ValueError("mode='linear' requires the linear kernel")
         # as the single-device operator: plain products on the tier's operands,
         # the bf16 parts upcast once
-        Xo = [tier_operands(tier, X, pad=False) for X in Xs]
+        Xo = {i: tier_operands(tier, Xs[i], pad=False) for i in mine}
         if tier != "exact":
-            Xo = [tuple(t.float() for t in ops) for ops in Xo]
-        XoT = [tuple(t.T for t in ops) for ops in Xo]
+            Xo = {i: tuple(t.float() for t in ops) for i, ops in Xo.items()}
+        XoT = {i: tuple(t.T for t in ops) for i, ops in Xo.items()}
 
         def matvec(v):
             v_on = _scatter(v, mesh)
-            parts = [tier_matmul(tier, XoT[i], tier_operands(tier, v_on[dev][i * m:(i + 1) * m]))
-                     for i, dev in enumerate(mesh)]
+            parts = {i: tier_matmul(tier, XoT[i],
+                                    tier_operands(tier, v_on[mesh[i]][i * m:(i + 1) * m]))
+                     for i in mine}
             # the one reduction of f floats, then u back to every device
-            u = _psum([_to(part, home) for part in parts])
+            u = _reduce(mesh, parts)
             uo_on = {dev: tier_operands(tier, u_dev) for dev, u_dev in _scatter(u, mesh).items()}
-            Kv = _gather([tier_matmul(tier, Xo[i], uo_on[dev]) for i, dev in enumerate(mesh)],
-                         home)
+            Kv = _gather(mesh, {i: tier_matmul(tier, Xo[i], uo_on[mesh[i]]) for i in mine})
             return corrections(Kv, v)
 
     elif mode == "cached":
 
         def matvec(v):
             v_on = _scatter(v, mesh)
-            Kv = _gather([K_locs[i] @ v_on[dev] for i, dev in enumerate(mesh)], home)
-            return corrections(Kv, v)
+            return corrections(_gather(mesh, {i: K_locs[i] @ v_on[mesh[i]] for i in mine}), v)
 
     elif mode == "implicit":
         # float64 hops take the plain product on either backend: the kernels
         # are float32 only
         use_kernel = backend == BackendType.cuda and dtype == torch.float32
         hop_fn = gram_matvec if use_kernel else gram_matvec_plain
-        sq = [row_sqnorms(X) for X in Xs]
-        ops = [tier_operands(tier, X) for X in Xs]  # split or cast once per operator
-        ring = _Ring(mesh, [(*o, s) for o, s in zip(ops, sq)])
+        sq = {i: row_sqnorms(Xs[i]) for i in mine}
+        ops = {i: tier_operands(tier, Xs[i]) for i in mine}  # split or cast once per operator
+        ring = _Ring(mesh, [(*ops[j], sq[j]) if j in ops else None for j in range(p)])
         kw = {"degree": degree, "gamma": gamma, "coef0": coef0, "tier": tier}
 
         def matvec(v):
             v_on = _scatter(v, mesh)
-            acc = [None] * p
-            for s in range(p):
-                for i, dev in enumerate(mesh):
-                    j = (i - s) % p
-                    block = ring.fetch(i, j)
-                    *ops_j, sq_j = block
-                    # K(X_i, X_j) v_j from the operands alone: the float32 rows
-                    # of block j need not travel at a bf16 tier
-                    hop = hop_fn(kernel, Xs[i], v_on[dev][j * m:(j + 1) * m], sqx=sq[i],
-                                 sqy=sq_j, operands=(ops[i], tuple(ops_j)), **kw)
-                    ring.release(i, block)
-                    acc[i] = hop if acc[i] is None else acc[i] + hop
-            return corrections(_gather(acc, home), v)
+            acc = {}
+            for i, j in ring.hops():
+                block = ring.fetch(i, j)
+                *ops_j, sq_j = block
+                # K(X_i, X_j) v_j from the operands alone: the float32 rows
+                # of block j need not travel at a bf16 tier
+                hop = hop_fn(kernel, Xs[i], v_on[mesh[i]][j * m:(j + 1) * m], sqx=sq[i],
+                             sqy=sq_j, operands=(ops[i], tuple(ops_j)), **kw)
+                ring.release(i, block)
+                acc[i] = hop if i not in acc else acc[i] + hop
+            return corrections(_gather(mesh, acc), v)
 
     else:
         raise ValueError(f"unknown sharded matvec mode '{mode}'")
@@ -262,14 +405,23 @@ def _build_local_matvec(kernel, mesh, Xs, q, mask, QA_cost, cost_inv, degree, ga
 
 
 def _check_system(mesh, Xs, backend) -> None:
+    """The row blocks of this process's shards lie on their mesh devices,
+    equal in shape; another rank's entries are None."""
     if len(Xs) != len(mesh):
         raise ValueError(f"{len(Xs)} row blocks for a mesh of {len(mesh)} shards")
-    for X, dev in zip(Xs, mesh):
-        if X.device != dev or X.shape != Xs[0].shape:
+    mine = local_shards(mesh)
+    first = Xs[mine[0]]
+    for i, (X, dev) in enumerate(zip(Xs, mesh)):
+        if i not in mine:
+            if X is not None:
+                raise ValueError(f"shard {i} belongs to rank {mesh.ranks[i]}; this process "
+                                 "holds None there (make_global_row_sharded)")
+        elif X is None or X.device != dev or X.shape != first.shape:
             raise ValueError("the row blocks must be equal in shape and lie on their mesh "
-                             f"devices (shard_system): got {tuple(X.shape)} on {X.device}, "
-                             f"expected {tuple(Xs[0].shape)} on {dev}")
-    if backend == BackendType.cuda and any(dev.type != "cuda" for dev in mesh):
+                             f"devices (shard_system): got "
+                             f"{None if X is None else (tuple(X.shape), X.device)}, expected "
+                             f"{tuple(first.shape)} on {dev}")
+    if backend == BackendType.cuda and any(dev.type != "cuda" for dev in _devices(mesh)):
         raise PLSSVMError(f"backend 'cuda' needs the system on CUDA devices, got {mesh}")
 
 
@@ -281,26 +433,27 @@ def _prepare_local(kernel, mesh, Xs, x_last, mask, gamma, coef0, cost, degree, m
     the one-device path.  ``precision`` is the matvec's tier (q, QA_cost and
     the cached K stay exact)."""
     _check_system(mesh, Xs, backend)
-    home, dtype = mesh[0], Xs[0].dtype
+    mine = local_shards(mesh)
+    home, dtype = _home(mesh), Xs[mine[0]].dtype
     kw = {"degree": degree, "gamma": gamma, "coef0": coef0}
     cost_inv = _cost_inv(cost, dtype, home)
     x_last = torch.as_tensor(x_last, dtype=dtype)
     xl_on = _scatter(_to(x_last, home), mesh)
     # q_i = k(x_i, x_last): local to each shard (x_last on every device)
-    q = _gather([gram_block(kernel, X, xl_on[dev][None, :], **kw)[:, 0]
-                 for X, dev in zip(Xs, mesh)], home) * mask
+    q = _gather(mesh, {i: gram_block(kernel, Xs[i], xl_on[mesh[i]][None, :], **kw)[:, 0]
+                       for i in mine}) * mask
     QA_cost = kernel_scalar(kernel, xl_on[home], xl_on[home], **kw) + cost_inv
 
     K_locs = None
     if mode == "cached":
-        # each shard's row slab of K against the gathered data; the gathered
-        # copy is dropped after the assembly
+        # each shard's row slab of K against the gathered data (every rank's
+        # rows); the gathered copies are dropped after the assembly
         mask_on = _scatter(mask, mesh)
-        m = Xs[0].shape[0]
-        X_full = {dev: torch.cat([_to(X, dev) for X in Xs]) for dev in _devices(mesh)}
-        K_locs = [gram_block(kernel, X, X_full[dev], **kw)
-                  * (mask_on[dev][i * m:(i + 1) * m, None] * mask_on[dev][None, :])
-                  for i, (X, dev) in enumerate(zip(Xs, mesh))]
+        m = Xs[mine[0]].shape[0]
+        X_full = _scatter(_gather(mesh, Xs), mesh)
+        K_locs = {i: gram_block(kernel, Xs[i], X_full[mesh[i]], **kw)
+                  * (mask_on[mesh[i]][i * m:(i + 1) * m, None] * mask_on[mesh[i]][None, :])
+                  for i in mine}
         del X_full
 
     matvec = _build_local_matvec(kernel, mesh, Xs, q, mask, QA_cost, cost_inv, degree, gamma,
@@ -308,7 +461,7 @@ def _prepare_local(kernel, mesh, Xs, x_last, mask, gamma, coef0, cost, degree, m
                                  precision=precision)
     minv = None
     if precond == "jacobi":
-        kii = _gather([kernel_diag(kernel, row_sqnorms(X), **kw) for X in Xs], home)
+        kii = _gather(mesh, {i: kernel_diag(kernel, row_sqnorms(Xs[i]), **kw) for i in mine})
         minv = jacobi_minv_from_kii(kii, q, mask, QA_cost, cost_inv)
     return q, QA_cost, cost_inv, matvec, minv
 
@@ -408,18 +561,18 @@ def make_sharded_predict(mesh, kernel: KernelType, degree: int,
     Returns ``fn(points, Xs_sv, alphas_s, bias, gamma, coef0) -> (npoints,)``
     with ``points`` on the home device and ``Xs_sv`` / ``alphas_s`` the row
     blocks of the support vectors and their weights on the mesh's devices
-    (zero-padded rows are harmless: their alphas are zero)."""
-    home = mesh[0]
+    (zero-padded rows are harmless: their alphas are zero).  Across
+    processes each rank expands its own shards and gets the whole
+    decision values."""
 
     def run(points, Xs_sv, alphas_s, bias, gamma, coef0):
         _check_system(mesh, Xs_sv, backend)
         use_kernel = backend == BackendType.cuda and points.dtype == torch.float32
         fn = gram_matvec if use_kernel else gram_matvec_plain
         P_on = _scatter(points, mesh)
-        parts = [fn(kernel, P_on[dev], a, Y=X, degree=degree, gamma=float(gamma),
-                    coef0=float(coef0))
-                 for X, a, dev in zip(Xs_sv, alphas_s, mesh)]
-        return _psum([_to(part, home) for part in parts]) + bias
+        return _reduce(mesh, {i: fn(kernel, P_on[mesh[i]], alphas_s[i], Y=Xs_sv[i],
+                                    degree=degree, gamma=float(gamma), coef0=float(coef0))
+                              for i in local_shards(mesh)}) + bias
 
     return run
 
@@ -428,10 +581,9 @@ def make_sharded_w(mesh):
     """Multi-device ``w = X^T alpha`` (the linear predict's fast path,
     ``gpu_csvm.cpp:327-350``): each shard contracts its row slice, the
     partials of f floats are added in shard order on the home device."""
-    home = mesh[0]
 
     def run(Xs, alphas_s):
-        return _psum([_to(X.T @ a, home) for X, a in zip(Xs, alphas_s)])
+        return _reduce(mesh, {i: Xs[i].T @ alphas_s[i] for i in local_shards(mesh)})
 
     return run
 
@@ -442,18 +594,21 @@ def _tensor(a) -> torch.Tensor:
 
 def shard_rows(mesh, a, dtype: torch.dtype | None = None) -> list:
     """The ``len(mesh)`` equal row blocks of ``a`` (numpy or torch, rows a
-    multiple of the mesh size), block ``i`` contiguous on ``mesh[i]``."""
+    multiple of the mesh size), block ``i`` contiguous on ``mesh[i]``; on a
+    mesh that spans processes, this process's blocks only (None for the
+    others)."""
     a = _tensor(a)
     p = len(mesh)
     if a.shape[0] % p:
         raise ValueError(f"{a.shape[0]} rows do not divide evenly over the {p}-shard mesh; "
                          f"pad the system to a multiple of {p} rows first")
-    return [blk.to(device=dev, dtype=dtype).contiguous() for blk, dev in zip(a.chunk(p), mesh)]
+    blocks = a.chunk(p)
+    return place_local(mesh, [blocks[i] for i in local_shards(mesh)], dtype)
 
 
 def _whole(mesh, a, dtype: torch.dtype | None = None) -> torch.Tensor:
     """``a`` whole on the home device."""
-    return _tensor(a).to(device=mesh[0], dtype=dtype)
+    return _tensor(a).to(device=_home(mesh), dtype=dtype)
 
 
 def shard_system(mesh, X_pad, b_pad, mask, dtype: torch.dtype | None = None):
@@ -564,7 +719,8 @@ def make_feature_sharded_learn(mesh, kernel: KernelType, degree: int, precond: s
 
     Returns ``fn(Xs, x_lasts, b, mask, gamma, coef0, cost, eps, imax) -> (x,
     s, t, QA_cost, iterations, delta, delta0)`` with the arguments from
-    :func:`shard_system_feature`."""
+    :func:`shard_system_feature`.  One process only."""
+    _one_process(mesh, "make_feature_sharded_learn")
 
     def run(Xs, x_lasts, b, mask, gamma, coef0, cost, eps, imax):
         q, QA_cost, _ci, matvec, minv = _prepare_feature_local(
@@ -582,7 +738,9 @@ def make_feature_sharded_learn_fns(mesh, kernel: KernelType, degree: int,
     of :func:`make_sharded_learn_fns` (``x_last`` given as the slices of
     :func:`shard_system_feature`); the operator is built once per pair, and
     the state is whole on the home device, so a checkpoint has the
-    single-device format (``sharded.py:331-381`` of the JAX package)."""
+    single-device format (``sharded.py:331-381`` of the JAX package).  One
+    process only."""
+    _one_process(mesh, "make_feature_sharded_learn_fns")
 
     def prepare(Xs, x_lasts, mask, gamma, coef0, cost):
         return _prepare_feature_local(kernel, mesh, Xs, x_lasts, mask, gamma, coef0, cost,
@@ -612,9 +770,11 @@ def shard_system_feature(mesh, X_pad, x_last, b_pad, mask, dtype: torch.dtype | 
 # ---------------------------------------------------------------------------
 
 def _per_shard(mesh, A: np.ndarray, dtype: torch.dtype | None = None) -> list:
-    """Row ``s`` of ``A`` on ``mesh[s]``."""
+    """Row ``s`` of ``A`` on ``mesh[s]``, for this process's shards (None
+    for the others)."""
+    mine = set(local_shards(mesh))
     return [torch.from_numpy(np.ascontiguousarray(A[s])).to(device=dev, dtype=dtype)
-            for s, dev in enumerate(mesh)]
+            if s in mine else None for s, dev in enumerate(mesh)]
 
 
 def shard_sparse_system(mesh, h, b_pad, mask, dtype: torch.dtype | None = None):
@@ -624,7 +784,9 @@ def shard_sparse_system(mesh, h, b_pad, mask, dtype: torch.dtype | None = None):
     shard and padded to one count for all shards with entries of value 0 at
     row and column 0, which add nothing.  Returns ``(vals, cols, trow, tcol,
     tval, b, mask)``: five lists of per-shard tensors (the tail's as vectors
-    of that count) and ``b``, ``mask`` whole on the home device."""
+    of that count) and ``b``, ``mask`` whole on the home device.  On a mesh
+    that spans processes every rank passes the whole packing, as the JAX
+    package's workers group the tails, and places its own shards."""
     p = len(mesh)
     n = h.ell.values.shape[0]
     if n % p:
@@ -649,11 +811,15 @@ def shard_sparse_system(mesh, h, b_pad, mask, dtype: torch.dtype | None = None):
             _whole(mesh, b_pad, dtype), _whole(mesh, mask, dtype))
 
 
+def _packing(f: int, vals, cols, trow, tcol, tval) -> HybridSparse:
+    """A shard's ELL+COO rows as an ``ops/sparse.HybridSparse``."""
+    return HybridSparse(ell=ELLMatrix(values=vals, cols=cols, shape=(vals.shape[0], f)),
+                        coo_rows=trow, coo_cols=tcol, coo_vals=tval)
+
+
 def _packings(vals, cols, trow, tcol, tval, f: int) -> list:
     """Each shard's ELL+COO rows as an ``ops/sparse.HybridSparse``."""
-    return [HybridSparse(ell=ELLMatrix(values=v, cols=c, shape=(v.shape[0], f)), coo_rows=r,
-                         coo_cols=tc, coo_vals=tv)
-            for v, c, r, tc, tv in zip(vals, cols, trow, tcol, tval)]
+    return [_packing(f, *shard) for shard in zip(vals, cols, trow, tcol, tval)]
 
 
 def _prepare_sparse_linear(mesh, vals, cols, trow, tcol, tval, x_last, mask, cost, precond):
@@ -669,7 +835,7 @@ def _prepare_sparse_linear(mesh, vals, cols, trow, tcol, tval, x_last, mask, cos
     cost_inv = _cost_inv(cost, dtype, home)
     hs = _packings(vals, cols, trow, tcol, tval, x_last.shape[0])
     xl_on = _scatter(x_last, mesh)
-    q = _gather([hybrid_matvec(h, xl_on[dev]) for h, dev in zip(hs, mesh)], home) * mask
+    q = _gather(mesh, [hybrid_matvec(h, xl_on[dev]) for h, dev in zip(hs, mesh)]) * mask
     QA_cost = torch.dot(x_last, x_last) + cost_inv
 
     def matvec(v):
@@ -677,13 +843,13 @@ def _prepare_sparse_linear(mesh, vals, cols, trow, tcol, tval, x_last, mask, cos
         u = _psum([_to(hybrid_rmatvec(h, v_on[dev][i * m:(i + 1) * m]), home)
                    for i, (h, dev) in enumerate(zip(hs, mesh))])
         u_on = _scatter(u, mesh)
-        Kv = _gather([hybrid_matvec(h, u_on[dev]) for h, dev in zip(hs, mesh)], home)
+        Kv = _gather(mesh, [hybrid_matvec(h, u_on[dev]) for h, dev in zip(hs, mesh)])
         return _local_corrections(Kv, v, q, mask, QA_cost, cost_inv, p)
 
     minv = None
     if precond == "jacobi":
         # linear kernel: kii = the rows' squared norms (ELL + COO tail)
-        kii = _gather([hybrid_row_sqnorms(h) for h in hs], home)
+        kii = _gather(mesh, [hybrid_row_sqnorms(h) for h in hs])
         minv = jacobi_minv_from_kii(kii, q, mask, QA_cost, cost_inv)
     return q, QA_cost, cost_inv, matvec, minv
 
@@ -696,7 +862,9 @@ def make_sharded_sparse_linear_learn(mesh, precond: str = "none"):
 
     Returns ``fn(vals, cols, trow, tcol, tval, x_last, b, mask, cost, eps,
     imax) -> (x, s, t, QA_cost, iterations, delta, delta0)`` with the system
-    from :func:`shard_sparse_system` and ``x_last`` dense."""
+    from :func:`shard_sparse_system` and ``x_last`` dense.  One process
+    only."""
+    _one_process(mesh, "make_sharded_sparse_linear_learn")
 
     def run(vals, cols, trow, tcol, tval, x_last, b, mask, cost, eps, imax):
         q, QA_cost, _ci, matvec, minv = _prepare_sparse_linear(
@@ -794,8 +962,8 @@ def _prepare_sparse_panel_local(kernel, mesh, tvals, tlcols, heavy, hrow, x_last
             g_i[rows] += hv @ xl_on[dev]
         sq.append(sq_i)
         g_last.append(g_i)
-    q, QA_cost, kii = sparse_q_qa_kii(int(kernel), degree, gamma, coef0, _gather(g_last, home),
-                                      torch.dot(x_last, x_last), _gather(sq, home), mask,
+    q, QA_cost, kii = sparse_q_qa_kii(int(kernel), degree, gamma, coef0, _gather(mesh, g_last),
+                                      torch.dot(x_last, x_last), _gather(mesh, sq), mask,
                                       cost_inv)
 
     # float64 hops take the plain product on either backend: the kernels are
@@ -840,7 +1008,7 @@ def _prepare_sparse_panel_local(kernel, mesh, tvals, tlcols, heavy, hrow, x_last
                 j = (i - s) % p
                 part = hop(i, j, v_on[dev][j * m:(j + 1) * m])
                 acc[i] = part if acc[i] is None else acc[i] + part
-        return _local_corrections(_gather(acc, home), v, q, mask, QA_cost, cost_inv, p)
+        return _local_corrections(_gather(mesh, acc), v, q, mask, QA_cost, cost_inv, p)
 
     minv = None
     if precond == "jacobi":
@@ -862,7 +1030,8 @@ def make_sharded_sparse_panel_learn(mesh, kernel: KernelType, degree: int, *, nt
     Returns ``fn(tvals, tlcols, heavy, hrow, x_last, b, mask, gamma, coef0,
     cost, eps, imax) -> (x, s, t, QA_cost, iterations, delta, delta0)`` with
     the system from :func:`shard_sparse_tiled_system` and ``x_last``
-    dense."""
+    dense.  One process only."""
+    _one_process(mesh, "make_sharded_sparse_panel_learn")
 
     def run(tvals, tlcols, heavy, hrow, x_last, b, mask, gamma, coef0, cost, eps, imax):
         q, QA_cost, _ci, matvec, minv = _prepare_sparse_panel_local(
@@ -888,37 +1057,35 @@ def _prepare_sparse_gather_local(kernel, mesh, vals, cols, trow, tcol, tval, x_l
     nnz-proportional ``gather`` strategy, row tiles of :func:`_gather_tile`
     rows, column panels of at most 128)."""
     _check_system(mesh, vals, BackendType.torch)
-    p, home, dtype = len(mesh), mesh[0], vals[0].dtype
-    m = vals[0].shape[0]
+    p, mine, home = len(mesh), local_shards(mesh), _home(mesh)
+    dtype, m = vals[mine[0]].dtype, vals[mine[0]].shape[0]
     x_last = _to(torch.as_tensor(x_last, dtype=dtype), home)
     f = x_last.shape[0]
     cost_inv = _cost_inv(cost, dtype, home)
-    shards = list(zip(vals, cols, trow, tcol, tval))
-    hs = _packings(vals, cols, trow, tcol, tval, f)
+    shards = {i: (vals[i], cols[i], trow[i], tcol[i], tval[i]) for i in mine}
+    hs = {i: _packing(f, *shards[i]) for i in mine}
     xl_on = _scatter(x_last, mesh)
-    sq = [hybrid_row_sqnorms(h) for h in hs]
-    g_last = _gather([hybrid_matvec(h, xl_on[dev]) for h, dev in zip(hs, mesh)], home)
+    sq = {i: hybrid_row_sqnorms(hs[i]) for i in mine}
+    g_last = _gather(mesh, {i: hybrid_matvec(hs[i], xl_on[mesh[i]]) for i in mine})
     q, QA_cost, kii = sparse_q_qa_kii(int(kernel), degree, gamma, coef0, g_last,
-                                      torch.dot(x_last, x_last), _gather(sq, home), mask,
+                                      torch.dot(x_last, x_last), _gather(mesh, sq), mask,
                                       cost_inv)
     bm = _gather_tile(m)
-    contribs = [make_streaming_cross_contrib(
-        int(kernel), degree, gamma, coef0, row_vals=vi, row_cols=ci, row_sq=sq_i, row_trow=ri,
+    contribs = {i: make_streaming_cross_contrib(
+        int(kernel), degree, gamma, coef0, row_vals=vi, row_cols=ci, row_sq=sq[i], row_trow=ri,
         row_tcol=tci, row_tval=tvi, f=f, bm=bm, bn=min(bm, 128), strategy="gather")
-        for (vi, ci, ri, tci, tvi), sq_i in zip(shards, sq)]
-    ring = _Ring(mesh, [(*shard, sq_j) for shard, sq_j in zip(shards, sq)])
+        for i, (vi, ci, ri, tci, tvi) in shards.items()}
+    ring = _Ring(mesh, [(*shards[j], sq[j]) if j in shards else None for j in range(p)])
 
     def matvec(v):
         v_on = _scatter(v, mesh)
-        acc = [None] * p
-        for s in range(p):
-            for i, dev in enumerate(mesh):
-                j = (i - s) % p
-                block = ring.fetch(i, j)
-                part = contribs[i](*block, v_on[dev][j * m:(j + 1) * m])
-                ring.release(i, block)
-                acc[i] = part if acc[i] is None else acc[i] + part
-        return _local_corrections(_gather(acc, home), v, q, mask, QA_cost, cost_inv, p)
+        acc = {}
+        for i, j in ring.hops():
+            block = ring.fetch(i, j)
+            part = contribs[i](*block, v_on[mesh[i]][j * m:(j + 1) * m])
+            ring.release(i, block)
+            acc[i] = part if i not in acc else acc[i] + part
+        return _local_corrections(_gather(mesh, acc), v, q, mask, QA_cost, cost_inv, p)
 
     minv = None
     if precond == "jacobi":

@@ -133,3 +133,76 @@ def test_build_covers_every_source_and_header(tmp_path, monkeypatch):
     (csrc / "extra.cu").write_text("// another kernel source\n")
     assert [os.path.basename(p) for p in _build.sources()] == ["extra.cu", "gram_matvec.cu",
                                                                "pair_contrib.cu", "split_bf16.cu"]
+
+
+#: a process that builds into the directory ``argv[1]`` and prints what came of it
+_BUILD_PROBE = """
+import json, os, sys
+from plssvm_sparse_fp22_tpu_torch.exceptions import BackendError
+from plssvm_sparse_fp22_tpu_torch.ops import _build
+_build.BUILD_DIR = sys.argv[1]
+_build.LIBRARY = os.path.join(sys.argv[1], "libgram_matvec.so")
+_build._STAMP = _build.LIBRARY + ".sha256"
+try:
+    print(json.dumps({"cached": _build.build()["cached"]}))
+except BackendError as exc:
+    print(json.dumps({"error": str(exc)}))
+"""
+
+#: an ``nvcc`` that writes its output file after a second and logs the call
+_FAKE_NVCC = """#!/bin/sh
+echo "$@" >> "$(dirname "$0")/calls.log"
+sleep 1
+while [ "$#" -gt 0 ]; do
+    if [ "$1" = "-o" ]; then out="$2"; fi
+    shift
+done
+echo built > "$out"
+"""
+
+
+def _build_twice_at_once(build_dir, cuda_home):
+    """Two processes that call ``build()`` at the same time; their results."""
+    import json
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "CUDA_HOME": str(cuda_home),
+           "PATH": os.pathsep.join(p for p in os.environ.get("PATH", "").split(os.pathsep)
+                                   if not os.path.exists(os.path.join(p, "nvcc")))}
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_PROBE, str(build_dir)], cwd=root,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [proc.communicate(timeout=120) for proc in procs]
+    for proc, (out, err) in zip(procs, outs):
+        assert proc.returncode == 0, err
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+
+
+def test_two_processes_without_nvcc_both_fail_cleanly(tmp_path):
+    """With no ``nvcc`` both builds raise, one after the other under the
+    file lock, and leave no library, stamp or object behind."""
+    build_dir = tmp_path / "_build"
+    results = _build_twice_at_once(build_dir, tmp_path / "no_cuda")
+    assert all("nvcc not found" in r.get("error", "") for r in results), results
+    assert sorted(os.listdir(build_dir)) == ["lock"]
+
+
+def test_two_processes_build_once(tmp_path):
+    """Two processes that reach the build at once on a fresh tree: the file
+    lock lets one run ``nvcc`` (once per source, then the link) and the
+    other finds that build."""
+    from plssvm_sparse_fp22_tpu_torch.ops import _build
+
+    bin_dir = tmp_path / "cuda" / "bin"
+    bin_dir.mkdir(parents=True)
+    (bin_dir / "nvcc").write_text(_FAKE_NVCC)
+    (bin_dir / "nvcc").chmod(0o755)
+    build_dir = tmp_path / "_build"
+    results = _build_twice_at_once(build_dir, tmp_path / "cuda")
+    assert sorted(r["cached"] for r in results) == [False, True], results
+    calls = (bin_dir / "calls.log").read_text().splitlines()
+    assert len(calls) == len(_build.sources()) + 1  # every source, then the link
+    assert sorted(os.listdir(build_dir)) == ["libgram_matvec.so", "libgram_matvec.so.sha256",
+                                             "lock"]

@@ -36,7 +36,9 @@ EXPECTED = {
     "plssvm_sparse_fp22_tpu_torch.solver.cg", "plssvm_sparse_fp22_tpu_torch.solver.checkpoint",
     "plssvm_sparse_fp22_tpu_torch.models.base", "plssvm_sparse_fp22_tpu_torch.models.sparse_learn",
     "plssvm_sparse_fp22_tpu_torch.parallel", "plssvm_sparse_fp22_tpu_torch.parallel.mesh",
-    "plssvm_sparse_fp22_tpu_torch.parallel.sharded", "plssvm_sparse_fp22_tpu_torch.utils.timing",
+    "plssvm_sparse_fp22_tpu_torch.parallel.sharded",
+    "plssvm_sparse_fp22_tpu_torch.parallel.distributed",
+    "plssvm_sparse_fp22_tpu_torch.utils.timing",
     "plssvm_sparse_fp22_tpu_torch.utils.oracle", "plssvm_sparse_fp22_tpu_torch.utils.assertions",
     "plssvm_sparse_fp22_tpu_torch.cli.train", "plssvm_sparse_fp22_tpu_torch.cli.predict",
     "plssvm_sparse_fp22_tpu_torch.cli.detect", "plssvm_sparse_fp22_tpu_torch.cli.generate_data",

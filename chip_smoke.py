@@ -98,7 +98,7 @@ Phases, one line or more each, any failure exits non-zero:
     ``RING_TOL`` of the one-device operator, each learn's iterations within
     one of the one-device learn's, its residual at the target and by the
     one-device operator under ``TRUE_RESIDUAL`` times it; ms per A·v;
-19. the row-sharded learns and predict across two processes
+19. the sharded learns and predict across two processes
     (``parallel/distributed.py``), each a worker of this script with two
     logical shards, a global mesh of four: both ranks on the card over gloo
     (blocks staged through host memory), and, where there are two cards or
@@ -107,11 +107,16 @@ Phases, one line or more each, any failure exits non-zero:
     ``highest`` and on the adaptive plan (K2 counted in each worker, half
     the one-process launches each), the chunked learn stopped at 5 by one
     pair (rank 0 writes the checkpoint) and resumed by a fresh pair, the
-    sharded predict of 4096 points; the gather ring on phase 9's set.  Every
-    result is bitwise the one-process run's over the same four shards, on
-    both ranks; a worker that fails, hangs (``DIST_TIMEOUT``) or exits
-    non-zero fails the phase.  Prints the transport, ms per A·v beside the
-    one-process ring's and the learns' seconds.
+    sharded predict of 4096 points; the gather ring on phase 9's set; the
+    feature-sharded rbf learn on phase 18's 4096 x 65536 (one A·v, a learn
+    capped at 20 iterations); the sparse linear ring and the panel ring
+    (rbf, 768-row panels) on phase 8's set: one A·v each, the panel ring's
+    on ``highest`` and on ``default`` with K2 on every panel pair (each
+    rank half the one-process launches), and their learns.  Every result
+    is bitwise the one-process run's over the same four shards, on both
+    ranks; a worker that fails, hangs (``DIST_TIMEOUT``) or exits non-zero
+    fails the phase.  Prints the transport, ms per A·v beside the
+    one-process run's, the learns' seconds and the phase's.
 
 ``--sharded`` runs phases 1, 2, 17, 18 and 19 only (the phases that differ
 on a machine with several cards); ``--distributed`` phases 1, 2 and 19.
@@ -133,7 +138,9 @@ and the split's theirs on the ring of 4 shards (phase 17,
 ``launches_ring``), K2's exact record its launches in the panel ring's learn
 (phase 18, ``launches_sparse_ring``), K2's records and the split's theirs in
 the ring learns across two processes, summed over the ranks (phase 19,
-``launches_distributed``).  The
+``launches_distributed``), and K2's exact record its launches in the panel
+ring's learn across two processes, summed over the ranks (phase 19,
+``launches_distributed_sparse_ring``).  The
 last line is ``{"ok": true, "device": {...}}``.  Scratch files go to
 ``.smoke_work/`` beside this script and are removed at the end.
 """
@@ -1878,6 +1885,30 @@ FEATURE_N, FEATURE_F = 4096, 65536
 GATHER_N, GATHER_F, GATHER_DENSITY = 8192, 262144, 1e-4
 
 
+def feature_problem(dev, n: int, f: int) -> dict:
+    """The feature-sharded learn's dense set (phases 18 and 19), from a seed
+    on ``dev``: ``n - 1`` rows padded to a multiple of 256, float32.  Rows
+    of independent gaussians are nearly orthogonal at this width and CG
+    ends in two or three iterations; rows on a 64-dimensional subspace
+    (labels on its first axis) take more."""
+    import torch
+
+    rank = 64
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    y = torch.where(torch.arange(n, device=dev) % 2 == 0, 1.0, -1.0)
+    Z = torch.randn((n, rank), generator=gen, device=dev)
+    Z[:, 0] += y
+    W = torch.randn((rank, f), generator=gen, device=dev) / rank ** 0.5
+    dept = n - 1
+    D = -(-dept // 256) * 256
+    X_pad = torch.zeros((D, f), device=dev)
+    X_pad[:dept] = Z[:dept] @ W
+    b, mask = torch.zeros(D, device=dev), torch.zeros(D, device=dev)
+    b[:dept], mask[:dept] = y[:dept] - y[-1], 1.0
+    return {"X": X_pad, "x_last": Z[-1] @ W, "b": b, "mask": mask, "dept": dept,
+            "v": torch.randn(D, generator=gen, device=dev) * mask, "gamma": 1.0 / f}
+
+
 def main_sparse_set():
     """The sparse main path's planted set (phases 8, 9 and 18): ``(csr, y)``
     of ``SPARSE_N + SPARSE_TEST`` rows, the first ``SPARSE_N`` to train."""
@@ -1962,25 +1993,11 @@ def phase_sharded_rest(dev, sparse=None):
               f"operator's (tol {RING_TOL:g})")
         return err
 
-    # (a) the feature-sharded learn, dense 4096 x 65536: f / p > D.  Rows of
-    # independent gaussians are nearly orthogonal at this width and CG ends
-    # in two or three iterations; rows on a 64-dimensional subspace (labels
-    # on its first axis) take more
-    n, f, rank = FEATURE_N, FEATURE_F, 64
-    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
-    y = torch.where(torch.arange(n, device=dev) % 2 == 0, 1.0, -1.0)
-    Z = torch.randn((n, rank), generator=gen, device=dev)
-    Z[:, 0] += y
-    W = torch.randn((rank, f), generator=gen, device=dev) / rank ** 0.5
-    dept = n - 1
-    D = -(-dept // 256) * 256
-    X_pad = torch.zeros((D, f), device=dev)
-    X_pad[:dept] = Z[:dept] @ W
-    x_last = Z[-1] @ W
-    del Z, W
-    b, mask = torch.zeros(D, device=dev), torch.zeros(D, device=dev)
-    b[:dept], mask[:dept] = y[:dept] - y[-1], 1.0
-    v = torch.randn(D, generator=gen, device=dev) * mask
+    # (a) the feature-sharded learn, dense 4096 x 65536: f / p > D
+    n, f = FEATURE_N, FEATURE_F
+    fe = feature_problem(dev, n, f)
+    X_pad, x_last, b, mask, v, dept = (fe[k] for k in ("X", "x_last", "b", "mask", "v", "dept"))
+    del fe
     one = torch.tensor(1.0, device=dev)
     print(f"[18 sharded rest] (a) feature-sharded learn, {n} x {f} float32 (f / p > D at p = 2, "
           f"4): each A·v against the one-device exact operator (tol {RING_TOL:g})", flush=True)
@@ -2230,17 +2247,23 @@ def phase_sharded_rest(dev, sparse=None):
 
 
 #: phase 19: two ranks of two logical shards each, the global mesh of four;
-#: the dense main path's shape, phase 9's gather set; seconds a pair of
-#: workers may take (rendezvous, build check and all)
+#: the dense main path's shape, phase 9's gather set, phase 18's feature set
+#: and phase 8's sparse set (the sparse linear and panel rings, 768-row
+#: panels: six per shard of 4096 rows); seconds a pair of workers may take
+#: (rendezvous, build check and all)
 DIST_RANKS, DIST_SHARDS, DIST_TIMEOUT = 2, 4, 300
-DIST_SPEC = {"n": 32768, "f": 256, "gather": [GATHER_N, GATHER_F, GATHER_DENSITY]}
+DIST_SPEC = {"n": 32768, "f": 256, "gather": [GATHER_N, GATHER_F, GATHER_DENSITY],
+             "feature": [FEATURE_N, FEATURE_F], "sparse": [SPARSE_N, SPARSE_F, SPARSE_DENSITY],
+             "panel_rows": 768}
+#: the capped learns of phase 19's gather, feature-sharded and panel rings
+DIST_CAPPED_ITERS = 20
 #: the chunked learn stops here and is resumed by a fresh pair of workers
 DIST_CKPT_AT = 5
 
 
-def dist_problem(dev, spec: dict) -> dict:
+def dist_problem(dev, spec: dict, stage: str = "main") -> dict:
     """Phase 19's data on ``dev``, from a seed: the same bits in the parent
-    and in every worker."""
+    and in every worker.  The "resume" stage needs the dense set only."""
     import torch
 
     from plssvm_sparse_fp22_tpu_torch.ops import sparse as ops_sparse
@@ -2255,18 +2278,34 @@ def dist_problem(dev, spec: dict) -> dict:
             "P": torch.tensor(rng.normal(size=(4096, f)), **on),
             "Xsv": torch.tensor(X, **on), "alphas": torch.tensor(rng.normal(size=n), **on),
             "gamma": 1.0 / f}
+    if stage == "resume":
+        return data
+    data["panel_rows"] = spec["panel_rows"]
+
+    def sparse_system(csr, y, seed, **packings):
+        """A padded float32 sparse system: its targets, ``x_last``, a
+        masked ``v`` from ``seed`` and the packings asked for."""
+        dept = csr.shape[0] - 1
+        D = -(-dept // 256) * 256
+        b, mask = np.zeros(D, np.float32), np.zeros(D, np.float32)
+        b[:dept], mask[:dept] = y[:dept] - y[-1], 1.0
+        out = {name: pack.from_csr(csr[:dept], dtype=np.float32, pad_rows=D)
+               for name, pack in packings.items()}
+        return {**out, "b": b, "mask": mask,
+                "x_last": torch.tensor(csr[-1].toarray().ravel(), **on),
+                "v": torch.tensor(np.random.default_rng(seed).normal(size=D), **on)
+                * torch.tensor(mask, device=dev)}
+
     gn, gf, density = spec["gather"]
-    gcsr, gy = planted_sparse(gn, gf, density, np.random.default_rng(SEED + 2))
-    dept = gn - 1
-    D = -(-dept // 256) * 256
-    gb, gmask = np.zeros(D, np.float32), np.zeros(D, np.float32)
-    gb[:dept], gmask[:dept] = gy[:dept] - gy[-1], 1.0
-    data["gather"] = {"h": ops_sparse.HybridSparse.from_csr(gcsr[:dept], dtype=np.float32,
-                                                           pad_rows=D),
-                      "b": gb, "mask": gmask,
-                      "x_last": torch.tensor(gcsr[-1].toarray().ravel(), **on),
-                      "v": torch.tensor(np.random.default_rng(SEED + 19).normal(size=D),
-                                        **on) * torch.tensor(gmask, device=dev)}
+    data["gather"] = sparse_system(*planted_sparse(gn, gf, density,
+                                                   np.random.default_rng(SEED + 2)),
+                                   SEED + 19, h=ops_sparse.HybridSparse)
+    # phase 8's training rows, for the sparse linear and the panel ring
+    sn, sf, density = spec["sparse"]
+    csr, ys = planted_sparse(sn + SPARSE_TEST, sf, density, np.random.default_rng(SEED + 1))
+    data["sparse"] = sparse_system(csr[:sn], ys[:sn], SEED + 18, h=ops_sparse.HybridSparse,
+                                   th=ops_sparse.TiledHybrid)
+    data["feature"] = feature_problem(dev, *spec["feature"])
     return data
 
 
@@ -2277,8 +2316,9 @@ def dist_runs(mesh, data, stage: str, ckpt: str) -> dict:
     bit for bit.  ``stage`` "main": one A·v of the ring on ``highest`` and on
     ``default`` and their ms, the ring learn on ``highest`` and on the
     adaptive plan, the chunked learn stopped at ``DIST_CKPT_AT`` (rank 0
-    writes ``ckpt``), the sharded predict and the gather ring's A·v and
-    learn; "resume": the chunked learn resumed from ``ckpt``."""
+    writes ``ckpt``), the sharded predict, the gather ring's A·v and learn,
+    and (:func:`dist_rest`) the feature-sharded, sparse linear and panel
+    rings'; "resume": the chunked learn resumed from ``ckpt``."""
     import torch
 
     from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
@@ -2353,8 +2393,81 @@ def dist_runs(mesh, data, stage: str, ckpt: str) -> dict:
     res["gather_av"] = mvg(g["v"]).cpu()
     del mvg
     out, seconds = timed(lambda: sharded.make_sharded_sparse_streaming_learn(mesh, rbf, 3)(
-        *system[:5], g["x_last"], *system[5:], 1.0 / 32, 0.0, 1.0, eps, 20))
+        *system[:5], g["x_last"], *system[5:], 1.0 / 32, 0.0, 1.0, eps, DIST_CAPPED_ITERS))
     res["gather"] = {"x": out[0].cpu(), "iters": out[4], "seconds": seconds}
+    del system
+    with environ(PLSSVM_MATMUL_PRECISION="highest"):
+        res.update(dist_rest(mesh, data, timed, backend))
+    return res
+
+
+def dist_rest(mesh, data, timed, backend) -> dict:
+    """Phase 19's feature-sharded rbf learn, sparse linear ring and panel
+    ring (rbf, at ``highest`` and ``default``) on ``mesh``: for each, one
+    A·v, its ms and its launches, and a learn (the feature-sharded and
+    panel learns capped at ``DIST_CAPPED_ITERS``) with its launches; on the
+    card also the ms of the feature-sharded A·v's reduction alone."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.ops.matvec import tier_precision
+    from plssvm_sparse_fp22_tpu_torch.parallel import sharded
+    from plssvm_sparse_fp22_tpu_torch.parallel.mesh import local_shards
+    from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType
+
+    on_card = backend == BackendType.cuda
+    rbf, eps = KernelType.rbf, 1e-6
+    res = {}
+
+    def av(name, mv, v):
+        """One A·v of ``mv``, its launches and, on the card, its ms."""
+        gm.reset_launches()
+        res[f"{name}_av"] = mv(v).cpu()
+        res[f"{name}_av_launches"] = nonzero(gm.launches)
+        res[f"{name}_av_ms"] = timed_ms(lambda: mv(v), 3) if on_card else 0.0
+
+    def learned(name, learn):
+        gm.reset_launches()
+        out, seconds = timed(learn)
+        res[name] = {"x": out[0].cpu(), "iters": out[4], "seconds": seconds,
+                     "launches": nonzero(gm.launches)}
+
+    fe = data["feature"]
+    Xs, xls, bs, ms = sharded.shard_system_feature(mesh, fe["X"], fe["x_last"], fe["b"],
+                                                   fe["mask"])
+    av("feature", sharded._prepare_feature_local(rbf, mesh, Xs, xls, ms, fe["gamma"], 0.0, 1.0,
+                                                 3, "none")[3], fe["v"])
+    learn = sharded.make_feature_sharded_learn(mesh, rbf, 3)
+    learned("feature", lambda: learn(Xs, xls, bs, ms, fe["gamma"], 0.0, 1.0, eps,
+                                     DIST_CAPPED_ITERS))
+    del Xs, xls
+    if on_card:
+        # the A·v's reduction alone: the shards' partial Grams, one (D, D)
+        # block each at this D, added in shard order on the home device
+        D = len(fe["b"])
+        parts = {i: torch.zeros((D, D), device=mesh[i]) for i in local_shards(mesh)}
+        res["feature_reduce_ms"] = timed_ms(lambda: sharded._reduce(mesh, parts), 3)
+        del parts
+
+    sp_ = data["sparse"]
+    system = sharded.shard_sparse_system(mesh, sp_["h"], sp_["b"], sp_["mask"])
+    av("linear", sharded._prepare_sparse_linear(mesh, *system[:5], sp_["x_last"], system[6], 1.0,
+                                                "none")[3], sp_["v"])
+    learn = sharded.make_sharded_sparse_linear_learn(mesh)
+    learned("linear", lambda: learn(*system[:5], sp_["x_last"], *system[5:], 1.0, eps, 256))
+
+    th = sp_["th"]
+    tv, tc, hv, hr, bs, ms = sharded.shard_sparse_tiled_system(mesh, th, sp_["b"], sp_["mask"])
+    shape = {"ntiles": th.tell.ntiles, "Lt": th.tell.Lt, "panel_rows": data["panel_rows"]}
+    for tier in ("highest", "default"):
+        av(f"panel_{tier}", sharded._prepare_sparse_panel_local(
+            rbf, mesh, tv, tc, hv, hr, sp_["x_last"], ms, SPARSE_GAMMA, 0.0, 1.0, 3,
+            backend=backend, precond="none", precision=tier_precision(tier), **shape)[3],
+            sp_["v"])
+    learn = sharded.make_sharded_sparse_panel_learn(mesh, rbf, 3, backend=backend, **shape)
+    learned("panel", lambda: learn(tv, tc, hv, hr, sp_["x_last"], bs, ms, SPARSE_GAMMA, 0.0, 1.0,
+                                   eps, DIST_CAPPED_ITERS))
+    res["heavy_rows"] = len(th.heavy_idx)
     return res
 
 
@@ -2377,7 +2490,7 @@ def dist_worker(spec: dict) -> int:
     mesh = make_mesh(DIST_SHARDS, devices=[dev])
     check(isinstance(mesh, GlobalMesh) and mesh.ranks == (0, 0, 1, 1),
           f"the global mesh's owners are {getattr(mesh, 'ranks', None)}")
-    res = dist_runs(mesh, dist_problem(dev, spec), spec["stage"], spec["ckpt"])
+    res = dist_runs(mesh, dist_problem(dev, spec, spec["stage"]), spec["stage"], spec["ckpt"])
     res["device"] = str(dev)
     torch.save(res, spec["out"])
     torch.distributed.destroy_process_group()
@@ -2422,31 +2535,59 @@ def spawn_workers(spec: dict) -> list:
     return [torch.load(out, weights_only=True) for out in outs]
 
 
+#: phase 19's A·v beyond the dense ring: (key, what it is)
+DIST_REST = (("feature", "feature-sharded rbf"), ("linear", "sparse linear ring"),
+             ("panel_highest", "panel ring rbf, highest"),
+             ("panel_default", "panel ring rbf, default"))
+
+
 def phase_distributed(dev, spec: dict = DIST_SPEC):
-    """Phase 19: the row-sharded learns and predict across two processes
+    """Phase 19: the sharded learns and predict across two processes
     (``parallel/distributed.py``), each holding two logical shards: both on
     ``dev`` over gloo, and, where there are two cards or more, one per card
     over NCCL; every result bitwise the one-process learn's over the same
     four shards.  Returns K2's and the split's launches in the distributed
-    ring learns, summed over the ranks."""
+    dense ring learns and K2's in the panel ring's learn, each summed over
+    the ranks."""
     import torch
 
+    from plssvm_sparse_fp22_tpu_torch.ops.matvec import tier_precision
     from plssvm_sparse_fp22_tpu_torch.parallel.mesh import make_local_mesh
 
     on_card = dev.type == "cuda"
+    phase_start = time.perf_counter()
     ckpt = os.path.join(WORK, "dist_cg.npz")
     data = dist_problem(dev, spec)
     one = dist_runs(make_local_mesh(DIST_SHARDS, devices=[dev]), data, "main",
                     os.path.join(WORK, "one_cg.npz"))
     del data
+    if on_card:
+        torch.cuda.empty_cache()
+        # one process runs every panel pair of the 4 shards: p² nP² per A·v
+        m = -(-(spec["sparse"][0] - 1) // 256) * 256 // DIST_SHARDS
+        pairs = DIST_SHARDS ** 2 * (-(-m // spec["panel_rows"])) ** 2
+        for tier in ("highest", "default"):
+            want = {f"gram_matvec_rect/{tier_precision(tier)}": pairs}
+            check(one[f"panel_{tier}_av_launches"] == want, f"one process: the panel ring's A·v "
+                  f"on {tier} launched {one[f'panel_{tier}_av_launches']}, expected {want}")
+        iters = one["panel"]["iters"]
+        want = {"gram_matvec_rect/exact": pairs * (iters + 1 + iters // 50)}
+        check(one["panel"]["launches"] == want, f"one process: the panel ring's learn launched "
+              f"{one['panel']['launches']}, expected {want}")
+    for name in ("feature", "linear"):
+        check(not one[name]["launches"] and not one[f"{name}_av_launches"],
+              f"one process: the {name} learn launched {one[name]['launches']}")
     n, f = spec["n"], spec["f"]
     label = cards() if on_card else str(dev)
     print(f"[19 distributed] rbf {n} x {f} float32, implicit ring over {DIST_SHARDS} shards on "
-          f"{DIST_RANKS} processes ({label})", flush=True)
+          f"{DIST_RANKS} processes ({label}); feature-sharded rbf {spec['feature'][0]} x "
+          f"{spec['feature'][1]}; sparse linear and panel rings (rbf, {spec['panel_rows']}-row "
+          f"panels, {one['heavy_rows']} heavy rows) on {spec['sparse'][0]} x {spec['sparse'][1]} "
+          f"at {spec['sparse'][2]:.0%}", flush=True)
     setups = [("gloo", f"both ranks on {dev}")]
     if on_card and torch.cuda.device_count() > 1:
         setups.append(("nccl", "one rank per card"))
-    launches = {}
+    launches, panel_launches = {}, {}
     for backend, where in setups:
         base = {"backend": backend, "device": str(dev), "ckpt": ckpt, **spec}
         start = time.perf_counter()
@@ -2455,10 +2596,11 @@ def phase_distributed(dev, spec: dict = DIST_SPEC):
         wall = time.perf_counter() - start
         tag = f"{backend}, {where}"
         for r, (got, back) in enumerate(zip(ranks, resumed)):
-            for key in ("av_highest", "av_default", "predict", "gather_av"):
+            for key in ("av_highest", "av_default", "predict", "gather_av",
+                        *(f"{k}_av" for k, _ in DIST_REST)):
                 check(torch.equal(got[key], one[key]), f"{tag}, rank {r}: {key} differs from "
                       "the one-process run's")
-            for name in ("highest", "adaptive", "gather"):
+            for name in ("highest", "adaptive", "gather", "feature", "linear", "panel"):
                 check(got[name]["iters"] == one[name]["iters"]
                       and torch.equal(got[name]["x"], one[name]["x"]),
                       f"{tag}, rank {r}: the {name} learn ({got[name]['iters']} iterations) "
@@ -2475,11 +2617,26 @@ def phase_distributed(dev, spec: dict = DIST_SPEC):
                           f"expected half the one-process learn's {want}")
                 check(got["predict_launches"] == {"gram_matvec_rect/exact": 2},
                       f"{tag}, rank {r}: the predict launched {got['predict_launches']}")
+                # each rank runs the panel pairs of its own shards, half of them
+                for mine, want in ((got[f"panel_{t}_av_launches"], one[f"panel_{t}_av_launches"])
+                                   for t in ("highest", "default")):
+                    check(mine == {k: v // DIST_RANKS for k, v in want.items()},
+                          f"{tag}, rank {r}: a panel ring A·v launched {mine}, expected half "
+                          f"the one-process A·v's {want}")
+                mine, want = got["panel"]["launches"], one["panel"]["launches"]
+                check(mine == {k: v // DIST_RANKS for k, v in want.items()},
+                      f"{tag}, rank {r}: the panel ring learn launched {mine}, expected half the "
+                      f"one-process learn's {want}")
+            for name in ("feature", "linear"):
+                check(not got[name]["launches"] and not got[f"{name}_av_launches"],
+                      f"{tag}, rank {r}: the {name} learn launched {got[name]['launches']}")
         if backend == "gloo":
             for name in ("highest", "adaptive"):
                 for key in one[name]["launches"]:
                     launches[key] = launches.get(key, 0) + sum(
                         got[name]["launches"][key] for got in ranks)
+            for key in one["panel"]["launches"]:
+                panel_launches[key] = sum(got["panel"]["launches"][key] for got in ranks)
         hi, ad, ga = (ranks[0][k] for k in ("highest", "adaptive", "gather"))
         print(f"  {tag}: A·v, predict, gather A·v and the {hi['iters']}-, "
               f"{ad['iters']}- ({ad['fast']} fast) and {ga['iters']}-iteration learns "
@@ -2496,7 +2653,25 @@ def phase_distributed(dev, spec: dict = DIST_SPEC):
               f"({one['adaptive']['seconds']:.3f}), gather ring {ga['seconds']:.3f} "
               f"({one['gather']['seconds']:.3f}); two launches of two workers {wall:.1f} s",
               flush=True)
-    return launches
+        fe, li, pa = (ranks[0][k] for k in ("feature", "linear", "panel"))
+        print(f"  {tag}: the feature-sharded rbf A·v and {fe['iters']}-iteration learn (capped "
+              f"at {DIST_CAPPED_ITERS}), the sparse linear ring's A·v and {li['iters']}-iteration "
+              f"learn, the panel ring's A·v on highest and default and {pa['iters']}-iteration "
+              f"learn (capped at {DIST_CAPPED_ITERS}) bitwise the one-process run's on both "
+              f"ranks; panel ring K2 launches per rank {ranks[0]['panel_highest_av_launches']} "
+              f"and {ranks[0]['panel_default_av_launches']} per A·v, {pa['launches']} in the "
+              f"learn (one process {one['panel']['launches']})", flush=True)
+        print(f"[19 distributed] {tag} ({label}): ms per A·v (ranks 0 / 1, one process) "
+              + ", ".join(f"{what} {ranks[0][f'{k}_av_ms']:.3f} / {ranks[1][f'{k}_av_ms']:.3f}, "
+                          f"{one[f'{k}_av_ms']:.3f}" for k, what in DIST_REST)
+              + "; learn s (one process) " + ", ".join(
+                  f"{k} {ranks[0][k]['seconds']:.3f} ({one[k]['seconds']:.3f})"
+                  for k in ("feature", "linear", "panel"))
+              + ("; of the feature-sharded A·v, the reduction of the partial Grams alone "
+                 f"{ranks[0]['feature_reduce_ms']:.3f} / {ranks[1]['feature_reduce_ms']:.3f}, "
+                 f"{one['feature_reduce_ms']:.3f}" if on_card else ""), flush=True)
+    print(f"[19 distributed] phase 19 took {time.perf_counter() - phase_start:.1f} s", flush=True)
+    return launches, panel_launches
 
 
 def main(argv=None) -> int:
@@ -2586,7 +2761,7 @@ def main(argv=None) -> int:
         phase_small_clis()
         ring = phase_sharded(dev, rng)
         sparse_ring = phase_sharded_rest(dev, sparse)
-        distributed = phase_distributed(dev)
+        distributed, dist_panel = phase_distributed(dev)
         if args.profile:
             with environ(PLSSVM_MATMUL_PRECISION="highest"):
                 phase_profile(sparse)
@@ -2601,7 +2776,8 @@ def main(argv=None) -> int:
         # the later paths beside the earlier ones: K1 under the chunked CG loop
         # (phase 15), K2 and the split on the ring of 4 shards (phase 17), K2
         # on the sparse panel ring of 2 shards (phase 18), K2 and the split on
-        # the ring of 4 shards across two processes (phase 19, both ranks)
+        # the ring of 4 shards across two processes and K2 on the panel ring
+        # of 4 shards across two processes (phase 19, both ranks)
         for k in kernels:
             if k["name"] in chunked:
                 k["launches_chunked_learn"] = chunked[k["name"]]
@@ -2611,15 +2787,18 @@ def main(argv=None) -> int:
                 k["launches_sparse_ring"] = sparse_ring[k["name"]]
             if k["name"] in distributed:
                 k["launches_distributed"] = distributed[k["name"]]
+            if k["name"] in dist_panel:
+                k["launches_distributed_sparse_ring"] = dist_panel[k["name"]]
         check(len(kernels) == 10 and all(k["launches"] > 0 for k in kernels),
               f"a kernel of the path never launched: {launches}")
         check(chunked["gram_matvec_sym/exact"] > 0
               and all(ring.get(f"gram_matvec_rect/{t}", 0) > 0 for t in TIERS_ALL)
               and sparse_ring.get("gram_matvec_rect/exact", 0) > 0
               and all(distributed.get(f"gram_matvec_rect/{t}", 0) > 0 for t in TIERS_ALL)
-              and distributed.get("split_bf16", 0) > 0,
+              and distributed.get("split_bf16", 0) > 0
+              and dist_panel.get("gram_matvec_rect/exact", 0) > 0,
               f"the chunked learn or a ring launched no kernel: {chunked}, {ring}, "
-              f"{sparse_ring}, {distributed}")
+              f"{sparse_ring}, {distributed}, {dist_panel}")
     except SmokeError as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1

@@ -19,9 +19,8 @@ same bits.  The shards' rows of K·v are all-gathered, their partials
 all-gathered and added in global shard order, and a ring block owned by
 another rank arrives by a matched send and receive (:class:`_Exchange`);
 so a learn across processes gives, bit for bit, the one-process learn over
-the same shards.  The row-sharded dense learns, predict and ``w`` and the
-sparse gather ring cross processes; the feature-sharded learn, the sparse
-linear ring and the panel ring raise ``PLSSVMError`` on such a mesh.
+the same shards.  Every learn of this module, the predict and ``w`` cross
+processes so.
 
 Where the vectors live: the data matrix, the largest thing by far, is
 sharded; the CG vectors (``x, r, d, b, q, mask``: D floats each) are held
@@ -164,12 +163,6 @@ def _reduce(mesh, parts) -> torch.Tensor:
     if spans_processes(mesh):
         mine = [t for rank_parts in distributed.all_gather(torch.stack(mine)) for t in rank_parts]
     return _psum(mine)
-
-
-def _one_process(mesh, name: str) -> None:
-    if spans_processes(mesh):
-        raise PLSSVMError(f"{name} runs in one process; its mesh spans "
-                          f"{len(set(mesh.ranks))} processes")
 
 
 class _Ring:
@@ -651,27 +644,27 @@ def _prepare_feature_local(kernel, mesh, Xs, x_lasts, mask, gamma, coef0, cost, 
     JAX package): q and QA_cost from the linear terms reduced over the
     shards, the A·v and the optional Jacobi diagonal.  ``Xs`` are the
     ``(D, f/p)`` column blocks of X and ``x_lasts`` the matching slices of
-    ``x_last``; what is returned lies whole on the home device, where CG
-    runs as on one device.
+    ``x_last`` (this process's shards); what is returned lies whole on the
+    home device, where CG runs as on one device.
 
     linear: ``K v = sum_p X_p (X_p^T v)``.  poly/rbf: for each row block,
     ``G_blk = sum_p X_{blk,p} X_p^T`` reduced on the home device in shard
-    order, then the kernel transform and ``K_blk v``.  The blocks are as
-    tall as :func:`_feature_block_rows` allows; a Gram entry is the same sum
+    order (:func:`_reduce`; across processes every rank's partials are
+    all-gathered first, the O(D²) bytes the JAX package's ``psum`` moves),
+    then the kernel transform and ``K_blk v``.  The blocks are as tall as
+    :func:`_feature_block_rows` allows; a Gram entry is the same sum
     whatever the block's height."""
     _check_system(mesh, Xs, BackendType.torch)
-    home, dtype = mesh[0], Xs[0].dtype
-    D = Xs[0].shape[0]
+    mine = local_shards(mesh)
+    home, dtype = _home(mesh), Xs[mine[0]].dtype
+    D = Xs[mine[0]].shape[0]
     cost_inv = _cost_inv(cost, dtype, home)
-
-    def reduce(parts):
-        return _psum([_to(part, home) for part in parts])
 
     # q and QA_cost from the reduced partial linear terms (generate_q and
     # device_reduction, gpu_csvm.cpp:160-183)
-    g_last = reduce([X @ xl for X, xl in zip(Xs, x_lasts)])
-    sq_last = reduce([torch.dot(xl, xl) for xl in x_lasts])
-    sq = reduce([row_sqnorms(X) for X in Xs])
+    g_last = _reduce(mesh, {i: Xs[i] @ x_lasts[i] for i in mine})
+    sq_last = _reduce(mesh, {i: torch.dot(x_lasts[i], x_lasts[i]) for i in mine})
+    sq = _reduce(mesh, {i: row_sqnorms(Xs[i]) for i in mine})
     if kernel == KernelType.linear:
         q, QA = g_last, sq_last
     elif kernel == KernelType.polynomial:
@@ -682,13 +675,13 @@ def _prepare_feature_local(kernel, mesh, Xs, x_lasts, mask, gamma, coef0, cost, 
         QA = torch.ones((), dtype=dtype, device=home)
     q = q * mask
     QA_cost = QA + cost_inv
-    XTs = [X.T for X in Xs]
+    XTs = {i: Xs[i].T for i in mine}
 
     if kernel == KernelType.linear:
 
         def matvec(v):
             v_on = _scatter(v, mesh)
-            Kv = reduce([X @ (XT @ v_on[dev]) for X, XT, dev in zip(Xs, XTs, mesh)])
+            Kv = _reduce(mesh, {i: Xs[i] @ (XTs[i] @ v_on[mesh[i]]) for i in mine})
             return _corrections(Kv, v, q, mask, QA_cost, cost_inv)
 
     else:
@@ -697,7 +690,7 @@ def _prepare_feature_local(kernel, mesh, Xs, x_lasts, mask, gamma, coef0, cost, 
         def matvec(v):
             outs = []
             for r0 in range(0, D, rows):
-                G = reduce([X[r0:r0 + rows] @ XT for X, XT in zip(Xs, XTs)])
+                G = _reduce(mesh, {i: Xs[i][r0:r0 + rows] @ XTs[i] for i in mine})
                 K = kernel_transform(kernel, G, degree, gamma, coef0, sq[r0:r0 + rows], sq)
                 outs.append(K @ v)
             return _corrections(torch.cat(outs), v, q, mask, QA_cost, cost_inv)
@@ -719,8 +712,8 @@ def make_feature_sharded_learn(mesh, kernel: KernelType, degree: int, precond: s
 
     Returns ``fn(Xs, x_lasts, b, mask, gamma, coef0, cost, eps, imax) -> (x,
     s, t, QA_cost, iterations, delta, delta0)`` with the arguments from
-    :func:`shard_system_feature`.  One process only."""
-    _one_process(mesh, "make_feature_sharded_learn")
+    :func:`shard_system_feature`.  Across processes every rank gets the
+    whole result, the one-process learn's bits."""
 
     def run(Xs, x_lasts, b, mask, gamma, coef0, cost, eps, imax):
         q, QA_cost, _ci, matvec, minv = _prepare_feature_local(
@@ -738,9 +731,9 @@ def make_feature_sharded_learn_fns(mesh, kernel: KernelType, degree: int,
     of :func:`make_sharded_learn_fns` (``x_last`` given as the slices of
     :func:`shard_system_feature`); the operator is built once per pair, and
     the state is whole on the home device, so a checkpoint has the
-    single-device format (``sharded.py:331-381`` of the JAX package).  One
-    process only."""
-    _one_process(mesh, "make_feature_sharded_learn_fns")
+    single-device format (``sharded.py:331-381`` of the JAX package).
+    Across processes the state is whole and the same bits on every rank,
+    so one rank writes the checkpoint and any launch resumes from it."""
 
     def prepare(Xs, x_lasts, mask, gamma, coef0, cost):
         return _prepare_feature_local(kernel, mesh, Xs, x_lasts, mask, gamma, coef0, cost,
@@ -753,14 +746,18 @@ def shard_system_feature(mesh, X_pad, x_last, b_pad, mask, dtype: torch.dtype | 
     """Place the padded system on the mesh with the features sharded
     (``sharded.py:384-402``): ``(Xs, x_lasts, b, mask)``, the ``(D, f/p)``
     column blocks of ``X_pad`` and the slices of ``x_last`` on their
-    devices, ``b`` and ``mask`` whole on the home device."""
+    devices, ``b`` and ``mask`` whole on the home device.  On a mesh that
+    spans processes every rank passes the whole padded system and places
+    its own column blocks (None for the others), as
+    :func:`shard_sparse_system` does."""
     X = _tensor(X_pad)
     p = len(mesh)
     if X.shape[1] % p:
         raise ValueError(f"feature count {X.shape[1]} must divide evenly over the {p}-shard "
                          f"mesh for feature sharding; pad the feature axis to a multiple of "
                          f"{p} first")
-    Xs = [blk.to(device=dev, dtype=dtype).contiguous() for blk, dev in zip(X.chunk(p, 1), mesh)]
+    blocks = X.chunk(p, 1)
+    Xs = place_local(mesh, [blocks[i] for i in local_shards(mesh)], dtype)
     return (Xs, shard_rows(mesh, x_last, dtype), _whole(mesh, b_pad, dtype),
             _whole(mesh, mask, dtype))
 
@@ -817,39 +814,35 @@ def _packing(f: int, vals, cols, trow, tcol, tval) -> HybridSparse:
                         coo_rows=trow, coo_cols=tcol, coo_vals=tval)
 
 
-def _packings(vals, cols, trow, tcol, tval, f: int) -> list:
-    """Each shard's ELL+COO rows as an ``ops/sparse.HybridSparse``."""
-    return [_packing(f, *shard) for shard in zip(vals, cols, trow, tcol, tval)]
-
-
 def _prepare_sparse_linear(mesh, vals, cols, trow, tcol, tval, x_last, mask, cost, precond):
     """Set-up of the row-sharded sparse linear learn (``sharded.py:974-1010``
     of the JAX package): ``K v`` is the rows of ``X_p u`` with ``u = sum_p
     X_p^T v_p`` (the scatter-add ``hybrid_rmatvec``) reduced on the home
-    device; nnz-proportional work per shard, f floats per shard and A·v
-    between devices."""
+    device (:func:`_reduce`, the JAX package's ``psum``); nnz-proportional
+    work per shard, f floats per shard and A·v between devices."""
     _check_system(mesh, vals, BackendType.torch)
-    p, home, dtype = len(mesh), mesh[0], vals[0].dtype
-    m = vals[0].shape[0]
+    p, mine, home = len(mesh), local_shards(mesh), _home(mesh)
+    dtype, m = vals[mine[0]].dtype, vals[mine[0]].shape[0]
     x_last = _to(torch.as_tensor(x_last, dtype=dtype), home)
     cost_inv = _cost_inv(cost, dtype, home)
-    hs = _packings(vals, cols, trow, tcol, tval, x_last.shape[0])
+    hs = {i: _packing(x_last.shape[0], vals[i], cols[i], trow[i], tcol[i], tval[i])
+          for i in mine}
     xl_on = _scatter(x_last, mesh)
-    q = _gather(mesh, [hybrid_matvec(h, xl_on[dev]) for h, dev in zip(hs, mesh)]) * mask
+    q = _gather(mesh, {i: hybrid_matvec(hs[i], xl_on[mesh[i]]) for i in mine}) * mask
     QA_cost = torch.dot(x_last, x_last) + cost_inv
 
     def matvec(v):
         v_on = _scatter(v, mesh)
-        u = _psum([_to(hybrid_rmatvec(h, v_on[dev][i * m:(i + 1) * m]), home)
-                   for i, (h, dev) in enumerate(zip(hs, mesh))])
+        u = _reduce(mesh, {i: hybrid_rmatvec(hs[i], v_on[mesh[i]][i * m:(i + 1) * m])
+                           for i in mine})
         u_on = _scatter(u, mesh)
-        Kv = _gather(mesh, [hybrid_matvec(h, u_on[dev]) for h, dev in zip(hs, mesh)])
+        Kv = _gather(mesh, {i: hybrid_matvec(hs[i], u_on[mesh[i]]) for i in mine})
         return _local_corrections(Kv, v, q, mask, QA_cost, cost_inv, p)
 
     minv = None
     if precond == "jacobi":
         # linear kernel: kii = the rows' squared norms (ELL + COO tail)
-        kii = _gather(mesh, [hybrid_row_sqnorms(h) for h in hs])
+        kii = _gather(mesh, {i: hybrid_row_sqnorms(hs[i]) for i in mine})
         minv = jacobi_minv_from_kii(kii, q, mask, QA_cost, cost_inv)
     return q, QA_cost, cost_inv, matvec, minv
 
@@ -862,9 +855,8 @@ def make_sharded_sparse_linear_learn(mesh, precond: str = "none"):
 
     Returns ``fn(vals, cols, trow, tcol, tval, x_last, b, mask, cost, eps,
     imax) -> (x, s, t, QA_cost, iterations, delta, delta0)`` with the system
-    from :func:`shard_sparse_system` and ``x_last`` dense.  One process
-    only."""
-    _one_process(mesh, "make_sharded_sparse_linear_learn")
+    from :func:`shard_sparse_system` and ``x_last`` dense; across processes
+    every rank gets the whole result."""
 
     def run(vals, cols, trow, tcol, tval, x_last, b, mask, cost, eps, imax):
         q, QA_cost, _ci, matvec, minv = _prepare_sparse_linear(
@@ -904,6 +896,21 @@ def shard_sparse_tiled_system(mesh, th, b_pad, mask, dtype: torch.dtype | None =
             _whole(mesh, b_pad, dtype), _whole(mesh, mask, dtype))
 
 
+def _heavy_places(mesh, hrow, m: int) -> list:
+    """Every shard's heavy-row places as host ints, one list per shard; a
+    padding slot (row ``m``) becomes -1, which no panel holds.  Across
+    processes one all-gather brings the other ranks' (a few int32 per
+    shard); every shard has the same number of slots."""
+    mine = local_shards(mesh)
+    if not hrow[mine[0]].numel():
+        return [[] for _ in mesh]
+    home = _home(mesh)
+    places = torch.stack([_to(hrow[i], home) for i in mine])
+    if spans_processes(mesh):
+        places = torch.cat(distributed.all_gather(places))
+    return [[r if r < m else -1 for r in row] for row in places.tolist()]
+
+
 def _prepare_sparse_panel_local(kernel, mesh, tvals, tlcols, heavy, hrow, x_last, mask, gamma,
                                 coef0, cost, degree, *, ntiles: int, Lt: int, panel_rows: int,
                                 backend: BackendType, precond: str, precision: str | None = None):
@@ -921,20 +928,21 @@ def _prepare_sparse_panel_local(kernel, mesh, tvals, tlcols, heavy, hrow, x_last
     redo it for every local panel).  Every panel pair is ``K(X_I, X_J)
     v_J``: K2 on the ``cuda`` backend for float32, ``p² nP²`` launches per
     A·v, else its plain version; at ``precision``, else the backend's fixed
-    tier, as the JAX hop passes no precision.  The heavy rows' places are
-    read to the host once, here."""
+    tier, as the JAX hop passes no precision.  Each process runs the hops
+    of its own shards (:meth:`_Ring.hops`), ``p² nP² / ranks`` launches.
+    The heavy rows' places of every shard are read to the host once, here
+    (one all-gather across processes), not from each block in flight as the
+    JAX ring's carried ``bhr``: that would sync the host every hop."""
     _check_system(mesh, tvals, backend)
-    p, home, dtype = len(mesh), mesh[0], tvals[0].dtype
-    m = tvals[0].shape[0]
+    p, mine, home = len(mesh), local_shards(mesh), _home(mesh)
+    dtype, m = tvals[mine[0]].dtype, tvals[mine[0]].shape[0]
     fp = ntiles * TILE
     x_last = _to(torch.as_tensor(x_last, dtype=dtype), home)
     f = x_last.shape[0]
     cost_inv = _cost_inv(cost, dtype, home)
     bounds = list(range(0, m, panel_rows)) + [m]
     nP = len(bounds) - 1
-    # the heavy rows' places per shard; a padding slot (row m) becomes -1,
-    # which no panel holds
-    heavy_rows = [[r if r < m else -1 for r in hr.tolist()] for hr in hrow]
+    heavy_rows = _heavy_places(mesh, hrow, m)
     placed = {(dev, j): _heavy_by_panel(heavy_rows[j], bounds[:-1], dev)
               for dev in _devices(mesh) for j in range(p)}
 
@@ -950,8 +958,9 @@ def _prepare_sparse_panel_local(kernel, mesh, tvals, tlcols, heavy, hrow, x_last
     # row norms and <x_i, x_last>: the light rows from the packing, the heavy
     # rows' from their dense copies
     xl_on = _scatter(x_last if f == fp else torch.cat([x_last, x_last.new_zeros(fp - f)]), mesh)
-    sq, g_last = [], []
-    for i, dev in enumerate(mesh):
+    sq, g_last = {}, {}
+    for i in mine:
+        dev = mesh[i]
         sq_i = torch.sum(tvals[i] * tvals[i], dim=1)
         g_i = tiled_matvec(tvals[i], tlcols[i], xl_on[dev], ntiles, Lt)
         ks = [k for k, r in enumerate(heavy_rows[i]) if r >= 0]
@@ -960,8 +969,7 @@ def _prepare_sparse_panel_local(kernel, mesh, tvals, tlcols, heavy, hrow, x_last
             hv = heavy[i][torch.tensor(ks, device=dev)].to(dtype)
             sq_i[rows] += torch.sum(hv * hv, dim=1)
             g_i[rows] += hv @ xl_on[dev]
-        sq.append(sq_i)
-        g_last.append(g_i)
+        sq[i], g_last[i] = sq_i, g_i
     q, QA_cost, kii = sparse_q_qa_kii(int(kernel), degree, gamma, coef0, _gather(mesh, g_last),
                                       torch.dot(x_last, x_last), _gather(mesh, sq), mask,
                                       cost_inv)
@@ -972,10 +980,12 @@ def _prepare_sparse_panel_local(kernel, mesh, tvals, tlcols, heavy, hrow, x_last
     hop_fn = gram_matvec if use_kernel else gram_matvec_plain
     tier = resolve_tier(fixed_tier(backend) if precision is None else precision, dtype)
     kw = {"degree": degree, "gamma": gamma, "coef0": coef0, "tier": tier}
-    local = [[densify(i, J, tvals[i], tlcols[i], heavy[i], dev) for J in range(nP)]
-             for i, dev in enumerate(mesh)]
-    local_ops = [[tier_operands(tier, panel) for panel in panels] for panels in local]
-    ring = _Ring(mesh, [(tvals[j], tlcols[j], heavy[j], sq[j]) for j in range(p)])
+    local = {i: [densify(i, J, tvals[i], tlcols[i], heavy[i], mesh[i]) for J in range(nP)]
+             for i in mine}
+    local_ops = {i: [tier_operands(tier, panel) for panel in panels]
+                 for i, panels in local.items()}
+    ring = _Ring(mesh, [(tvals[j], tlcols[j], heavy[j], sq[j]) if j in sq else None
+                        for j in range(p)])
 
     def hop(i, j, v_j):
         """``K(X_i, X_j) v_j`` over every panel pair, block j's panels in
@@ -1002,12 +1012,10 @@ def _prepare_sparse_panel_local(kernel, mesh, tvals, tlcols, heavy, hrow, x_last
 
     def matvec(v):
         v_on = _scatter(v, mesh)
-        acc = [None] * p
-        for s in range(p):
-            for i, dev in enumerate(mesh):
-                j = (i - s) % p
-                part = hop(i, j, v_on[dev][j * m:(j + 1) * m])
-                acc[i] = part if acc[i] is None else acc[i] + part
+        acc = {}
+        for i, j in ring.hops():
+            part = hop(i, j, v_on[mesh[i]][j * m:(j + 1) * m])
+            acc[i] = part if i not in acc else acc[i] + part
         return _local_corrections(_gather(mesh, acc), v, q, mask, QA_cost, cost_inv, p)
 
     minv = None
@@ -1030,8 +1038,7 @@ def make_sharded_sparse_panel_learn(mesh, kernel: KernelType, degree: int, *, nt
     Returns ``fn(tvals, tlcols, heavy, hrow, x_last, b, mask, gamma, coef0,
     cost, eps, imax) -> (x, s, t, QA_cost, iterations, delta, delta0)`` with
     the system from :func:`shard_sparse_tiled_system` and ``x_last``
-    dense.  One process only."""
-    _one_process(mesh, "make_sharded_sparse_panel_learn")
+    dense; across processes every rank gets the whole result."""
 
     def run(tvals, tlcols, heavy, hrow, x_last, b, mask, gamma, coef0, cost, eps, imax):
         q, QA_cost, _ci, matvec, minv = _prepare_sparse_panel_local(

@@ -10,7 +10,11 @@ writes what it computed to ``<outdir>/out_<rank>.npz``.
 
 The problems are ``tests/_multihost_worker.py``'s: dense n = 257, f = 12,
 D = 320, seed 7; sparse density 0.25, seed 13; predict against Np = 264
-support vectors, all float64.  Each scenario is held to
+support vectors; and two of this file's own: a wide one for the
+feature-sharded learns (n = 57, f = 1024, D = 64, so f / 8 > D; seed 11) and
+the sparse one with two rows made dense, so that the panel ring's packing
+holds heavy rows on shards of both ranks (the dense rows on shard 1, rank
+0, and shard 5, rank 1) and none on some shards; all float64.  Each scenario is held to
 
 1. the port's one-process run over the same 8 shards, computed here: the
    same bits, and the same bits on both ranks (every partial is added in
@@ -44,7 +48,7 @@ if __name__ == "__main__":
     sys.path.insert(0, ROOT)
 
 from plssvm_sparse_fp22_tpu_torch.exceptions import PLSSVMError  # noqa: E402
-from plssvm_sparse_fp22_tpu_torch.ops.sparse import HybridSparse  # noqa: E402
+from plssvm_sparse_fp22_tpu_torch.ops.sparse import HybridSparse, TiledHybrid  # noqa: E402
 from plssvm_sparse_fp22_tpu_torch.parallel import distributed, sharded  # noqa: E402
 from plssvm_sparse_fp22_tpu_torch.parallel.mesh import (GlobalMesh, make_local_mesh,  # noqa: E402
                                                         make_mesh)
@@ -64,27 +68,46 @@ WORKER_TIMEOUT = 120
 DENSE = [(KernelType.rbf, "implicit"), (KernelType.linear, "linear"),
          (KernelType.rbf, "cached")]
 CKPT_AT = 6
+#: the feature scenario's learns, and the rows the sparse rings' problem makes
+#: dense: shard 1 (rank 0) and shard 5 (rank 1) of 40 rows each
+FEATURE = [KernelType.rbf, KernelType.polynomial, KernelType.linear]
+HEAVY = (45, 210)
+#: three panels (16, 16, 8 rows) per 40-row shard of the panel ring
+PANEL_ROWS = 16
+
+
+def _blobs(seed: int, n: int, f: int, scale: float = 1.0):
+    """Two gaussian blobs at +-1 per feature, times ``scale``, shuffled."""
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    X = np.concatenate([rng.normal(loc=+1.0, size=(half, f)),
+                        rng.normal(loc=-1.0, size=(n - half, f))]) * scale
+    y = np.concatenate([np.ones(half), -np.ones(n - half)])
+    perm = rng.permutation(n)
+    return X[perm], y[perm]
 
 
 def _dense_problem():
     """``_multihost_worker._dense_problem``."""
-    rng = np.random.default_rng(7)
-    n, f = 257, 12
-    dept = n - 1
-    D = 320  # 8 shards x 40 rows
-    half = n // 2
-    X = np.concatenate([rng.normal(loc=+1.0, size=(half, f)),
-                        rng.normal(loc=-1.0, size=(n - half, f))])
-    y = np.concatenate([np.ones(half), -np.ones(n - half)])
-    perm = rng.permutation(n)
-    X, y = X[perm], y[perm]
-    X_pad = np.zeros((D, f))
+    X, y = _blobs(7, 257, 12)
+    return (X, y, *_padded(X, y, 320))  # 8 shards x 40 rows
+
+
+def _feature_problem():
+    """Wide blobs for the feature-sharded learns, f / 8 > D; scaled so that
+    squared distances are the dense problem's (gamma 0.1 stays apt)."""
+    f = 1024
+    X, y = _blobs(11, 57, f, np.sqrt(12 / f))
+    return (X, y, *_padded(X, y, 64))
+
+
+def _padded(X, y, D):
+    """``(X_pad, b_pad, mask, dept, D)``: the system of ``n - 1`` rows padded
+    to ``D``."""
+    dept = len(y) - 1
+    X_pad = np.zeros((D, X.shape[1]))
     X_pad[:dept] = X[:dept]
-    b_pad = np.zeros(D)
-    b_pad[:dept] = y[:dept] - y[-1]
-    mask = np.zeros(D)
-    mask[:dept] = 1.0
-    return X, y, X_pad, b_pad, mask, dept, D
+    return (X_pad, *_targets(y, dept, D), dept, D)
 
 
 def _sparse_problem():
@@ -100,6 +123,25 @@ def _sparse_problem():
     csr = (csr + sp.eye(n, f, format="csr")).tocsr()  # no empty rows
     y = np.where(rng.normal(size=n) > 0, 1.0, -1.0)
     return csr, y, dept, D
+
+
+def _heavy_sparse_problem():
+    """``_sparse_problem`` with the rows ``HEAVY`` made dense (values below
+    the light rows' scale, as the panel packing's heavy rows)."""
+    csr, y, dept, D = _sparse_problem()
+    csr = csr.tolil()
+    rng = np.random.default_rng(17)
+    for r in HEAVY:
+        csr[r, :] = 0.35 * rng.uniform(size=csr.shape[1])
+    return csr.tocsr(), y, dept, D
+
+
+def _targets(y, dept, D):
+    b_pad = np.zeros(D)
+    b_pad[:dept] = y[:dept] - y[-1]
+    mask = np.zeros(D)
+    mask[:dept] = 1.0
+    return b_pad, mask
 
 
 def _predict_problem():
@@ -164,11 +206,7 @@ def scenario_dense(mesh, outdir):
 def scenario_sparse(mesh, outdir):
     csr, y, dept, D = _sparse_problem()
     h = HybridSparse.from_csr(csr[:dept], dtype=np.float64, pad_rows=D)
-    b_pad = np.zeros(D)
-    b_pad[:dept] = y[:dept] - y[-1]
-    mask = np.zeros(D)
-    mask[:dept] = 1.0
-    system = sharded.shard_sparse_system(mesh, h, b_pad, mask)
+    system = sharded.shard_sparse_system(mesh, h, *_targets(y, dept, D))
     x_last = torch.from_numpy(csr[-1].toarray().ravel())
     v = torch.from_numpy(np.random.default_rng(14).normal(size=D)) * system[6]
     mv = sharded._prepare_sparse_gather_local(KernelType.rbf, mesh, *system[:5], x_last,
@@ -227,8 +265,81 @@ def scenario_ckpt_b(mesh, outdir):
     return _state_out(chunk(IMAX, state))
 
 
+def _feature_system(mesh):
+    X, y, X_pad, b_pad, mask, dept, D = _feature_problem()
+    return sharded.shard_system_feature(mesh, X_pad, X[-1], b_pad, mask)
+
+
+def scenario_feature(mesh, outdir):
+    """The feature-sharded learns: one A·v and the learns of each kernel,
+    and a chunked rbf learn stopped at ``CKPT_AT`` whose checkpoint rank 0
+    writes (``scenario_feature_resume`` resumes it in a fresh launch)."""
+    Xs, xls, b, m = _feature_system(mesh)
+    v = torch.from_numpy(np.random.default_rng(12).normal(size=len(m))) * m
+    scalars = (GAMMA, COEF0, COST)
+    res = {}
+    for kernel in FEATURE:
+        tag = kernel.name
+        mv = sharded._prepare_feature_local(kernel, mesh, Xs, xls, m, *scalars, DEGREE, "none")[3]
+        res[f"{tag}/Av"] = mv(v).numpy()
+        learn = sharded.make_feature_sharded_learn(mesh, kernel, DEGREE)
+        for name, eps in (("early", EARLY), ("full", EPS)):
+            res.update(_learn_out(f"{tag}/{name}", learn(Xs, xls, b, m, *scalars, eps, IMAX)))
+    setup, chunk = sharded.make_feature_sharded_learn_fns(mesh, KernelType.rbf, DEGREE)
+    q, QA, state = setup(Xs, xls, b, m, *scalars)
+    state = chunk(Xs, b, m, xls, *scalars, EPS, CKPT_AT, state)
+    if getattr(mesh, "rank", 0) == 0:
+        save_cg_checkpoint(os.path.join(outdir, "feature_cg.npz"), state, q, QA,
+                           {"dept": int(m.sum()), "kernel": int(KernelType.rbf)})
+    if isinstance(mesh, GlobalMesh):
+        torch.distributed.barrier()
+    res.update({f"ckpt/{k}": a for k, a in _state_out(state).items()})
+    return res
+
+
+def scenario_feature_resume(mesh, outdir):
+    """A fresh launch resumes the feature-sharded chunked learn from the
+    checkpoint to convergence."""
+    Xs, xls, b, m = _feature_system(mesh)
+    state = load_cg_checkpoint(os.path.join(outdir, "feature_cg.npz"))[0]
+    assert state.k == CKPT_AT
+    _, chunk = sharded.make_feature_sharded_learn_fns(mesh, KernelType.rbf, DEGREE)
+    return _state_out(chunk(Xs, b, m, xls, GAMMA, COEF0, COST, EPS, IMAX, state))
+
+
+def scenario_sparse_rings(mesh, outdir):
+    """The sparse linear ring and the panel ring (rbf, three panels per
+    shard): one A·v and the learns of each."""
+    csr, y, dept, D = _heavy_sparse_problem()
+    b_pad, mask = _targets(y, dept, D)
+    x_last = torch.from_numpy(csr[-1].toarray().ravel())
+    v = torch.from_numpy(np.random.default_rng(18).normal(size=D) * mask)
+    h = HybridSparse.from_csr(csr[:dept], dtype=np.float64, pad_rows=D)
+    vals, cols, tr, tc, tv, b, m = sharded.shard_sparse_system(mesh, h, b_pad, mask)
+    res = {"linear/Av": sharded._prepare_sparse_linear(mesh, vals, cols, tr, tc, tv, x_last, m,
+                                                       COST, "none")[3](v).numpy()}
+    learn = sharded.make_sharded_sparse_linear_learn(mesh)
+    for name, eps in (("early", EARLY), ("full", EPS)):
+        res.update(_learn_out(f"linear/{name}", learn(vals, cols, tr, tc, tv, x_last, b, m, COST,
+                                                      eps, IMAX)))
+    th = TiledHybrid.from_csr(csr[:dept], dtype=np.float64, pad_rows=D)
+    system = sharded.shard_sparse_tiled_system(mesh, th, b_pad, mask)
+    kw = {"ntiles": th.tell.ntiles, "Lt": th.tell.Lt, "panel_rows": PANEL_ROWS}
+    scalars = (GAMMA, COEF0, COST)
+    res["panel/Av"] = sharded._prepare_sparse_panel_local(
+        KernelType.rbf, mesh, *system[:4], x_last, system[5], *scalars, DEGREE,
+        backend=BackendType.torch, precond="none", **kw)[3](v).numpy()
+    learn = sharded.make_sharded_sparse_panel_learn(mesh, KernelType.rbf, DEGREE, **kw)
+    for name, eps in (("early", EARLY), ("full", EPS)):
+        res.update(_learn_out(f"panel/{name}", learn(*system[:4], x_last, *system[4:], *scalars,
+                                                     eps, IMAX)))
+    res["panel/heavy_idx"] = np.asarray(th.heavy_idx)
+    return res
+
+
 SCENARIOS = {"dense": scenario_dense, "sparse": scenario_sparse, "predict": scenario_predict,
-             "ckpt_a": scenario_ckpt_a, "ckpt_b": scenario_ckpt_b}
+             "ckpt_a": scenario_ckpt_a, "ckpt_b": scenario_ckpt_b, "feature": scenario_feature,
+             "feature_resume": scenario_feature_resume, "sparse_rings": scenario_sparse_rings}
 
 
 def worker(coordinator, nprocs, rank, outdir, scenario) -> None:
@@ -352,10 +463,7 @@ def test_sparse_gather_ring_across_two_processes(tmp_path):
     res = _spawn(tmp_path, "sparse")
     _same_bits(res, _one_process("sparse", tmp_path))
     csr, y, dept, D = _sparse_problem()
-    b_pad = np.zeros(D)
-    b_pad[:dept] = y[:dept] - y[-1]
-    mask = np.zeros(D)
-    mask[:dept] = 1.0
+    b_pad, mask = _targets(y, dept, D)
     jmesh = jax_make_mesh(SHARDS)
     args = jsharded.shard_sparse_system(jmesh, JHybrid.from_csr(csr[:dept], dtype=np.float64,
                                                                 pad_rows=D), b_pad, mask)
@@ -420,6 +528,120 @@ def test_checkpoint_resume_across_two_process_launches(tmp_path):
     assert float(resumed["delta"]) <= EPS * EPS * float(resumed["delta0"])
     _held_to_oracle({"r/x": resumed["x"], "r/QA": one_shot[3].numpy(),
                      "r/s": one_shot[1].numpy(), "r/t": one_shot[2].numpy()}, "r", X, y, dept)
+
+
+@pytest.fixture(scope="module")
+def feature_runs(tmp_path_factory):
+    """The feature scenario on two ranks and in one process (a directory of
+    its own, so that its checkpoint does not replace the pair's)."""
+    outdir = tmp_path_factory.mktemp("feature")
+    return (outdir, _spawn(outdir, "feature"),
+            _one_process("feature", tmp_path_factory.mktemp("feature_one")))
+
+
+def test_feature_learns_across_two_processes(feature_runs):
+    import jax.numpy as jnp
+
+    from plssvm_sparse_fp22_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from plssvm_sparse_fp22_tpu.parallel.sharded import (
+        make_feature_sharded_learn as jax_learn, shard_system_feature as jax_shard)
+    from plssvm_sparse_fp22_tpu.types import KernelType as JKernel
+
+    outdir, res, one = feature_runs
+    _same_bits(res, one)
+    X, y, X_pad, b_pad, mask, dept, D = _feature_problem()
+    assert X.shape[1] // SHARDS > D
+    jmesh = jax_make_mesh(SHARDS)
+    jargs = jax_shard(jmesh, X_pad, X[-1], b_pad, mask)
+    f64 = jnp.float64
+    for kernel in FEATURE:
+        tag = kernel.name
+        jx, *_, jiters, _, _ = jax_learn(jmesh, JKernel(int(kernel)), DEGREE)(
+            *jargs, f64(GAMMA), f64(COEF0), f64(COST), f64(EARLY), jnp.int32(IMAX))
+        assert int(res[f"{tag}/early/iters"]) == int(jiters) >= 1
+        _close(res[f"{tag}/early/x"], jx, 1e-9)
+        _held_to_oracle(res, f"{tag}/full", X, y, dept, kernel)
+
+
+def test_feature_checkpoint_resume_across_two_process_launches(feature_runs):
+    """The chunked feature-sharded learn stopped at k = 6 by one pair of
+    processes, resumed to convergence by a fresh pair: the one-shot learn's
+    bits; the checkpoint is the JAX package's format."""
+    from plssvm_sparse_fp22_tpu.solver.checkpoint import load_cg_checkpoint as jax_load
+
+    outdir, res, one = feature_runs
+    assert int(res["ckpt/k"]) == CKPT_AT
+    path = str(outdir / "feature_cg.npz")
+    state = load_cg_checkpoint(path)[0]
+    jstate = jax_load(path)[0]
+    for name in CGState._fields:
+        assert np.array_equal(res[f"ckpt/{name}"], np.asarray(getattr(state, name))), name
+        assert np.array_equal(np.asarray(getattr(jstate, name)),
+                              np.asarray(getattr(state, name))), name
+    resumed = _spawn(outdir, "feature_resume")
+    assert int(resumed["k"]) == int(one["rbf/full/iters"]) > CKPT_AT
+    assert np.array_equal(resumed["x"], one["rbf/full/x"])
+
+
+@pytest.fixture(scope="module")
+def sparse_ring_runs(tmp_path_factory):
+    outdir = tmp_path_factory.mktemp("sparse_rings")
+    return _spawn(outdir, "sparse_rings"), _one_process("sparse_rings", outdir)
+
+
+def test_sparse_linear_ring_across_two_processes(sparse_ring_runs):
+    import jax.numpy as jnp
+
+    from plssvm_sparse_fp22_tpu.ops.sparse import HybridSparse as JHybrid
+    from plssvm_sparse_fp22_tpu.parallel import sharded as jsharded
+    from plssvm_sparse_fp22_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    res, one = sparse_ring_runs
+    _same_bits(res, one)
+    csr, y, dept, D = _heavy_sparse_problem()
+    jmesh = jax_make_mesh(SHARDS)
+    args = jsharded.shard_sparse_system(jmesh, JHybrid.from_csr(csr[:dept], dtype=np.float64,
+                                                                pad_rows=D),
+                                        *_targets(y, dept, D))
+    f64 = jnp.float64
+    jx, *_, jiters, _, _ = jsharded.make_sharded_sparse_linear_learn(jmesh)(
+        *args[:5], jnp.asarray(csr[-1].toarray().ravel()), *args[5:], f64(COST), f64(EARLY),
+        jnp.int32(IMAX))
+    assert int(res["linear/early/iters"]) == int(jiters) >= 1
+    _close(res["linear/early/x"], jx, 1e-9)
+    _held_to_oracle(res, "linear/full", csr.toarray(), y, dept, KernelType.linear)
+
+
+def test_panel_ring_across_two_processes(sparse_ring_runs):
+    """The panel ring, with heavy rows on shards of both ranks (each read
+    by the other rank's shards) and shards without any."""
+    import jax.numpy as jnp
+
+    from plssvm_sparse_fp22_tpu.ops.sparse import TiledHybrid as JTiled
+    from plssvm_sparse_fp22_tpu.parallel import sharded as jsharded
+    from plssvm_sparse_fp22_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from plssvm_sparse_fp22_tpu.types import KernelType as JKernel
+
+    res, one = sparse_ring_runs
+    _same_bits(res, one)
+    csr, y, dept, D = _heavy_sparse_problem()
+    m_loc = D // SHARDS
+    assert m_loc // PANEL_ROWS >= 2
+    heavy_shards = {int(r) // m_loc for r in res["panel/heavy_idx"]}
+    assert set(HEAVY) <= set(res["panel/heavy_idx"].tolist())
+    assert {1, 5} <= heavy_shards and len(heavy_shards) < SHARDS
+    jmesh = jax_make_mesh(SHARDS)
+    jth = JTiled.from_csr(csr[:dept], dtype=np.float64, pad_rows=D)
+    args = jsharded.shard_sparse_tiled_system(jmesh, jth, *_targets(y, dept, D))
+    learn = jsharded.make_sharded_sparse_panel_learn(
+        jmesh, JKernel.rbf, DEGREE, ntiles=jth.tell.ntiles, Lt=jth.tell.Lt,
+        panel_rows=PANEL_ROWS, use_pallas=False)
+    f64 = jnp.float64
+    jx, *_, jiters, _, _ = learn(*args[:4], jnp.asarray(csr[-1].toarray().ravel()), *args[4:],
+                                 f64(GAMMA), f64(COEF0), f64(COST), f64(EARLY), jnp.int32(IMAX))
+    assert int(res["panel/early/iters"]) == int(jiters) >= 1
+    _close(res["panel/early/x"], jx, 1e-9)
+    _held_to_oracle(res, "panel/full", csr.toarray(), y, dept)
 
 
 # ---------------------------------------------------------------------------
@@ -495,22 +717,16 @@ def test_make_global_row_sharded_places_this_ranks_rows():
         sharded._check_system(mesh, Xs, BackendType.torch)
 
 
-def test_learns_that_stay_in_one_process_refuse_a_global_mesh():
-    mesh = GlobalMesh(["cpu"] * 4, [0, 0, 1, 1], rank=0)
-    makers = {
-        "make_feature_sharded_learn": lambda: sharded.make_feature_sharded_learn(
-            mesh, KernelType.rbf, DEGREE),
-        "make_feature_sharded_learn_fns": lambda: sharded.make_feature_sharded_learn_fns(
-            mesh, KernelType.rbf, DEGREE),
-        "make_sharded_sparse_linear_learn": lambda: sharded.make_sharded_sparse_linear_learn(
-            mesh),
-        "make_sharded_sparse_panel_learn": lambda: sharded.make_sharded_sparse_panel_learn(
-            mesh, KernelType.rbf, DEGREE, ntiles=1, Lt=1, panel_rows=8),
-    }
-    for name, make in makers.items():
-        with pytest.raises(PLSSVMError, match=f"^{name} runs in one process; its mesh spans 2 "
-                                              "processes$"):
-            make()
+def test_shard_system_feature_places_this_ranks_column_blocks():
+    mesh = GlobalMesh(["cpu"] * 4, [0, 0, 1, 1], rank=1)
+    X_pad, x_last = np.arange(32.0).reshape(4, 8), np.arange(8.0)
+    Xs, xls, b, m = sharded.shard_system_feature(mesh, X_pad, x_last, np.ones(4), np.ones(4))
+    assert Xs[:2] == [None] * 2 and xls[:2] == [None] * 2
+    for k, (X, xl) in enumerate(zip(Xs[2:], xls[2:])):
+        cols = slice(4 + 2 * k, 6 + 2 * k)
+        assert X.is_contiguous() and np.array_equal(X.numpy(), X_pad[:, cols])
+        assert np.array_equal(xl.numpy(), x_last[cols])
+    assert b.shape == m.shape == (4,)
 
 
 if __name__ == "__main__":

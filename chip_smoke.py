@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on an NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile | --probe | --sharded | --distributed]
+    python3 chip_smoke.py [--profile | --probe | --sharded | --distributed | --strips | --tools]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the repository around this script; it imports nothing of JAX.  Phases 3-10
@@ -116,10 +116,22 @@ Phases, one line or more each, any failure exits non-zero:
     is bitwise the one-process run's over the same four shards, on both
     ranks; a worker that fails, hangs (``DIST_TIMEOUT``) or exits non-zero
     fails the phase.  Prints the transport, ms per A·v beside the
-    one-process run's, the learns' seconds and the phase's.
+    one-process run's, the learns' seconds and the phase's;
+20. the kernels' scratch in strips (``ops/gram_matvec.SCRATCH_BYTES``): K1
+    rbf at 131072 x 256 on each tier, one strip against the default budget's
+    four (the two within 1e-6, said whether bitwise; the strips against the
+    plain version), with ms; K1 bf16cast at 524288 x 256, where one slab
+    would take 8 GiB, its peak memory beyond its inputs within
+    ``SCRATCH_BYTES`` plus the output, held to K2 on the same operands; K2
+    and K3 in four strips against one, on each tier;
+21. the on-chip tools of ``plssvm_sparse_fp22_tpu_torch/scripts`` at small
+    sizes on the card (``gpu_validate`` with every check passing,
+    ``profile_cg``, ``precision_study``, ``comms_check`` over two ranks,
+    ``scaling_bench`` on logical shards), one line each.
 
 ``--sharded`` runs phases 1, 2, 17, 18 and 19 only (the phases that differ
-on a machine with several cards); ``--distributed`` phases 1, 2 and 19.
+on a machine with several cards); ``--distributed`` phases 1, 2 and 19;
+``--strips`` phases 1, 2 and 20; ``--tools`` phases 1, 2 and 21.
 ``--probe`` is the short first run after a change to a kernel source:
 phases 1 and 2, the compiler's resource lines of every kernel (the whole
 log goes to ``build.log`` beside the built library), and phase 11's checks
@@ -140,8 +152,9 @@ and the split's theirs on the ring of 4 shards (phase 17,
 the ring learns across two processes, summed over the ranks (phase 19,
 ``launches_distributed``), and K2's exact record its launches in the panel
 ring's learn across two processes, summed over the ranks (phase 19,
-``launches_distributed_sparse_ring``).  The
-last line is ``{"ok": true, "device": {...}}``.  Scratch files go to
+``launches_distributed_sparse_ring``); K1's, K2's and K3's records carry
+their one-strip and stripped ms of phase 20 (``strips``; K1 bf16cast also
+its D = 524288 call under ``big``).  The last line is ``{"ok": true, "device": {...}}``.  Scratch files go to
 ``.smoke_work/`` beside this script and are removed at the end.
 """
 
@@ -2674,6 +2687,186 @@ def phase_distributed(dev, spec: dict = DIST_SPEC):
     return launches, panel_launches
 
 
+#: the strip phase: K1 at D = 131072, f = 256 under one strip's scratch budget
+#: and under the default one (4 strips); K1 at D = 524288, bf16cast, where one
+#: slab would take 8 GiB
+STRIP_D, STRIP_BIG_D, STRIP_F = 131072, 524288, 256
+#: stripped against one strip: the partials are added in the same order, so
+#: the two agree bit for bit; held to 1e-6 of the result's scale
+STRIP_TOL = 1e-6
+
+
+def strip_compare(name: str, got, want) -> float:
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    check(rel <= STRIP_TOL, f"{name}: stripped result {rel:.2e} off one strip")
+    return rel
+
+
+def phase_strips(dev):
+    """20. the kernels' scratch in strips (``ops/gram_matvec.SCRATCH_BYTES``):
+    K1 rbf at D = 131072, f = 256, at each tier, with one strip (a 512 MiB
+    budget) and with the default budget (4 strips), the two held to each
+    other (``STRIP_TOL``, and said whether bitwise) and the stripped one to
+    the plain version (``TOL``), with their ms; K1 bf16cast at D = 524288,
+    whose slab's peak memory must stay within ``SCRATCH_BYTES`` plus the
+    output, held to K2 on the same operands (which strips X's rows
+    instead), with its ms; K2 (4096 points against 32768 support vectors,
+    f 256) and K3 (4096 x 4096 panels, f 4096) in 4 strips against one, at
+    each tier.  Every input is drawn on the card from a seeded generator."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.types import KernelType
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32)
+
+    rbf = KernelType.rbf
+    D, f = STRIP_D, STRIP_F
+    nb = -(-D // 128)
+    one = nb * nb * 128 * 4  # one strip's slab
+    S = gm.sym_strip_blocks(nb, gm.SCRATCH_BYTES)
+    print(f"[20 strips] K1 rbf ({D}, {f}): one strip ({one >> 20} MiB of slab) against "
+          f"{-(-nb // S)} strips of {S} row blocks under SCRATCH_BYTES "
+          f"({gm.SCRATCH_BYTES >> 20} MiB)", flush=True)
+    X, v = randn(D, f), randn(D)
+    kw = {"degree": 3, "gamma": 1.0 / f, "coef0": 1.0}
+    out = {}
+    for tier in TIERS_ALL:
+        whole = gm.make_sym_matvec(rbf, X, tier=tier, scratch_bytes=one, **kw)
+        strips = gm.make_sym_matvec(rbf, X, tier=tier, **kw)
+        gm.reset_launches()
+        got = strips(v)
+        check(gm.launches[f"gram_matvec_sym/{tier}"] == -(-nb // S),
+              f"K1 {tier} launched {gm.launches[f'gram_matvec_sym/{tier}']} strips")
+        want = whole(v)
+        rel = strip_compare(f"K1 {tier}", got, want)
+        repeats_bitwise(f"K1 {tier} in strips", lambda: strips(v), got)
+        plain = gm.gram_matvec_sym_plain(rbf, X, v, tier=tier, operands=gm.tier_operands(tier, X),
+                                         **kw)
+        err = float((got - plain).abs().max())
+        check(err <= TOL * float(plain.abs().max()), f"K1 {tier} in strips disagrees with its "
+              f"plain version: {err}")
+        ms1, msS = timed_ms(lambda: whole(v), 5), timed_ms(lambda: strips(v), 5)
+        out[f"gram_matvec_sym/{tier}"] = {"one_strip_ms": ms1, "strips_ms": msS}
+        print(f"  K1 {tier}: one strip {ms1:.3f} ms, {-(-nb // S)} strips {msS:.3f} ms "
+              f"({100 * (msS / ms1 - 1):+.2f} %), rel {rel:.1e} ({'bitwise' if torch.equal(got, want) else 'not bitwise'}) vs one "
+              f"strip, max|d| {err:.3e} vs plain", flush=True)
+    del X, v, whole, strips, plain
+
+    # the case one slab cannot hold: 8 GiB at D = 524288
+    D = STRIP_BIG_D
+    X, v = randn(D, f), randn(D)
+    sq = gm.row_sqnorms(X)
+    ops = gm.tier_operands("bf16cast", X)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    got = gm._launch_sym(rbf, "bf16cast", ops, v, sq, 3, 1.0 / f, 1.0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(peak <= gm.SCRATCH_BYTES + D * 4, f"K1 at D = {D} held {peak} bytes beyond its inputs, "
+          f"more than SCRATCH_BYTES + the output ({gm.SCRATCH_BYTES + D * 4})")
+    want = gm.gram_matvec(rbf, X, v, tier="bf16cast", sqx=sq, sqy=sq, operands=(ops, ops), **kw)
+    err = float((got - want).abs().max())
+    check(err <= TOL * float(want.abs().max()), f"K1 at D = {D} disagrees with K2: {err}")
+    ms = timed_ms(lambda: gm._launch_sym(rbf, "bf16cast", ops, v, sq, 3, 1.0 / f, 1.0), 3)
+    nbig = -(-D // 128)
+    Sb = gm.sym_strip_blocks(nbig)
+    out["gram_matvec_sym/bf16cast"]["big"] = {"D": D, "ms": ms, "peak_bytes": peak,
+                                              "strips": -(-nbig // Sb)}
+    print(f"  K1 bf16cast ({D}, {f}): {-(-nbig // Sb)} strips of {Sb} row blocks, {ms:.3f} ms, "
+          f"peak {peak / 2**20:.1f} MiB beyond its inputs (one slab: {nbig * nbig * 512 >> 30} "
+          f"GiB), max|d| {err:.3e} vs K2", flush=True)
+    del X, v, sq, ops, got, want
+
+    # K2 and K3 in 4 strips of 8 row blocks against one
+    Y, a, P = randn(32768, f), randn(32768), randn(4096, f)
+    Xi, Xj, vi, vj = randn(4096, 4096), randn(4096, 4096), randn(4096), randn(4096)
+    kw3 = {"same": False, "degree": 3, "gamma": 1.0 / 4096, "coef0": 1.0}
+    for tier in TIERS_ALL:
+        ops2 = (gm.tier_operands(tier, P), gm.tier_operands(tier, Y))
+        ops3 = (gm.tier_operands(tier, Xi), gm.tier_operands(tier, Xj))
+
+        def k2(budget=gm.SCRATCH_BYTES):
+            return gm.gram_matvec(rbf, P, a, Y=Y, tier=tier, operands=ops2,
+                                  scratch_bytes=budget, **kw)
+
+        def k3(budget=gm.SCRATCH_BYTES):
+            return torch.cat(gm.pair_gram_contrib(rbf, Xi, Xj, vi, vj, tier=tier, operands=ops3,
+                                                  scratch_bytes=budget, **kw3))
+
+        b2, b3 = 8 * 256 * 512, 2 * 8 * 32 * 512  # 8 row blocks a strip
+        gm.reset_launches()
+        g2, g3 = k2(b2), k3(b3)
+        check(gm.launches[f"gram_matvec_rect/{tier}"] == 4
+              and gm.launches[f"gram_pair_contrib/{tier}"] == 4,
+              f"K2 / K3 {tier} did not run 4 strips: {nonzero(gm.launches)}")
+        r2, r3 = strip_compare(f"K2 {tier}", g2, k2()), strip_compare(f"K3 {tier}", g3, k3())
+        t2 = (timed_ms(k2, 10), timed_ms(lambda: k2(b2), 10))
+        t3 = (timed_ms(k3, 5), timed_ms(lambda: k3(b3), 5))
+        out[f"gram_matvec_rect/{tier}"] = {"one_strip_ms": t2[0], "strips_ms": t2[1]}
+        out[f"gram_pair_contrib/{tier}"] = {"one_strip_ms": t3[0], "strips_ms": t3[1]}
+        print(f"  K2 {tier}: one strip {t2[0]:.3f} ms, 4 strips {t2[1]:.3f} ms (rel {r2:.1e}); "
+              f"K3 {tier}: one strip {t3[0]:.3f} ms, 4 strips {t3[1]:.3f} ms (rel {r3:.1e})",
+              flush=True)
+    return out
+
+
+#: the tools' arguments in the smoke: small sizes, the card
+TOOLS = (("gpu_validate", []),
+         ("profile_cg", ["--sizes", "4096x256", "--reps", "16", "--caps", "16,64",
+                         "--trials", "1"]),
+         ("precision_study", ["--n", "2048", "--f", "128", "--caps", "16,48", "--trials", "1"]),
+         ("comms_check", ["--rows", "1024"]),
+         ("scaling_bench", ["--logical", "--rows-per-dev", "2048", "--caps", "4,16",
+                            "--grow-to", "0"]))
+
+
+def phase_tools():
+    """21. the port's on-chip tools (``plssvm_sparse_fp22_tpu_torch/scripts``)
+    at small sizes on the card, in this process (``comms_check`` starts its
+    two ranks): each must return its JSON, ``gpu_validate`` with no failed
+    check; prints one line per tool."""
+    import importlib
+
+    for name, argv in TOOLS:
+        mod = importlib.import_module(f"plssvm_sparse_fp22_tpu_torch.scripts.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = mod.main(argv)
+        except Exception as exc:
+            sys.stdout.write(buf.getvalue()[-4000:])
+            raise SmokeError(f"tool {name} failed: {type(exc).__name__}: {exc}") from exc
+        lines = buf.getvalue().strip().splitlines()
+        check(bool(lines) and json.loads(lines[-1]) == json.loads(json.dumps(res)),
+              f"tool {name} did not print its JSON last")
+        if name == "gpu_validate":
+            check(res["failures"] == 0, f"gpu_validate failed {res['failed']}")
+            summary = (f"{res['checks']} checks passed, max rel err by tier "
+                       f"{ {k: float(f'{v:.2e}') for k, v in res['max_rel_err_by_tier'].items()} }")
+        elif name == "profile_cg":
+            shape = res["shapes"][0]
+            summary = (f"CG skeleton {1e3 / shape['skeleton_it_per_s']:.3f} ms/it; "
+                       + ", ".join(f"{t} {r['cg_iteration_ms']:.3f} ms/it idle "
+                                   f"{r['idle_share']:.3f}" for t, r in shape["tiers"].items()))
+        elif name == "precision_study":
+            summary = ", ".join(f"{r['tier']}/{r['kernel']} {r['iterations']} it"
+                                + (f" (fast {r['fast_iterations']})" if "fast_iterations" in r
+                                   else "") for r in res["results"])
+        elif name == "comms_check":
+            summary = (f"{res['transport']}, within 2x: {res['agreement_within_2x']}, ratios "
+                       + ", ".join(f"{k} {c['ratio_measured_over_predicted']:.2f}"
+                                   for k, c in res["cases"].items()))
+        else:
+            summary = ", ".join(f"p={p} {r:.1f} it/s" for p, r in res["iters_per_s"].items())
+        print(f"[21 tools] {name} ({time.perf_counter() - t0:.1f} s): {summary}", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2690,6 +2883,10 @@ def main(argv=None) -> int:
                              "across two processes")
     parser.add_argument("--worker", metavar="SPEC",
                         help="one rank of phase 19 (started by phase 19 itself)")
+    parser.add_argument("--strips", action="store_true",
+                        help="build, then phase 20 only: the kernels' scratch in strips")
+    parser.add_argument("--tools", action="store_true",
+                        help="build, then phase 21 only: the on-chip tools at small sizes")
     parser.add_argument("--probe", action="store_true",
                         help="build, show the compiler's resource lines, check the split and "
                              "every bf16 kernel with one launch each, and stop")
@@ -2728,6 +2925,14 @@ def main(argv=None) -> int:
             phase_distributed(dev)
             print("distributed phase passed", flush=True)
             return 0
+        if args.strips:
+            phase_strips(dev)
+            print("strip phase passed", flush=True)
+            return 0
+        if args.tools:
+            phase_tools()
+            print("tools phase passed", flush=True)
+            return 0
         # phases 3-16 are the one-device paths, whatever the machine holds
         os.environ["PLSSVM_DEVICES"] = "1"
         # phases 3-10 hold the exact tier; the plan is off while a tier is pinned
@@ -2762,6 +2967,8 @@ def main(argv=None) -> int:
         ring = phase_sharded(dev, rng)
         sparse_ring = phase_sharded_rest(dev, sparse)
         distributed, dist_panel = phase_distributed(dev)
+        strips = phase_strips(dev)
+        phase_tools()
         if args.profile:
             with environ(PLSSVM_MATMUL_PRECISION="highest"):
                 phase_profile(sparse)
@@ -2789,6 +2996,8 @@ def main(argv=None) -> int:
                 k["launches_distributed"] = distributed[k["name"]]
             if k["name"] in dist_panel:
                 k["launches_distributed_sparse_ring"] = dist_panel[k["name"]]
+            if k["name"] in strips:
+                k["strips"] = strips[k["name"]]
         check(len(kernels) == 10 and all(k["launches"] > 0 for k in kernels),
               f"a kernel of the path never launched: {launches}")
         check(chunked["gram_matvec_sym/exact"] > 0

@@ -42,10 +42,11 @@
 // the output.  Each CTA writes its BM-long partial sums into its own slot
 // of a scratch slab that the caller allocates:
 //
-//   K1: slab[a][b][r], (nb, nb, BM): the contribution to row block a from
-//       the pair whose other row block is b.  Pair (i, j), j <= i, writes
-//       slot [i][j] with K_ij v_j and, when i != j, slot [j][i] with
-//       K_ij^T v_i.  Every slot is written by exactly one CTA.
+//   K1: slab[a][b][r]: the contribution to row block a from the pair whose
+//       other row block is b.  Pair (i, j), j <= i, writes slot [i][j] with
+//       K_ij v_j and, when i != j, slot [j][i] with K_ij^T v_i.  Every slot
+//       is written by exactly one CTA.  With one strip the slab is
+//       (nb, nb, BM); see below.
 //   K2: slab[i][j][r], (nbi, nbj, BM): K_ij v_j of pair (i, j).
 //   K3 (pair_contrib.cu): slab_i[i][j][r] = K_ij v_j and
 //       slab_j[j][i][r] = K_ij^T v_i of cross-panel pair (i, j).
@@ -55,6 +56,18 @@
 // shuffle tree over the row side, the shared-memory pass over the column
 // side) also runs in a fixed order, so the result is bitwise repeatable
 // from run to run at every tier, and CG iteration counts repeat with it.
+//
+// Strips.  The TPU kernels hold O(D) partial sums (pallas_matvec.py:256,
+// 355-358); a whole slab holds D^2 / BM floats, 8 GiB at D = 524288.  So the
+// caller bounds the slab of one launch (ops/gram_matvec.SCRATCH_BYTES) and
+// walks strips of row blocks.  K1 runs the strip [i0, i1) as the contiguous
+// run [i0 (i0 + 1) / 2, i1 (i1 + 1) / 2) of the row-major lower-triangle
+// pairs, into a slab of (i1 - i0) (i0 + i1) slots (sym_slot in
+// gram_tile.cuh), and reduce_sym_strip_kernel carries each row's sum from
+// strip to strip in ascending b, the order of the one-strip sum; K2 and K3
+// are called on strips of X's (Xi's) rows, K3's column side carried from
+// strip to strip the same way.  A stripped result is therefore bitwise the
+// one-strip result, and one strip is the layout above.
 //
 // Ragged shapes: rows beyond D (or N) and features beyond f are masked at
 // the loads (read as 0; by the TMA unit at the bf16 tiers) and in the
@@ -74,15 +87,16 @@
 
 namespace {
 
-// K1: one CTA per lower-triangular tile pair t -> (i, j), j <= i.
+// K1: one CTA per lower-triangular tile pair t -> (i, j), j <= i, of the
+// strip of row blocks [i0, i1), whose first pair is `first`.
 __global__ void __launch_bounds__(THREADS, 2)
 gram_matvec_sym_kernel(const float* __restrict__ X, const float* __restrict__ sq,
-                       const float* __restrict__ v, int D, int f, int nb, bool vec4,
-                       KernelParams p, float* __restrict__ slab) {
+                       const float* __restrict__ v, int D, int f, long long first, int i0,
+                       int i1, bool vec4, KernelParams p, float* __restrict__ slab) {
     int i, j;
-    tri_pair(blockIdx.x, i, j);
-    float* row_out = slab + ((size_t)i * nb + j) * BM;
-    float* col_out = (i != j) ? slab + ((size_t)j * nb + i) * BM : nullptr;
+    tri_pair(first + blockIdx.x, i, j);
+    float* row_out = sym_slot(slab, i0, i1, i, j);
+    float* col_out = (i != j) ? sym_slot(slab, i0, i1, j, i) : nullptr;
     gram_tile(X, D, X, D, f, vec4, sq, sq, v, v, i * BM, j * BM, p, row_out, col_out);
 }
 
@@ -99,12 +113,13 @@ gram_matvec_rect_kernel(const float* __restrict__ X, const float* __restrict__ Y
     gram_tile(X, D, Y, N, f, vec4, sqx, sqy, nullptr, v, i * BM, j * BM, p, row_out, nullptr);
 }
 
-// K1's bf16 tiers: the wgmma tile walk over the lower-triangular pairs.
+// K1's bf16 tiers: the wgmma tile walk over the lower-triangular pairs of
+// the strip [i0, i1).
 template <int NPROD>
 cudaError_t launch_sym_bf16(const void* X, const void* X_lo, const float* sq, const float* v,
-                            int D, int f, int nb, long long pairs, KernelParams p, float* slab,
-                            cudaStream_t s) {
-    TileArgs args{sq, sq, v, v, slab, nullptr, D, D, nb, nb, 0, pairs, p};
+                            int D, int f, int nb, long long first, long long pairs, int i0,
+                            int i1, KernelParams p, float* slab, cudaStream_t s) {
+    TileArgs args{sq, sq, v, v, slab, nullptr, D, D, nb, nb, 0, pairs, p, first, i0, i1};
     return launch_gram_wgmma<NPROD, TILE_SYM>(X, X_lo, X, X_lo, f, args, s);
 }
 
@@ -112,41 +127,49 @@ cudaError_t launch_sym_bf16(const void* X, const void* X_lo, const float* sq, co
 
 extern "C" {
 
-// K1: out (D,) = K(X, X) v.  X (D, f) row-major (float32 at tier 0, bf16 hi
-// with X_lo the bf16 lo at tier 1, bf16 at tier 2; f % 8 == 0 and 16-byte
-// aligned bases at tiers 1 and 2, else cudaErrorInvalidValue), sq (D,) = row
-// norms |x|^2 of the float32 rows, v (D,), slab (nb, nb, BM) scratch with
-// nb = ceil(D / BM).
+// K1, one strip: the pairs of row blocks [i0, i1) of out (D,) = K(X, X) v.
+// X (D, f) row-major (float32 at tier 0, bf16 hi with X_lo the bf16 lo at
+// tier 1, bf16 at tier 2; f % 8 == 0 and 16-byte aligned bases at tiers 1
+// and 2, else cudaErrorInvalidValue), sq (D,) = row norms |x|^2 of the
+// float32 rows, v (D,), slab (i1 - i0) (i0 + i1) BM floats of scratch
+// (sym_slot), 0 <= i0 < i1 <= ceil(D / BM).  Writes the rows of blocks
+// [i0, i1) and adds to those of [0, i0): the caller runs the strips in
+// order, from i0 = 0, and the last one ends at ceil(D / BM).
 int gram_matvec_sym(int tier, const void* X, const void* X_lo, const float* sq,
-                    const float* v, float* slab, float* out, int D, int f, int kernel,
-                    int degree, float gamma, float coef0, void* stream) {
+                    const float* v, float* slab, float* out, int D, int f, int i0, int i1,
+                    int kernel, int degree, float gamma, float coef0, void* stream) {
     const int nb = (D + BM - 1) / BM;
-    const long long pairs = (long long)nb * (nb + 1) / 2;
+    if (i0 < 0 || i1 <= i0 || i1 > nb) return (int)cudaErrorInvalidValue;
+    const long long first = (long long)i0 * (i0 + 1) / 2;
+    const long long pairs = (long long)i1 * (i1 + 1) / 2 - first;
+    if (pairs > 2147483647ll) return (int)cudaErrorInvalidValue;
     const KernelParams p{kernel, degree, gamma, coef0};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (tier == 0) {
         const bool vec4 = (f % 4 == 0) && aligned16(X);
         gram_matvec_sym_kernel<<<(unsigned)pairs, THREADS, 0, s>>>(
-            static_cast<const float*>(X), sq, v, D, f, nb, vec4, p, slab);
+            static_cast<const float*>(X), sq, v, D, f, first, i0, i1, vec4, p, slab);
         err = cudaGetLastError();
     } else if (tier == 1) {
-        err = launch_sym_bf16<3>(X, X_lo, sq, v, D, f, nb, pairs, p, slab, s);
+        err = launch_sym_bf16<3>(X, X_lo, sq, v, D, f, nb, first, pairs, i0, i1, p, slab, s);
     } else if (tier == 2) {
-        err = launch_sym_bf16<1>(X, nullptr, sq, v, D, f, nb, pairs, p, slab, s);
+        err = launch_sym_bf16<1>(X, nullptr, sq, v, D, f, nb, first, pairs, i0, i1, p, slab, s);
     } else {
         return (int)cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return (int)err;
-    reduce_slab_kernel<<<(D + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, s>>>(
-        slab, nb, D, out);
+    const int rows = D < i1 * BM ? D : i1 * BM;
+    reduce_sym_strip_kernel<<<(rows + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0,
+                              s>>>(slab, i0, i1, D, out);
     return (int)cudaGetLastError();
 }
 
 // K2: out (D,) = K(X, Y) v.  X (D, f), Y (N, f) row-major at the tier's
 // types and with its demands on f and the bases (as gram_matvec_sym), sqx
 // (D,), sqy (N,) row norms, v (N,), slab (nbi, nbj, BM) scratch with nbi =
-// ceil(D / BM), nbj = ceil(N / BM).
+// ceil(D / BM) <= 65535, nbj = ceil(N / BM).  The caller strips X's rows
+// to bound the slab.
 int gram_matvec_rect(int tier, const void* X, const void* X_lo, const void* Y,
                      const void* Y_lo, const float* sqx, const float* sqy, const float* v,
                      float* slab, float* out, int D, int N, int f, int kernel, int degree,
@@ -171,7 +194,7 @@ int gram_matvec_rect(int tier, const void* X, const void* X_lo, const void* Y,
     }
     if (err != cudaSuccess) return (int)err;
     reduce_slab_kernel<<<(D + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, s>>>(
-        slab, nbj, D, out);
+        slab, nbj, D, false, out);
     return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,11 @@
 // Shared device code of the Gram-matvec kernels (K1, K2 in gram_matvec.cu,
 // K3 in pair_contrib.cu): the kernel transform, the exact tier's BM x BM
 // Gram tile with its row- and column-side epilogue, the lower-triangular
-// pair order and the fixed-order slab reduction.  The bf16 tiers of all
-// three kernels run the wgmma tile of gram_tile_wgmma.cuh.  See
-// gram_matvec.cu for what bounds them on the H100 and why the cross-CTA
-// reduction is deterministic.  Everything here has internal linkage, so each
-// source that includes it gets its own copy.
+// pair order, the strips of K1's slab and the fixed-order slab
+// reductions.  The bf16 tiers of all three kernels run the wgmma tile of
+// gram_tile_wgmma.cuh.  See gram_matvec.cu for what bounds them on the H100
+// and why the cross-CTA reduction is deterministic.  Everything here has
+// internal linkage, so each source that includes it gets its own copy.
 //
 // Tiers (the arms of _resolve_decomp, pallas_matvec.py:297-312):
 //   exact     gram_tile (here): float32 operands, FFMA, f32 sums.
@@ -236,15 +236,58 @@ __device__ __forceinline__ void tri_pair(long long t, int& i, int& j) {
     j = (int)(t - (long long)i * (i + 1) / 2);
 }
 
-// out[a * BM + r] = sum_{b < inner} slab[a][b][r], b ascending.
-__global__ void reduce_slab_kernel(const float* __restrict__ slab, int inner, int D,
+// out[a * BM + r] = sum_{b < inner} slab[a][b][r], b ascending, added to
+// out[a * BM + r] where `acc` (a later strip of K3's column side), else to 0.
+__global__ void reduce_slab_kernel(const float* __restrict__ slab, int inner, int D, bool acc,
                                    float* __restrict__ out) {
     const int idx = blockIdx.x * REDUCE_THREADS + threadIdx.x;
     if (idx >= D) return;
     const int a = idx / BM;
     const int r = idx % BM;
     const float* src = slab + (size_t)a * inner * BM + r;
-    float s = 0.0f;
+    float s = acc ? out[idx] : 0.0f;
+    for (int b = 0; b < inner; ++b) s += src[(size_t)b * BM];
+    out[idx] = s;
+}
+
+// K1's slab for the strip of row blocks [i0, i1): the BM-long slot that holds
+// the contribution to row block a from the pair whose other row block is b.
+// The strip's pairs are (i, j), i0 <= i < i1, j <= i.  A row block a of the
+// strip takes one slot per b < i1 (b <= a: its own pairs' row side; a < b:
+// the column side of pair (b, a)), at [a - i0][b] of an (i1 - i0, i1)
+// region; a row block a < i0 takes the column sides of pairs (b, a), b in
+// the strip, at [a][b - i0] of an (i0, i1 - i0) region after it.  With one
+// strip (i0 = 0, i1 = nb) this is the (nb, nb, BM) slab, slot [a][b].
+__device__ __forceinline__ float* sym_slot(float* slab, int i0, int i1, int a, int b) {
+    const size_t S = (size_t)(i1 - i0);
+    if (a >= i0) return slab + ((size_t)(a - i0) * i1 + b) * BM;
+    return slab + (S * i1 + (size_t)a * S + (b - i0)) * BM;
+}
+
+// K1's reduction of one strip, over the rows of blocks [0, i1): a row of the
+// strip sums its i1 slots from 0, a row above it adds the strip's slots to
+// what the earlier strips left in out.  Every row's partials are thus added
+// in ascending b across the strips, the order of one strip's sum, so a
+// stripped result is bitwise the unstripped one.
+__global__ void reduce_sym_strip_kernel(const float* __restrict__ slab, int i0, int i1, int D,
+                                        float* __restrict__ out) {
+    const int idx = blockIdx.x * REDUCE_THREADS + threadIdx.x;
+    if (idx >= D || idx >= i1 * BM) return;
+    const int a = idx / BM;
+    const int r = idx % BM;
+    const size_t S = (size_t)(i1 - i0);
+    const float* src;
+    int inner;
+    float s;
+    if (a >= i0) {
+        src = slab + (size_t)(a - i0) * i1 * BM + r;
+        inner = i1;
+        s = 0.0f;
+    } else {
+        src = slab + (S * i1 + (size_t)a * S) * BM + r;
+        inner = (int)S;
+        s = out[idx];
+    }
     for (int b = 0; b < inner; ++b) s += src[(size_t)b * BM];
     out[idx] = s;
 }

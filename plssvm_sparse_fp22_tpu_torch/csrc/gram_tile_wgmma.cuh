@@ -13,8 +13,9 @@
 // the result is bitwise repeatable whatever CTA runs a pair.
 //
 // Three modes (TileMode), fixed at compile time:
-//   TILE_SYM   K1: A = B = X, the lower-triangular pairs, one slab; a
-//              diagonal pair has no column side.
+//   TILE_SYM   K1: A = B = X, the lower-triangular pairs of one strip of
+//              row blocks, one slab (sym_slot); a diagonal pair has no
+//              column side.
 //   TILE_PAIR  K3: every pair of Xi x Xj, a row slab and a column slab.
 //   TILE_ROWS  K2: every pair of X x Y, the row side only.  Its epilogue has
 //              no column side at all: no v of the A side, no column sums, no
@@ -140,8 +141,10 @@ struct TileArgs {
     int na, nb;         // rows of each side
     int nbi, nbj;       // 128-row blocks of each side
     int nchunks;        // ceil(f / 64)
-    long long tiles;    // tile pairs: K1 nbi (nbi + 1) / 2, K2 and K3 nbi nbj
+    long long tiles;    // tile pairs: K1 the strip's, K2 and K3 nbi nbj
     KernelParams p;
+    long long first;    // K1: the strip's first lower-triangle pair
+    int i0, i1;         // K1: the strip's row blocks (sym_slot)
 };
 
 // ------------------------------------------------------------------ PTX
@@ -292,12 +295,12 @@ __device__ __forceinline__ void turn_pass(int wg) {
 // ------------------------------------------------------------ tile walk
 
 // Tile pair t -> (i, j).  K1: the lower triangle in row-major order
-// (tri_pair).  K2, K3: groups of PAIR_GROUP row blocks, column-major inside
+// (tri_pair), from the strip's first pair.  K2, K3: groups of PAIR_GROUP row blocks, column-major inside
 // a group, so the tiles that run at one time share A and B boxes in the L2.
 template <bool SYM>
 __device__ __forceinline__ void tile_coords(const TileArgs& a, long long t, int& i, int& j) {
     if (SYM) {
-        tri_pair(t, i, j);
+        tri_pair(a.first + t, i, j);
     } else {
         const long long per_group = (long long)PAIR_GROUP * a.nbj;
         const int g = (int)(t / per_group);
@@ -591,8 +594,8 @@ gram_wgmma_kernel(const __grid_constant__ CUtensorMap map_a_hi,
             float* row_out;
             float* col_out;
             if (MODE == TILE_SYM) {
-                row_out = a.slab_row + ((size_t)i * a.nbi + j) * BM;
-                col_out = (i != j) ? a.slab_row + ((size_t)j * a.nbi + i) * BM : nullptr;
+                row_out = sym_slot(a.slab_row, a.i0, a.i1, i, j);
+                col_out = (i != j) ? sym_slot(a.slab_row, a.i0, a.i1, j, i) : nullptr;
             } else {
                 row_out = a.slab_row + ((size_t)i * a.nbj + j) * BM;
                 col_out = MODE == TILE_PAIR ? a.slab_col + ((size_t)j * a.nbi + i) * BM : nullptr;

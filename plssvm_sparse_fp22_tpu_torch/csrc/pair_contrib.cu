@@ -85,12 +85,16 @@ extern "C" {
 // the *_lo parts at tier 1; bf16 at tier 2; f % 8 == 0 and 16-byte aligned
 // bases at tiers 1 and 2, else cudaErrorInvalidValue), sqi (Di,), sqj (Dj,)
 // row norms |x|^2 of the float32 rows, slab_i (nbi, nbj, BM) and slab_j
-// (nbj, nbi, BM) scratch with nbi = ceil(Di / BM), nbj = ceil(Dj / BM).
+// (nbj, nbi, BM) scratch with nbi = ceil(Di / BM) <= 65535, nbj =
+// ceil(Dj / BM).  The caller strips Xi's rows to bound the slabs: a strip
+// writes its rows of out_i, and adds its column side to out_j where
+// `accumulate` (every strip after the first), so out_j sums in ascending i
+// across the strips, as one strip sums it.
 int gram_pair_contrib(int tier, const void* Xi, const void* Xi_lo, const void* Xj,
                       const void* Xj_lo, const float* sqi, const float* sqj, const float* vi,
                       const float* vj, float* slab_i, float* slab_j, float* out_i,
-                      float* out_j, int Di, int Dj, int f, int kernel, int degree, float gamma,
-                      float coef0, void* stream) {
+                      float* out_j, int Di, int Dj, int f, int accumulate, int kernel,
+                      int degree, float gamma, float coef0, void* stream) {
     const int nbi = (Di + BM - 1) / BM;
     const int nbj = (Dj + BM - 1) / BM;
     const KernelParams p{kernel, degree, gamma, coef0};
@@ -114,11 +118,11 @@ int gram_pair_contrib(int tier, const void* Xi, const void* Xi_lo, const void* X
     }
     if (err != cudaSuccess) return (int)err;
     reduce_slab_kernel<<<(Di + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, s>>>(
-        slab_i, nbj, Di, out_i);
+        slab_i, nbj, Di, false, out_i);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     reduce_slab_kernel<<<(Dj + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, s>>>(
-        slab_j, nbi, Dj, out_j);
+        slab_j, nbi, Dj, accumulate != 0, out_j);
     return (int)cudaGetLastError();
 }
 

@@ -3,18 +3,31 @@
 The native layer plays the role of the reference's mmap + OpenMP parsing
 path (``file_reader.cpp:72-100``, ``parameter.cpp:41-116``) and its
 OpenMP-parallel model writer (``csvm.cpp:60-204``).  The shared library is
-built from ``native/*.cpp`` (Makefile or CMake); this module loads it,
-auto-building once if the compiler is available, and falls back silently to
+built from ``native/*.cpp`` by ``native/Makefile``; this module loads it,
+building it once if the compiler is available, and falls back silently to
 the pure-Python implementations otherwise.
+
+The port builds its own copy, into ``_build/native/`` of this package
+(git-ignored), never into ``native/build/``: ``make -s BUILD=<a temporary
+directory>`` under an ``flock`` on ``_build/native/lock``, then an atomic
+``os.replace`` onto the library, as ``ops/_build.py`` builds the CUDA
+kernels.  So processes that start together on a fresh tree (test workers,
+ranks) build once and never load a half-written file; the library is
+rebuilt when the hash of the sources or the Makefile changes.
 
 Set ``PLSSVM_NO_NATIVE_PARSER=1`` to force the Python paths.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
+import glob
+import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -22,22 +35,64 @@ import scipy.sparse as sp
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libplssvm_native.so")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "_build", "native")
+_LIB_NAME = "libplssvm_native.so"
 
 _lock = threading.Lock()
 _lib = None
 _load_attempted = False
 
 
-def _try_build() -> bool:
-    try:
-        subprocess.run(
-            ["make", "-s"], cwd=_NATIVE_DIR, check=True,
-            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL, timeout=120,
-        )
-        return os.path.exists(_LIB_PATH)
-    except Exception:
-        return False
+def _source_hash() -> str:
+    digest = hashlib.sha256()
+    for path in sorted(glob.glob(os.path.join(_NATIVE_DIR, "*.cpp"))
+                       + glob.glob(os.path.join(_NATIVE_DIR, "*.h*"))
+                       + [os.path.join(_NATIVE_DIR, "Makefile")]):
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    return digest.hexdigest()
+
+
+@contextlib.contextmanager
+def _build_lock(build_dir: str):
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, "lock"), "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+def build_native(build_dir: str = BUILD_DIR) -> str | None:
+    """The path of the native library in ``build_dir``, built there first
+    unless a build of the current sources exists; None where the sources or
+    the compiler are missing or the build fails.  Holds the directory's
+    build lock throughout, so a concurrent caller waits and then finds the
+    finished library."""
+    if not os.path.isfile(os.path.join(_NATIVE_DIR, "Makefile")):
+        return None
+    lib_path = os.path.join(build_dir, _LIB_NAME)
+    stamp = lib_path + ".sha256"
+    with _build_lock(build_dir):
+        digest = _source_hash()
+        if os.path.exists(lib_path) and os.path.exists(stamp):
+            with open(stamp) as fh:
+                if fh.read().strip() == digest:
+                    return lib_path
+        try:
+            with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+                subprocess.run(["make", "-s", f"BUILD={tmp}"], cwd=_NATIVE_DIR, check=True,
+                               stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                               timeout=120)
+                os.replace(os.path.join(tmp, _LIB_NAME), lib_path)
+        except (OSError, subprocess.SubprocessError):
+            return None
+        with open(stamp, "w") as fh:
+            fh.write(digest)
+        return lib_path
 
 
 def get_native_lib():
@@ -49,13 +104,11 @@ def get_native_lib():
         if _load_attempted:
             return _lib
         _load_attempted = True
-        if os.path.isdir(_NATIVE_DIR):
-            # no-op when fresh; rebuilds a missing or stale library
-            _try_build()
-        if not os.path.exists(_LIB_PATH):
+        lib_path = build_native()
+        if lib_path is None:
             return None
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib = ctypes.CDLL(lib_path)
         except OSError:
             return None
         lib.plssvm_native_parse_libsvm.restype = ctypes.c_int

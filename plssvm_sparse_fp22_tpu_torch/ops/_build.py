@@ -137,12 +137,12 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build()["path"])
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # each entry point starts with the tier and its operand pointers
-        lib.gram_matvec_sym.argtypes = [I, P, P, P, P, P, P, I, I, I, I, F, F, P]
+        lib.gram_matvec_sym.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P]
         lib.gram_matvec_sym.restype = I
         lib.gram_matvec_rect.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, P]
         lib.gram_matvec_rect.restype = I
         lib.gram_pair_contrib.argtypes = [I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                          F, F, P]
+                                          I, F, F, P]
         lib.gram_pair_contrib.restype = I
         lib.split_bf16_rows.argtypes = [P, P, P, ctypes.c_longlong, I, I, P]
         lib.split_bf16_rows.restype = I

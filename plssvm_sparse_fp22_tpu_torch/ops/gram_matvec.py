@@ -34,6 +34,18 @@ tier; K2 runs it in its row-only mode); ``gram_matvec.cu``'s header says
 what bounds them on the H100 and how the cross-CTA reduction stays
 deterministic.
 
+Scratch.  The kernels' CTAs write per-tile-pair partial sums into a slab
+that a second kernel sums in a fixed order (``csrc/gram_matvec.cu``).  A
+whole slab grows as ``D²`` (8 GiB for K1 at D = 524288) where the JAX
+kernels hold O(D) (``pallas_matvec.py:256, 355-358``), so each launch's slab
+is bounded by :data:`SCRATCH_BYTES` (or the wrappers' ``scratch_bytes``
+keyword): K1 walks strips of row blocks (:func:`sym_strip_blocks`), K2 and
+K3 strips of X's (Xi's) rows, and each row's partials are still added in one
+ascending order across the strips, so a stripped result is bitwise the
+one-strip result.  :func:`gram_matvec_sym_strips_plain` and its two
+siblings are the schedule's plain twins: per-tile-pair partials summed in
+the kernels' order.
+
 The bf16 operands (:func:`tier_operands`) carry their feature axis padded
 with zeros to a multiple of 64 (``CUDA_FEATURE_PAD``): a zero feature
 changes no dot product, the row norms are taken from the float32 rows, and
@@ -46,11 +58,14 @@ A wrapper dispatches on the device of its tensors.  On a CPU tensor it runs
 the plain version at the same tier; on a CUDA tensor it launches its kernel
 or raises — there is no fallback.  Each launch adds one to
 :data:`launches` under ``"<kernel>/<tier>"`` (the split under
-``"split_bf16"``), so a run can show that it went through the kernels.
+``"split_bf16"``; a call in several strips launches once per strip), so a
+run can show that it went through the kernels.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 import os
 
 import torch
@@ -83,6 +98,17 @@ launches = {**{f"{name}/{tier}": 0 for name in KERNEL_NAMES for tier in TIERS}, 
 #: :func:`reset_preparations`: a bf16 tier's call is a split or cast of a
 #: whole matrix, so a schedule can show how often it pays for one
 preparations = {tier: 0 for tier in TIERS}
+
+
+#: bytes of scratch slab (per-tile-pair partial sums, ``CUDA_TILE`` floats
+#: each) one launch of K1, K2 or K3 may hold.  At 256 MiB every shape the
+#: smoke test runs (K1 up to D = 32768: 32 MiB) takes one strip, and K1 at
+#: D = 524288 takes 64 strips of 64 row blocks where one slab would be 8 GiB
+SCRATCH_BYTES = 256 * 1024**2
+_SLOT_BYTES = CUDA_TILE * 4
+#: K2 and K3 run one CTA per tile pair at the exact tier, on a grid whose
+#: row axis holds at most this many row blocks
+_GRID_ROWS = 65535
 
 
 def reset_launches() -> None:
@@ -289,6 +315,189 @@ def pair_gram_contrib_plain(kernel: KernelType, Xi, Xj, v_i, v_j, *, same: bool,
 
 
 # --------------------------------------------------------------------------
+# scratch strips: the plan and its plain twins
+# --------------------------------------------------------------------------
+
+def _slots(scratch_bytes: int) -> int:
+    return int(scratch_bytes) // _SLOT_BYTES
+
+
+def sym_strip_slots(nb: int, S: int) -> int:
+    """The largest slab, in ``CUDA_TILE``-float slots, of K1's strips of
+    ``S`` row blocks over ``nb``: the strip ``[i0, i1)`` takes
+    ``(i1 - i0)(i0 + i1)`` (``sym_slot``, ``csrc/gram_tile.cuh``), so the
+    largest is the last strip or the full one before it."""
+    last = (nb - 1) // S * S
+    worst = (nb - last) * (last + nb)
+    return max(worst, S * (2 * last - S)) if last >= S else worst
+
+
+def _no_strip(what: str, need: int, scratch_bytes: int):
+    return PLSSVMError(f"{what}: a strip of one row block needs {need * _SLOT_BYTES} bytes of "
+                       f"scratch, more than the {scratch_bytes} allowed")
+
+
+@functools.lru_cache(maxsize=None)
+def sym_strip_blocks(nb: int, scratch_bytes: int = SCRATCH_BYTES) -> int:
+    """Row blocks per strip of K1 over ``nb`` row blocks: ``nb`` (one
+    strip, the whole ``(nb, nb)`` slab) where that fits ``scratch_bytes``,
+    else the most ``S`` with ``S (2 nb - S)`` slots within it, which bounds
+    every strip's slab."""
+    slots = _slots(scratch_bytes)
+    if nb * nb <= slots:
+        return nb
+    excess = nb * nb - slots
+    root = math.isqrt(excess)
+    S = nb - (root + (root * root < excess))
+    if S < 1:
+        raise _no_strip("gram_matvec_sym", 2 * nb - 1, scratch_bytes)
+    return S
+
+
+def rect_strip_blocks(nbi: int, nbj: int, scratch_bytes: int = SCRATCH_BYTES,
+                      sides: int = 1) -> int:
+    """Row blocks of X per strip of K2 (``sides=1``: a ``(S, nbj)`` slab)
+    or of Xi per strip of K3 (``sides=2``: ``(S, nbj)`` and ``(nbj, S)``),
+    within ``scratch_bytes`` and the exact tier's grid."""
+    S = min(nbi, _GRID_ROWS, _slots(scratch_bytes) // (sides * nbj))
+    if S < 1:
+        raise _no_strip("gram_matvec" if sides == 1 else "pair_gram_contrib", sides * nbj,
+                        scratch_bytes)
+    return S
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    if t.shape[0] == rows:
+        return t
+    out = t.new_zeros((rows, *t.shape[1:]))
+    out[:t.shape[0]] = t
+    return out
+
+
+def _tile_partials(kernel, tier, Ao, Bo, sqa, sqb, va, vb, degree, gamma, coef0):
+    """Every tile pair's partial sums of ``K = k(A, B)``, rows of both sides
+    a multiple of ``CUDA_TILE`` (zero rows with zero ``v`` add nothing):
+    ``row[a][b] = K_ab v_b`` ``(nA, nB, BM)`` and ``col[b][a] = K_ab^T v_a``
+    ``(nB, nA, BM)``, the slots the kernels write."""
+    T = CUDA_TILE
+    K = kernel_transform(kernel, tier_matmul(tier, Ao, _transposed(tier, Bo)), degree, gamma,
+                         coef0, None if sqa is None else sqa, sqb)
+    nA, nB = K.shape[0] // T, K.shape[1] // T
+    K4 = K.reshape(nA, T, nB, T)
+    row = torch.einsum("arbc,bc->abr", K4, vb.reshape(nB, T))
+    col = torch.einsum("arbc,ar->bac", K4, va.reshape(nA, T))
+    return row, col
+
+
+def _sum_slots(start: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """``start + slots[:, 0] + slots[:, 1] + ...``, in that order, as the
+    kernels' reductions add."""
+    s = start
+    for b in range(slots.shape[1]):
+        s = s + slots[:, b]
+    return s
+
+
+def _strip_operands(kernel, tier: str, X, sq):
+    """X's tier operands and (rbf) row norms, rows padded with zeros to a
+    multiple of ``CUDA_TILE``."""
+    Dp = _cdiv(X.shape[0], CUDA_TILE) * CUDA_TILE
+    if kernel == KernelType.rbf:
+        sq = _pad_rows(row_sqnorms(X) if sq is None else sq, Dp)
+    return tuple(_pad_rows(t, Dp) for t in tier_operands(tier, X)), sq
+
+
+def _padded_v(v):
+    return _pad_rows(v, _cdiv(v.shape[0], CUDA_TILE) * CUDA_TILE)
+
+
+def gram_matvec_sym_strips_plain(kernel: KernelType, X, v, *, degree=3, gamma=1.0,
+                                 coef0=0.0, sq=None, tier: str = "exact",
+                                 scratch_bytes: int = SCRATCH_BYTES):
+    """Plain twin of K1's launch schedule under ``scratch_bytes``: for each
+    strip of :func:`sym_strip_blocks` row blocks, every lower-triangle tile
+    pair's partials into the strip's slots, then each row's slots added in
+    ascending order, carried from strip to strip as the kernels carry them
+    (``reduce_sym_strip_kernel``)."""
+    T = CUDA_TILE
+    D = X.shape[0]
+    nb = _cdiv(D, T)
+    S = sym_strip_blocks(nb, scratch_bytes)
+    tier = resolve_tier(tier, X.dtype)
+    ops, sqp = _strip_operands(kernel, tier, X, sq)
+    vp = _padded_v(v)
+    out = torch.zeros((nb, T), dtype=X.dtype, device=X.device)
+    for i0 in range(0, nb, S):
+        i1 = min(nb, i0 + S)
+        r0, r1 = i0 * T, i1 * T
+        row, col = _tile_partials(kernel, tier, _rows(ops, r0, r1), _rows(ops, 0, r1),
+                                  None if sqp is None else sqp[r0:r1],
+                                  None if sqp is None else sqp[:r1], vp[r0:r1], vp[:r1],
+                                  degree, gamma, coef0)
+        # the strip's row a takes pair (a, b)'s row side for b <= a, pair
+        # (b, a)'s column side for a < b < i1
+        a = torch.arange(i0, i1, device=X.device)[:, None]
+        b = torch.arange(i1, device=X.device)[None, :]
+        colside = torch.zeros_like(row)
+        colside[:, i0:] = col[i0:i1]
+        slots = torch.where((b <= a)[..., None], row, colside)
+        out[i0:i1] = _sum_slots(torch.zeros_like(out[i0:i1]), slots)
+        if i0:
+            out[:i0] = _sum_slots(out[:i0], col[:i0])
+    return out.reshape(-1)[:D]
+
+
+def gram_matvec_strips_plain(kernel: KernelType, X, v, *, Y, degree=3, gamma=1.0, coef0=0.0,
+                             sqx=None, sqy=None, tier: str = "exact",
+                             scratch_bytes: int = SCRATCH_BYTES):
+    """Plain twin of K2's schedule: strips of :func:`rect_strip_blocks` row
+    blocks of X, each row's ``nbj`` tile partials added in ascending
+    order."""
+    T = CUDA_TILE
+    nbi, nbj = _cdiv(X.shape[0], T), _cdiv(Y.shape[0], T)
+    S = rect_strip_blocks(nbi, nbj, scratch_bytes)
+    tier = resolve_tier(tier, X.dtype)
+    (xo, sqx), (yo, sqy) = _strip_operands(kernel, tier, X, sqx), _strip_operands(kernel, tier,
+                                                                                  Y, sqy)
+    vp = _padded_v(v)
+    out = torch.empty((nbi, T), dtype=X.dtype, device=X.device)
+    for i0 in range(0, nbi, S):
+        r0, r1 = i0 * T, min(nbi, i0 + S) * T
+        row, _ = _tile_partials(kernel, tier, _rows(xo, r0, r1), yo,
+                                None if sqx is None else sqx[r0:r1], sqy,
+                                torch.zeros(r1 - r0, dtype=X.dtype, device=X.device), vp,
+                                degree, gamma, coef0)
+        out[i0:i0 + row.shape[0]] = _sum_slots(torch.zeros_like(row[:, 0]), row)
+    return out.reshape(-1)[:X.shape[0]]
+
+
+def pair_gram_contrib_strips_plain(kernel: KernelType, Xi, Xj, v_i, v_j, *, sq_i=None,
+                                   sq_j=None, degree=3, gamma=1.0, coef0=0.0,
+                                   tier: str = "exact", scratch_bytes: int = SCRATCH_BYTES):
+    """Plain twin of K3's schedule on a cross pair: strips of
+    :func:`rect_strip_blocks` (``sides=2``) row blocks of Xi; ``out_i``'s
+    rows add their ``nbj`` partials, ``out_j`` adds each strip's column
+    partials to what the earlier strips left, in ascending order."""
+    T = CUDA_TILE
+    nbi, nbj = _cdiv(Xi.shape[0], T), _cdiv(Xj.shape[0], T)
+    S = rect_strip_blocks(nbi, nbj, scratch_bytes, sides=2)
+    tier = resolve_tier(tier, Xi.dtype)
+    (xio, sqi), (xjo, sqj) = (_strip_operands(kernel, tier, Xi, sq_i),
+                              _strip_operands(kernel, tier, Xj, sq_j))
+    vip, vjp = _padded_v(v_i), _padded_v(v_j)
+    out_i = torch.empty((nbi, T), dtype=Xi.dtype, device=Xi.device)
+    out_j = torch.zeros((nbj, T), dtype=Xi.dtype, device=Xi.device)
+    for i0 in range(0, nbi, S):
+        r0, r1 = i0 * T, min(nbi, i0 + S) * T
+        row, col = _tile_partials(kernel, tier, _rows(xio, r0, r1), xjo,
+                                  None if sqi is None else sqi[r0:r1], sqj, vip[r0:r1], vjp,
+                                  degree, gamma, coef0)
+        out_i[i0:i0 + row.shape[0]] = _sum_slots(torch.zeros_like(row[:, 0]), row)
+        out_j = _sum_slots(out_j, col)
+    return out_i.reshape(-1)[:Xi.shape[0]], out_j.reshape(-1)[:Xj.shape[0]]
+
+
+# --------------------------------------------------------------------------
 # CUDA launches
 # --------------------------------------------------------------------------
 
@@ -355,7 +564,8 @@ def _launch_split(X: torch.Tensor, pad: bool) -> tuple[torch.Tensor, torch.Tenso
     return hi, lo
 
 
-def _launch_sym(kernel, tier, Xo, v, sq, degree, gamma, coef0):
+def _launch_sym(kernel, tier, Xo, v, sq, degree, gamma, coef0, *,
+                scratch_bytes: int = SCRATCH_BYTES):
     """K1 (replaces ``_gram_matvec_sym_kernel``, ``pallas_matvec.py:388``).
     Bound on the H100 by f32 FFMA throughput (exact) or by the bf16
     tensor-core product (bf16 tiers; at f = 256 the transform's special
@@ -365,7 +575,9 @@ def _launch_sym(kernel, tier, Xo, v, sq, degree, gamma, coef0):
     ``wgmma`` by TMA and overlaps one tile's epilogue with the next one's
     product (``csrc/gram_tile_wgmma.cuh``).  The lower-triangle pairs halve
     the flops; the slab holds one BM-long partial per (block, other block)
-    and a second kernel sums it in a fixed order.  ``Xo`` is
+    and a second kernel sums it in a fixed order, one strip of
+    :func:`sym_strip_blocks` row blocks per launch, the slab reused from
+    strip to strip (stream order).  ``Xo`` is
     :func:`tier_operands` of X: ``f`` below is its padded feature count at
     a bf16 tier."""
     D, f = Xo[0].shape
@@ -377,19 +589,23 @@ def _launch_sym(kernel, tier, Xo, v, sq, degree, gamma, coef0):
     if D == 0:
         return out
     nb = _cdiv(D, CUDA_TILE)
-    slab = torch.empty((nb, nb, CUDA_TILE), dtype=torch.float32, device=dev)
+    S = sym_strip_blocks(nb, scratch_bytes)
+    slab = torch.empty(sym_strip_slots(nb, S) * CUDA_TILE, dtype=torch.float32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
-        rc = lib.gram_matvec_sym(
-            TIERS.index(tier), x_hi, x_lo, sq.data_ptr(), v.data_ptr(), slab.data_ptr(),
-            out.data_ptr(), D, f, int(kernel), int(degree), float(gamma), float(coef0),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, f"gram_matvec_sym/{tier}")
-    launches[f"gram_matvec_sym/{tier}"] += 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for i0 in range(0, nb, S):
+            rc = lib.gram_matvec_sym(
+                TIERS.index(tier), x_hi, x_lo, sq.data_ptr(), v.data_ptr(), slab.data_ptr(),
+                out.data_ptr(), D, f, i0, min(nb, i0 + S), int(kernel), int(degree),
+                float(gamma), float(coef0), stream)
+            _raise_on(rc, f"gram_matvec_sym/{tier}")
+            launches[f"gram_matvec_sym/{tier}"] += 1
     return out
 
 
-def _launch_rect(kernel, tier, Xo, Yo, v, sqx, sqy, degree, gamma, coef0):
+def _launch_rect(kernel, tier, Xo, Yo, v, sqx, sqy, degree, gamma, coef0, *,
+                 scratch_bytes: int = SCRATCH_BYTES):
     """K2 (replaces ``_gram_matvec_kernel``, ``pallas_matvec.py:117``).
     Bound like K1.  The exact tier runs one CTA per tile pair; the bf16
     tiers the persistent ``wgmma`` tile of ``csrc/gram_tile_wgmma.cuh`` with
@@ -398,7 +614,8 @@ def _launch_rect(kernel, tier, Xo, Yo, v, sqx, sqy, degree, gamma, coef0):
     <= 320 at bf16x3), else with both operands streamed.  Y's rows are
     split over tiles so a one-row predict still spreads over the card, but
     each tile still runs all 128 rows: small batches pay for 128.  The slab
-    holds one partial per tile pair, summed in a fixed order."""
+    holds one partial per tile pair, summed in a fixed order; X's rows run
+    in strips of :func:`rect_strip_blocks` row blocks, one launch each."""
     D, f = Xo[0].shape
     N = Yo[0].shape[0]
     dev = Xo[0].device
@@ -411,31 +628,38 @@ def _launch_rect(kernel, tier, Xo, Yo, v, sqx, sqy, degree, gamma, coef0):
     if D == 0 or N == 0:
         return out
     nbi, nbj = _cdiv(D, CUDA_TILE), _cdiv(N, CUDA_TILE)
-    if nbi > 65535:
-        raise PLSSVMError(f"gram_matvec: {D} rows exceed the kernel's grid "
-                          f"({65535 * CUDA_TILE}); split the call")
-    slab = torch.empty((nbi, nbj, CUDA_TILE), dtype=torch.float32, device=dev)
+    S = rect_strip_blocks(nbi, nbj, scratch_bytes)
+    rows = S * CUDA_TILE
+    slab = torch.empty((S, nbj, CUDA_TILE), dtype=torch.float32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
-        rc = lib.gram_matvec_rect(
-            TIERS.index(tier), x_hi, x_lo, y_hi, y_lo, sqx.data_ptr(), sqy.data_ptr(),
-            v.data_ptr(), slab.data_ptr(), out.data_ptr(), D, N, f, int(kernel),
-            int(degree), float(gamma), float(coef0),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, f"gram_matvec_rect/{tier}")
-    launches[f"gram_matvec_rect/{tier}"] += 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for r0 in range(0, D, rows):
+            r1 = min(D, r0 + rows)
+            xs = _rows(Xo, r0, r1)
+            rc = lib.gram_matvec_rect(
+                TIERS.index(tier), xs[0].data_ptr(), xs[1].data_ptr() if x_lo else None,
+                y_hi, y_lo, sqx[r0:].data_ptr(), sqy.data_ptr(), v.data_ptr(),
+                slab.data_ptr(), out[r0:].data_ptr(), r1 - r0, N, f, int(kernel), int(degree),
+                float(gamma), float(coef0), stream)
+            _raise_on(rc, f"gram_matvec_rect/{tier}")
+            launches[f"gram_matvec_rect/{tier}"] += 1
     return out
 
 
-def _launch_pair(kernel, tier, Xio, Xjo, v_i, v_j, sq_i, sq_j, degree, gamma, coef0):
+def _launch_pair(kernel, tier, Xio, Xjo, v_i, v_j, sq_i, sq_j, degree, gamma, coef0, *,
+                 scratch_bytes: int = SCRATCH_BYTES):
     """K3, cross panels (replaces ``pair_gram_contrib``,
     ``pallas_matvec.py:716``).  Bound like K1, at twice K1's flops per
     output pair (no symmetry to skip); at the panel tier's f = 4096 the
     feature loop is nearly all of the time, which the bf16 tiers spend in
     the TMA-fed ``wgmma`` tile of ``csrc/gram_tile_wgmma.cuh``.  Each (i, j)
     tile pair writes ``K_ij v_j`` to ``slab_i[i][j]`` and ``K_ij^T v_i`` to
-    ``slab_j[j][i]``; two fixed-order passes sum them.  ``Xio``, ``Xjo`` are the panels'
-    :func:`tier_operands`, prepared by the caller once per panel."""
+    ``slab_j[j][i]``; two fixed-order passes sum them.  Xi's rows run in
+    strips of :func:`rect_strip_blocks` row blocks, one launch each, each
+    strip's column side added to ``out_j`` in order.  ``Xio``, ``Xjo`` are
+    the panels' :func:`tier_operands`, prepared by the caller once per
+    panel."""
     Di, f = Xio[0].shape
     Dj = Xjo[0].shape[0]
     dev = Xio[0].device
@@ -450,20 +674,24 @@ def _launch_pair(kernel, tier, Xio, Xjo, v_i, v_j, sq_i, sq_j, degree, gamma, co
     if Di == 0 or Dj == 0:
         return out_i, out_j
     nbi, nbj = _cdiv(Di, CUDA_TILE), _cdiv(Dj, CUDA_TILE)
-    if nbi > 65535:
-        raise PLSSVMError(f"pair_gram_contrib: {Di} rows exceed the kernel's grid "
-                          f"({65535 * CUDA_TILE}); use smaller panels")
-    slab_i = torch.empty((nbi, nbj, CUDA_TILE), dtype=torch.float32, device=dev)
-    slab_j = torch.empty((nbj, nbi, CUDA_TILE), dtype=torch.float32, device=dev)
+    S = rect_strip_blocks(nbi, nbj, scratch_bytes, sides=2)
+    rows = S * CUDA_TILE
+    slab_i = torch.empty((S, nbj, CUDA_TILE), dtype=torch.float32, device=dev)
+    slab_j = torch.empty((nbj, S, CUDA_TILE), dtype=torch.float32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
-        rc = lib.gram_pair_contrib(
-            TIERS.index(tier), xi_hi, xi_lo, xj_hi, xj_lo, sq_i.data_ptr(), sq_j.data_ptr(),
-            v_i.data_ptr(), v_j.data_ptr(), slab_i.data_ptr(), slab_j.data_ptr(),
-            out_i.data_ptr(), out_j.data_ptr(), Di, Dj, f, int(kernel), int(degree),
-            float(gamma), float(coef0), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, f"gram_pair_contrib/{tier}")
-    launches[f"gram_pair_contrib/{tier}"] += 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for r0 in range(0, Di, rows):
+            r1 = min(Di, r0 + rows)
+            xs = _rows(Xio, r0, r1)
+            rc = lib.gram_pair_contrib(
+                TIERS.index(tier), xs[0].data_ptr(), xs[1].data_ptr() if xi_lo else None,
+                xj_hi, xj_lo, sq_i[r0:].data_ptr(), sq_j.data_ptr(), v_i[r0:].data_ptr(),
+                v_j.data_ptr(), slab_i.data_ptr(), slab_j.data_ptr(), out_i[r0:].data_ptr(),
+                out_j.data_ptr(), r1 - r0, Dj, f, int(r0 > 0), int(kernel), int(degree),
+                float(gamma), float(coef0), stream)
+            _raise_on(rc, f"gram_pair_contrib/{tier}")
+            launches[f"gram_pair_contrib/{tier}"] += 1
     return out_i, out_j
 
 
@@ -472,19 +700,21 @@ def _launch_pair(kernel, tier, Xio, Xjo, v_i, v_j, sq_i, sq_j, degree, gamma, co
 # --------------------------------------------------------------------------
 
 def make_sym_matvec(kernel: KernelType, X, *, degree=3, gamma=1.0, coef0=0.0,
-                    tier: str | None = None):
+                    tier: str | None = None, scratch_bytes: int = SCRATCH_BYTES):
     """Build ``v -> K(X, X) v`` (K1) at ``tier`` (``None``:
     :func:`pallas_tier`).  The row norms and the tier's split or cast of X
     are computed once here, outside the returned closure, as the JAX
     package does (``pallas_matvec.py:663-668``), so a CG loop pays only for
-    the kernel."""
+    the kernel.  ``scratch_bytes`` bounds the kernel's slab per launch (the
+    plain version holds none)."""
     tier = resolve_tier(tier, X.dtype)
     sq = row_sqnorms(X)
     Xo = tier_operands(tier, X)
 
     def matvec(v):
         if X.is_cuda:
-            return _launch_sym(kernel, tier, Xo, v, sq, degree, gamma, coef0)
+            return _launch_sym(kernel, tier, Xo, v, sq, degree, gamma, coef0,
+                               scratch_bytes=scratch_bytes)
         return gram_matvec_sym_plain(kernel, X, v, degree=degree, gamma=gamma,
                                      coef0=coef0, sq=sq, tier=tier, operands=Xo)
 
@@ -492,17 +722,20 @@ def make_sym_matvec(kernel: KernelType, X, *, degree=3, gamma=1.0, coef0=0.0,
 
 
 def gram_matvec_sym(kernel: KernelType, X, v, *, degree=3, gamma=1.0, coef0=0.0,
-                    tier: str | None = None):
+                    tier: str | None = None, scratch_bytes: int = SCRATCH_BYTES):
     """One-shot ``K(X, X) v`` through K1 — see :func:`make_sym_matvec`."""
-    return make_sym_matvec(kernel, X, degree=degree, gamma=gamma, coef0=coef0, tier=tier)(v)
+    return make_sym_matvec(kernel, X, degree=degree, gamma=gamma, coef0=coef0, tier=tier,
+                           scratch_bytes=scratch_bytes)(v)
 
 
 def gram_matvec(kernel: KernelType, X, v, *, Y=None, degree=3, gamma=1.0,
-                coef0=0.0, sqx=None, sqy=None, tier: str | None = None, operands=None):
+                coef0=0.0, sqx=None, sqy=None, tier: str | None = None, operands=None,
+                scratch_bytes: int = SCRATCH_BYTES):
     """``K(X, Y) v`` through K2 (``Y`` defaults to ``X``) at ``tier``
     (``None``: :func:`pallas_tier`): the poly/rbf predict, and the implicit
     A·v with the symmetric kernel disabled, which passes ``operands``
-    (``(Xo, Yo)`` of :func:`tier_operands`) prepared once."""
+    (``(Xo, Yo)`` of :func:`tier_operands`) prepared once.
+    ``scratch_bytes`` bounds the kernel's slab per launch."""
     Y = X if Y is None else Y
     tier = resolve_tier(tier, X.dtype)
     if not X.is_cuda:
@@ -513,12 +746,13 @@ def gram_matvec(kernel: KernelType, X, v, *, Y=None, degree=3, gamma=1.0,
     if operands is None:
         Xo = tier_operands(tier, X)
         operands = (Xo, Xo if Y is X else tier_operands(tier, Y))
-    return _launch_rect(kernel, tier, *operands, v, sqx, sqy, degree, gamma, coef0)
+    return _launch_rect(kernel, tier, *operands, v, sqx, sqy, degree, gamma, coef0,
+                        scratch_bytes=scratch_bytes)
 
 
 def pair_gram_contrib(kernel: KernelType, Xi, Xj, v_i, v_j, *, same: bool, sq_i=None,
                       sq_j=None, degree=3, gamma=1.0, coef0=0.0, tier: str | None = None,
-                      operands=None):
+                      operands=None, scratch_bytes: int = SCRATCH_BYTES):
     """Panel-pair contributions of ``K = k(Xi, Xj)`` without building K, with
     the JAX package's contract (``pallas_matvec.py:734-755``): returns
     ``(out_i, out_j)`` sliced to the real row counts, ``out_i = K v_j`` and
@@ -530,7 +764,8 @@ def pair_gram_contrib(kernel: KernelType, Xi, Xj, v_i, v_j, *, same: bool, sq_i=
     of its pairs (the panel schedules of ``ops/sparse.py``); without it the
     tier's split or cast runs here, per call, once for both sides when
     ``same=True`` (``pallas_matvec.py:319-326``).  Padding rows must be
-    zero, with zero ``v``."""
+    zero, with zero ``v``.  ``scratch_bytes`` bounds the kernel's slabs per
+    launch."""
     tier = resolve_tier(tier, Xi.dtype)
     sq_i = row_sqnorms(Xi) if sq_i is None else sq_i
     if same:
@@ -539,7 +774,8 @@ def pair_gram_contrib(kernel: KernelType, Xi, Xj, v_i, v_j, *, same: bool, sq_i=
                                            sq_j=sq_i, degree=degree, gamma=gamma,
                                            coef0=coef0, tier=tier, operands=operands)
         Xio, _ = _pair_operands(tier, Xi, Xi, True, operands)
-        out = _launch_sym(kernel, tier, Xio, v_i, sq_i, degree, gamma, coef0)
+        out = _launch_sym(kernel, tier, Xio, v_i, sq_i, degree, gamma, coef0,
+                          scratch_bytes=scratch_bytes)
         return out, torch.zeros_like(out)
     sq_j = row_sqnorms(Xj) if sq_j is None else sq_j
     if not Xi.is_cuda:
@@ -547,4 +783,5 @@ def pair_gram_contrib(kernel: KernelType, Xi, Xj, v_i, v_j, *, same: bool, sq_i=
                                        sq_j=sq_j, degree=degree, gamma=gamma, coef0=coef0,
                                        tier=tier, operands=operands)
     Xio, Xjo = _pair_operands(tier, Xi, Xj, False, operands)
-    return _launch_pair(kernel, tier, Xio, Xjo, v_i, v_j, sq_i, sq_j, degree, gamma, coef0)
+    return _launch_pair(kernel, tier, Xio, Xjo, v_i, v_j, sq_i, sq_j, degree, gamma, coef0,
+                        scratch_bytes=scratch_bytes)

@@ -10,6 +10,10 @@ rank order), and the row-sharded learns, predict and ``w`` of
 own shards, the CG vectors are whole and bitwise equal on every rank, and
 the shards' partials and rows cross ranks through the helpers below.
 
+Every byte that crosses ranks passes through :func:`all_gather` or
+:func:`post`; each adds what this rank sends and receives to
+:data:`traffic` (``scripts/comms_check.py`` reads it per A·v).
+
 Typical use, one process per rank::
 
     from plssvm_sparse_fp22_tpu_torch.parallel import distributed, mesh, sharded
@@ -43,6 +47,17 @@ from .mesh import local_shards, place_local
 
 #: seconds the rendezvous and every collective may take before they raise
 DEFAULT_TIMEOUT = 600.0
+
+#: bytes this rank sent to and received from other ranks, per transport
+#: helper, since the last :func:`reset_traffic`: an all-gather of ``n``
+#: bytes sends them to each of the other ranks and receives as many from
+#: each; a posted transfer counts its tensor's bytes once
+traffic = {"all_gather/sent": 0, "all_gather/received": 0, "post/sent": 0, "post/received": 0}
+
+
+def reset_traffic() -> None:
+    for key in traffic:
+        traffic[key] = 0
 
 
 def initialize_distributed(coordinator_address: str | None = None,
@@ -168,6 +183,9 @@ def all_gather(t: torch.Tensor) -> list[torch.Tensor]:
     src = t.detach().cpu() if through_host(t) else t.detach().contiguous()
     outs = [torch.empty_like(src) for _ in range(dist.get_world_size())]
     dist.all_gather([_bytes(o) for o in outs], _bytes(src))
+    others = (len(outs) - 1) * src.numel() * src.element_size()
+    traffic["all_gather/sent"] += others
+    traffic["all_gather/received"] += others
     return [o.to(t.device) for o in outs] if src.device != t.device else outs
 
 
@@ -180,4 +198,6 @@ def post(sends, recvs) -> list:
     Tensors are contiguous and, on gloo, on the CPU."""
     ops = ([dist.P2POp(dist.isend, _bytes(t), peer, tag=tag) for t, peer, tag in sends]
            + [dist.P2POp(dist.irecv, _bytes(t), peer, tag=tag) for t, peer, tag in recvs])
+    traffic["post/sent"] += sum(t.numel() * t.element_size() for t, _, _ in sends)
+    traffic["post/received"] += sum(t.numel() * t.element_size() for t, _, _ in recvs)
     return dist.batch_isend_irecv(ops) if ops else []

@@ -2,9 +2,11 @@
 versions at every precision tier (the bf16 tiers run the TMA-fed ``wgmma``
 tile, K2 in its row-only mode: ragged rows and features, more tile pairs
 than SMs, operands prepared by the caller), the one-pass bf16 split bit for
-bit against its plain version, determinism, launch counts, the wrappers' checks, a
-small learn/predict on the ``cuda`` backend against the ``torch`` backend, a
-streaming sparse learn through K3, and the adaptive two-tier learn.
+bit against its plain version, determinism, launch counts, the scratch in
+strips (bitwise the one-strip result, the slab within its budget), the
+wrappers' checks, a small learn/predict on the ``cuda`` backend against the
+``torch`` backend, a streaming sparse learn through K3, and the adaptive
+two-tier learn.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -539,3 +541,83 @@ def test_adaptive_learn_runs_both_tiers(dev, monkeypatch):
     info, launches = infos["2"]
     assert info["escalated"] and info["iterations"] > info["fast_iterations"]
     assert info["delta"] <= 1e-18 * info["delta0"] or info["iterations"] == 400
+
+
+# the scratch in strips: a launch's slab bounded by ``scratch_bytes``
+SLOT = gm.CUDA_TILE * 4
+#: D = 1000 rows (8 row blocks) against 700 (6): budgets for 1, 3 and 8
+#: strips of K1, K2 and K3 (tests/test_torch_scratch_strips.py)
+STRIP_BUDGETS = {"sym": {1: 64 * SLOT, 3: 40 * SLOT, 8: 20 * SLOT},
+                 "rect": {1: 48 * SLOT, 3: 18 * SLOT, 8: 6 * SLOT},
+                 "pair": {1: 96 * SLOT, 3: 36 * SLOT, 8: 12 * SLOT}}
+
+
+def _strip_data(dev, f=40, seed=21):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    X, Y = torch.randn(1000, f, generator=g), torch.randn(700, f, generator=g)
+    v, w = torch.randn(1000, generator=g), torch.randn(700, generator=g)
+    return X.to(dev), Y.to(dev), v.to(dev), w.to(dev)
+
+
+@pytest.mark.parametrize("tier", ["exact", *BF16_TIERS])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_k1_in_strips_is_bitwise_one_strip(dev, kernel, tier):
+    """K1 in 3 and 8 strips gives the one-strip bits (each row's partials
+    are added in the one ascending order across the strips), one launch per
+    strip, and equals the plain twin of the schedule."""
+    X, _, v, _ = _strip_data(dev)
+    kw = _hyper(X.shape[1])
+    one = gm.make_sym_matvec(kernel, X, tier=tier, scratch_bytes=STRIP_BUDGETS["sym"][1], **kw)(v)
+    for strips in (3, 8):
+        gm.reset_launches()
+        got = gm.make_sym_matvec(kernel, X, tier=tier,
+                                 scratch_bytes=STRIP_BUDGETS["sym"][strips], **kw)(v)
+        assert gm.launches[f"gram_matvec_sym/{tier}"] == strips
+        assert torch.equal(got, one)
+    twin = gm.gram_matvec_sym_strips_plain(kernel, X, v, tier=tier,
+                                           scratch_bytes=STRIP_BUDGETS["sym"][8], **kw)
+    assert _rel_err(one, twin) <= (TOL if tier == "exact" else TIER_TOL)
+
+
+@pytest.mark.parametrize("tier", ["exact", *BF16_TIERS])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_k2_and_k3_in_strips_are_bitwise_one_strip(dev, kernel, tier):
+    X, Y, v, w = _strip_data(dev)
+    kw = _hyper(X.shape[1])
+
+    def k2(strips):
+        return gm.gram_matvec(kernel, X, w, Y=Y, tier=tier,
+                              scratch_bytes=STRIP_BUDGETS["rect"][strips], **kw)
+
+    def k3(strips):
+        return torch.cat(gm.pair_gram_contrib(kernel, X, Y, v, w, same=False, tier=tier,
+                                              scratch_bytes=STRIP_BUDGETS["pair"][strips], **kw))
+
+    one2, one3 = k2(1), k3(1)
+    for strips in (3, 8):
+        gm.reset_launches()
+        assert torch.equal(k2(strips), one2) and torch.equal(k3(strips), one3)
+        assert gm.launches[f"gram_matvec_rect/{tier}"] == strips
+        assert gm.launches[f"gram_pair_contrib/{tier}"] == strips
+    twin = gm.gram_matvec_strips_plain(kernel, X, w, Y=Y, tier=tier,
+                                       scratch_bytes=STRIP_BUDGETS["rect"][8], **kw)
+    assert _rel_err(one2, twin) <= (TOL if tier == "exact" else TIER_TOL)
+
+
+def test_k1_slab_stays_within_its_budget(dev):
+    """At D = 65536 (one slab: 128 MiB) under a 16 MiB budget, the peak
+    memory a call adds is the slab and the output, within the budget."""
+    X = torch.randn(65536, 64, device=dev)
+    v = torch.randn(65536, device=dev)
+    ops, sq = gm.tier_operands("bf16cast", X), gm.row_sqnorms(X)
+    budget = 16 * 1024**2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    got = gm._launch_sym(KernelType.rbf, "bf16cast", ops, v, sq, 3, 1 / 64, 1.0,
+                         scratch_bytes=budget)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base <= budget + 65536 * 4
+    want = gm._launch_sym(KernelType.rbf, "bf16cast", ops, v, sq, 3, 1 / 64, 1.0,
+                          scratch_bytes=512 * 1024**2)
+    assert torch.equal(got, want)

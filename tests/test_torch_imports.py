@@ -42,6 +42,12 @@ EXPECTED = {
     "plssvm_sparse_fp22_tpu_torch.utils.oracle", "plssvm_sparse_fp22_tpu_torch.utils.assertions",
     "plssvm_sparse_fp22_tpu_torch.cli.train", "plssvm_sparse_fp22_tpu_torch.cli.predict",
     "plssvm_sparse_fp22_tpu_torch.cli.detect", "plssvm_sparse_fp22_tpu_torch.cli.generate_data",
+    "plssvm_sparse_fp22_tpu_torch.io.native", "plssvm_sparse_fp22_tpu_torch.scripts",
+    "plssvm_sparse_fp22_tpu_torch.scripts.gpu_validate",
+    "plssvm_sparse_fp22_tpu_torch.scripts.profile_cg",
+    "plssvm_sparse_fp22_tpu_torch.scripts.precision_study",
+    "plssvm_sparse_fp22_tpu_torch.scripts.comms_check",
+    "plssvm_sparse_fp22_tpu_torch.scripts.scaling_bench",
 }
 
 PROBE = """

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on an NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile | --probe | --sharded | --distributed | --strips | --tools]
+    python3 chip_smoke.py [--profile | --probe | --sharded | --distributed | --strips | --tools
+                           | --float64]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the repository around this script; it imports nothing of JAX.  Phases 3-10
@@ -127,11 +128,26 @@ Phases, one line or more each, any failure exits non-zero:
 21. the on-chip tools of ``plssvm_sparse_fp22_tpu_torch/scripts`` at small
     sizes on the card (``gpu_validate`` with every check passing,
     ``profile_cg``, ``precision_study``, ``comms_check`` over two ranks,
-    ``scaling_bench`` on logical shards), one line each.
+    ``scaling_bench`` on logical shards), one line each;
+22. float64 on the card, where the kernels (float32 only) launch nowhere,
+    as the JAX package keeps float64 off Pallas: (a) the train CLI without
+    ``--use_float`` on two blobs of 40960 x 256, rbf (float64 K 12.5 GiB,
+    beyond the 8 GiB budget: ``implicit`` as the blocked float64 product),
+    converged to eps 1e-6, then the predict CLI without ``--use_float`` on
+    4096 points at >= 95 %; (b) that system's float64 A·v against the
+    float64 cached K under a 16 GiB budget (``F64_AV_TOL``), with ms of
+    both; (c) the sparse panel tier at float64 on phase 8's set (512 MiB
+    budget: plain pairs), converged, its A·v against the gram tier's
+    (``F64_AV_TOL``), accuracy on the test rows; (d) phase 6's reference
+    check at float64, forced to ``implicit``, eps 1e-10
+    (``F64_REFERENCE_TOL``); (e) the default float32 ``linear`` learn
+    through the CLIs on the exact tier (no bf16 operand prepared), at the
+    direct float64 solve's training accuracy less one point.
 
 ``--sharded`` runs phases 1, 2, 17, 18 and 19 only (the phases that differ
 on a machine with several cards); ``--distributed`` phases 1, 2 and 19;
-``--strips`` phases 1, 2 and 20; ``--tools`` phases 1, 2 and 21.
+``--strips`` phases 1, 2 and 20; ``--tools`` phases 1, 2 and 21;
+``--float64`` phases 1, 2 and 22.
 ``--probe`` is the short first run after a change to a kernel source:
 phases 1 and 2, the compiler's resource lines of every kernel (the whole
 log goes to ``build.log`` beside the built library), and phase 11's checks
@@ -671,30 +687,31 @@ def phase_reference(rng):
           flush=True)
 
 
-def dense_system(dev, X, y, gamma, kernel=None):
+def dense_system(dev, X, y, gamma, kernel=None, dtype=np.float32):
     """The reduced CG system (rbf unless ``kernel`` says otherwise) of a dense
     data set on the card, as ``CSVM._learn_dense`` builds it (C = 1):
     ``(X_pad, q, mask, QA_cost, cost_inv, b)``, padded to a multiple of 256
-    rows."""
+    rows, in ``dtype`` (float32 unless said)."""
     import torch
 
     from plssvm_sparse_fp22_tpu_torch.ops.kernel_functions import gram_block, kernel_scalar
     from plssvm_sparse_fp22_tpu_torch.types import KernelType
 
     kernel = KernelType.rbf if kernel is None else kernel
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
 
     n, f = X.shape
     dept = n - 1
     D = -(-dept // 256) * 256
-    Xp = np.zeros((D, f), np.float32)
+    Xp = np.zeros((D, f), dtype)
     Xp[:dept] = X[:dept]
     Xd = torch.tensor(Xp, device=dev)
-    xl = torch.tensor(X[-1], dtype=torch.float32, device=dev)
-    mask = torch.zeros(D, device=dev)
+    xl = torch.tensor(X[-1], dtype=tdt, device=dev)
+    mask = torch.zeros(D, dtype=tdt, device=dev)
     mask[:dept] = 1.0
-    b = torch.zeros(D, device=dev)
-    b[:dept] = torch.tensor(y[:dept] - y[-1], dtype=torch.float32, device=dev)
-    cost_inv = torch.tensor(1.0, device=dev)
+    b = torch.zeros(D, dtype=tdt, device=dev)
+    b[:dept] = torch.tensor(y[:dept] - y[-1], dtype=tdt, device=dev)
+    cost_inv = torch.tensor(1.0, dtype=tdt, device=dev)
     q = gram_block(kernel, Xd, xl[None, :], gamma=gamma)[:, 0] * mask
     QA = kernel_scalar(kernel, xl, xl, gamma=gamma) + cost_inv
     return Xd, q, mask, QA, cost_inv, b
@@ -777,9 +794,10 @@ def densify_compare(vals, lcols, ntiles: int, Lt: int):
     return out.reshape(m, ntiles * 128)
 
 
-def sparse_learn(csr, y, kernel, *, eps, max_iter, gamma=SPARSE_GAMMA):
-    """A float32 learn on the cuda backend through the library API; returns
-    the CSVM and its seconds (synchronised)."""
+def sparse_learn(csr, y, kernel, *, eps, max_iter, gamma=SPARSE_GAMMA, dtype=np.float32):
+    """A learn (float32 unless ``dtype`` says otherwise) on the cuda backend
+    through the library API; returns the CSVM and its seconds
+    (synchronised)."""
     import torch
 
     from plssvm_sparse_fp22_tpu_torch import make_csvm
@@ -788,7 +806,7 @@ def sparse_learn(csr, y, kernel, *, eps, max_iter, gamma=SPARSE_GAMMA):
     from plssvm_sparse_fp22_tpu_torch.types import BackendType
 
     p = Parameter(kernel=kernel, gamma=gamma, epsilon=eps, max_iter=max_iter,
-                  dtype=np.float32, backend=BackendType.cuda, print_info=False)
+                  dtype=dtype, backend=BackendType.cuda, print_info=False)
     p.data = ParsedData(csr=csr, values=y)
     p.values = y
     svm = make_csvm(p)
@@ -2867,6 +2885,254 @@ def phase_tools():
         print(f"[21 tools] {name} ({time.perf_counter() - t0:.1f} s): {summary}", flush=True)
 
 
+#: phase 22: the float64 CLI learn's size, beyond the K-cache budget at
+#: float64 (K 12.5 GiB against 8 GiB: 32768 points is the last that caches)
+F64_N, F64_TEST, F64_F = 40960, 4096, 256
+#: (b) and (c): two float64 A·v of one system, through different products
+#: (the blocked implicit against the cached K; the plain panel pairs against
+#: the gram tier's assembled K), differ only in the order of float64 sums
+F64_AV_TOL = 1e-12
+#: (d): the float64 rbf learn at eps 1e-10 against the direct float64 solve:
+#: a CPU rehearsal of this check (torch backend, forced implicit, seeds
+#: SEED + 22 ... SEED + 26) put the decision values 2.7e-8 to 4.8e-8 of
+#: their scale from the solve; the bound is ten times the largest
+F64_REFERENCE_TOL = 5e-7
+#: (e): the default linear learn's data, two blobs at -0.2 and +0.2: CG
+#: stops at eps 1e-6 near enough to the solution that the training
+#: accuracies compare (a CPU rehearsal: 86.35 % against the solve's 86.38 %)
+LINEAR_N, LINEAR_F = 4096, 32
+
+
+@contextlib.contextmanager
+def captured_matvecs():
+    """The A·v of every CG solve the sparse learns run, in order: each
+    learn's operator, to be held against another's after the learns."""
+    from plssvm_sparse_fp22_tpu_torch.models import sparse_learn as learns
+
+    seen, solve = [], learns.cg_solve
+
+    def keep(matvec, *args, **kw):
+        seen.append(matvec)
+        return solve(matvec, *args, **kw)
+
+    learns.cg_solve = keep
+    try:
+        yield seen
+    finally:
+        learns.cg_solve = solve
+
+
+def direct_solve(X, y, kernel_matrix):
+    """The direct float64 solve of the full LS-SVM system [[K + I, 1],
+    [1^T, 0]] [alpha; b] = [y; 0] (C = 1): ``(alpha, b)``."""
+    n = len(y)
+    M = np.zeros((n + 1, n + 1))
+    M[:n, :n] = kernel_matrix(X, X) + np.eye(n)
+    M[:n, n] = M[n, :n] = 1.0
+    sol = np.linalg.solve(M, np.concatenate([y, [0.0]]))
+    return sol[:n], sol[n]
+
+
+def phase_float64(dev):
+    """22. float64 on the card: every learn routes around the kernels, which
+    are float32 only, as the JAX package routes float64 around Pallas.
+    (a) the train and predict CLIs without ``--use_float`` at rbf 40960 x
+    256 (``implicit``: the blocked float64 product), (b) its A·v against
+    the float64 cached K, (c) the sparse panel tier at float64 on phase 8's
+    set (plain pairs) against the gram tier, (d) phase 6's reference check
+    at float64, (e) the default float32 ``linear`` learn on the exact tier
+    at the float64 solve's accuracy.  No kernel may launch in (a)-(d)."""
+    import scipy.sparse as sp
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch import make_csvm
+    from plssvm_sparse_fp22_tpu_torch.cli import train as train_cli
+    from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
+    from plssvm_sparse_fp22_tpu_torch.io.libsvm import ParsedData
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.ops.matvec import build_operator
+    from plssvm_sparse_fp22_tpu_torch.params import Parameter
+    from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType
+
+    smi = cards()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 22)
+    rbf, f = KernelType.rbf, F64_F
+
+    # (a) the CLIs at their default precision, float64
+    X, y = two_blobs(F64_N + F64_TEST, f, rng)
+    train, test = os.path.join(WORK, "f64.libsvm"), os.path.join(WORK, "f64.test.libsvm")
+    model, out = os.path.join(WORK, "f64.model"), os.path.join(WORK, "f64.predict")
+    write_libsvm(train, X[:F64_N], y[:F64_N])
+    write_libsvm(test, X[F64_N:], y[F64_N:])
+    with recording_csvms(train_cli) as made:
+        gm.reset_launches()
+        t0 = time.perf_counter()
+        rc, log = run_cli(train_cli.main, ["-t", "2", "-e", "1e-6", "-b", "cuda",
+                                           "-p", "gpu_nvidia", train, model])
+        train_s = time.perf_counter() - t0
+        counts = nonzero(gm.launches)
+    check(rc == 0, f"(a) the float64 train CLI returned {rc}")
+    info = made[-1].last_cg_info
+    check(made[-1].dtype == torch.float64 and info["mode"] == "implicit",
+          f"(a) the train CLI ran {made[-1].dtype} in mode {info['mode']}, not float64 implicit")
+    check(info["delta"] <= 1e-12 * info["delta0"], f"(a) the learn stopped at residual "
+          f"{info['delta']:.3e} > eps^2 delta0 = {1e-12 * info['delta0']:.3e}")
+    del made
+    gm.reset_launches()
+    t0 = time.perf_counter()
+    rc, plog = run_cli(predict_main, ["-b", "cuda", "-p", "gpu_nvidia", test, model, out])
+    predict_s = time.perf_counter() - t0
+    counts.update(nonzero(gm.launches))
+    m = re.search(r"Accuracy = ([0-9.]+)%", plog)
+    check(rc == 0 and m is not None and float(m.group(1)) >= 95.0,
+          f"(a) the float64 predict CLI: rc {rc}, accuracy {m and m.group(1)}% (bar 95 %)")
+    check(not counts, f"(a) a float64 learn or predict launched a kernel: {counts}")
+    print(f"[22 float64] (a) train CLI without --use_float, rbf {F64_N} x {f}: mode implicit "
+          f"(blocked float64 product), {info['iterations']} CG iterations, residual "
+          f"{info['delta'] / info['delta0']:.2e} of delta0, {train_s:.1f} s; predict CLI "
+          f"{F64_TEST} points {predict_s:.1f} s, accuracy {m.group(1)}%; no kernel launched",
+          flush=True)
+
+    # (b) that system's float64 A·v, blocked implicit against the cached K
+    Xd, q, mask, QA, ci, b = dense_system(dev, X[:F64_N], y[:F64_N], 1.0 / f, dtype=np.float64)
+    v = torch.tensor(np.random.default_rng(SEED + 221).normal(size=len(b)),
+                     dtype=torch.float64, device=dev) * mask
+    gm.reset_launches()
+    op = build_operator(rbf, Xd, q, mask, QA, ci, gamma=1.0 / f, backend=BackendType.cuda)
+    check(op.mode == "implicit", f"(b) float64 at {F64_N} took mode {op.mode}")
+    got = op.matvec(v)
+    implicit_ms = timed_ms(lambda: op.matvec(v), 5)
+    check(not any(gm.launches.values()), f"(b) the blocked product launched "
+          f"{nonzero(gm.launches)}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    with environ(PLSSVM_K_CACHE_BYTES=str(16 * 1024**3)):
+        cached = build_operator(rbf, Xd, q, mask, QA, ci, gamma=1.0 / f,
+                                backend=BackendType.cuda)
+    check(cached.mode == "cached", f"(b) a 16 GiB budget took mode {cached.mode}")
+    want = cached.matvec(v)
+    cached_ms = timed_ms(lambda: cached.matvec(v), 5)
+    peak = torch.cuda.max_memory_allocated(dev) / 1024**3
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    check(err <= F64_AV_TOL, f"(b) the blocked float64 A·v is {err:.2e} of the scale off the "
+          f"cached one (tol {F64_AV_TOL:g})")
+    print(f"[22 float64] (b) rbf {F64_N} x {f} float64 A·v ({smi}): blocked implicit "
+          f"{implicit_ms:.3f} ms, within {err:.2e} of the cached K's ({cached_ms:.3f} ms; "
+          f"K {len(b) ** 2 * 8 / 1024**3:.1f} GiB, peak {peak:.1f} GiB while built)", flush=True)
+    del op, cached, got, want, Xd, q, mask, b, v
+    torch.cuda.empty_cache()
+
+    # (c) the sparse panel tier at float64 (plain pairs) against the gram tier
+    # float64 values, as the CLIs parse them: the gram tier's q from a float32
+    # CSR would be summed in float32 by scipy, as the JAX package's would be
+    csr, ys = main_sparse_set()
+    csr = csr.astype(np.float64)
+    n = SPARSE_N
+    runs = {}
+    for name, env in (("implicit", {"PLSSVM_SPARSE_MODE": "implicit",
+                                     "PLSSVM_K_CACHE_BYTES": str(PANEL_BUDGET)}),
+                      ("gram", {"PLSSVM_SPARSE_MODE": "gram"})):
+        with environ(**env), captured_matvecs() as seen:
+            gm.reset_launches()
+            svm, learn_s = sparse_learn(csr[:n], ys[:n], rbf, eps=1e-6, max_iter=500,
+                                        dtype=np.float64)
+            runs[name] = (svm, learn_s, seen[-1], nonzero(gm.launches))
+    svm, learn_s, panel_mv, counts = runs["implicit"]
+    info = svm.last_cg_info
+    check(info["mode"] == "sparse_implicit" and runs["gram"][0].last_cg_info["mode"]
+          == "sparse_gram", f"(c) the tiers ran {info['mode']} and "
+          f"{runs['gram'][0].last_cg_info['mode']}")
+    check(not counts, f"(c) the float64 panel tier launched {counts}")
+    check(info["delta"] <= 1e-12 * info["delta0"], f"(c) the panel learn did not converge: "
+          f"{info['iterations']} iterations, residual {info['delta'] / info['delta0']:.2e}")
+    D = -(-(n - 1) // 256) * 256
+    vs = torch.tensor(np.random.default_rng(SEED + 222).normal(size=D), dtype=torch.float64,
+                      device=dev)
+    vs[n - 1:] = 0.0
+    got, want = panel_mv(vs), runs["gram"][2](vs)
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    check(err <= F64_AV_TOL, f"(c) the panel tier's float64 A·v is {err:.2e} of the scale off "
+          f"the gram tier's (tol {F64_AV_TOL:g})")
+    panel_ms = timed_ms(lambda: panel_mv(vs), 3)
+    test = ParsedData(csr=csr[n:], values=ys[n:])
+    acc = 100.0 * float(np.mean(np.sign(svm.predict_parsed(test)) == ys[n:]))
+    check(acc >= SPARSE_ACCURACY, f"(c) the float64 panel tier's accuracy {acc:.2f}% < "
+          f"{SPARSE_ACCURACY}%")
+    print(f"[22 float64] (c) sparse panel tier, rbf {n} x {SPARSE_F} at 1 %, float64, "
+          f"PLSSVM_K_CACHE_BYTES {PANEL_BUDGET} ({smi}): plain pairs, no kernel launched, "
+          f"{info['iterations']} CG iterations in {learn_s:.2f} s (gram tier "
+          f"{runs['gram'][0].last_cg_info['iterations']} in {runs['gram'][1]:.2f} s), A·v "
+          f"{panel_ms:.3f} ms within {err:.2e} of the gram tier's, accuracy {acc:.2f}%",
+          flush=True)
+    del runs, svm, panel_mv, got, want
+
+    # (d) phase 6's reference check at float64, forced to implicit
+    rng_d = np.random.default_rng(SEED + 23)
+    n, fd, gamma = 300, 16, 1.0 / 16
+    Xr, yr = two_blobs(n + 100, fd, rng_d)
+    P, Xr, yr = Xr[n:], Xr[:n], yr[:n]
+    p = Parameter(kernel=rbf, gamma=gamma, epsilon=1e-10, max_iter=500, dtype=np.float64,
+                  backend=BackendType.cuda, print_info=False)
+    p.data = ParsedData(csr=sp.csr_matrix(Xr), values=yr, _dense=Xr)
+    p.values = yr
+    with environ(PLSSVM_K_CACHE_BYTES="1000"):
+        svm = make_csvm(p)
+        gm.reset_launches()
+        svm.learn()
+        dec = svm.predict(P)
+    check(svm.last_cg_info["mode"] == "implicit" and not any(gm.launches.values()),
+          f"(d) mode {svm.last_cg_info['mode']}, launches {nonzero(gm.launches)}")
+
+    def rbf_k(A, B):
+        d = (A * A).sum(1)[:, None] + (B * B).sum(1)[None, :] - 2.0 * A @ B.T
+        return np.exp(-gamma * np.maximum(d, 0.0))
+
+    alpha, bias = direct_solve(Xr, yr, rbf_k)
+    ref = rbf_k(P, Xr) @ alpha + bias
+    err = float(np.abs(dec - ref).max() / np.abs(ref).max())
+    check(np.all(np.isfinite(dec)) and err <= F64_REFERENCE_TOL,
+          f"(d) the float64 learn is {err:.2e} of the scale off the direct solve "
+          f"(tol {F64_REFERENCE_TOL:g})")
+    print(f"[22 float64] (d) rbf {n} x {fd} float64 cuda learn, implicit, eps 1e-10 "
+          f"({svm.last_cg_info['iterations']} CG iterations): decision values within "
+          f"{err:.2e} of a direct float64 solve (tol {F64_REFERENCE_TOL:g})", flush=True)
+
+    # (e) the default float32 linear learn: the exact tier, not the bf16 plan
+    check("PLSSVM_MATMUL_PRECISION" not in os.environ,
+          "(e) PLSSVM_MATMUL_PRECISION is set: the default linear learn cannot run")
+    rng_e = np.random.default_rng(SEED + 24)
+    half = LINEAR_N // 2
+    Xl = np.concatenate([rng_e.normal(-0.2, 1.0, (half, LINEAR_F)),
+                         rng_e.normal(0.2, 1.0, (LINEAR_N - half, LINEAR_F))]).astype(np.float32)
+    yl = np.concatenate([-np.ones(half), np.ones(LINEAR_N - half)])
+    lin_file, lin_model = os.path.join(WORK, "linear.libsvm"), os.path.join(WORK, "lin.model")
+    write_libsvm(lin_file, Xl, yl)
+    with recording_csvms(train_cli) as made:
+        gm.reset_preparations()
+        rc, _ = run_cli(train_cli.main, ["-t", "0", "-e", "1e-6", "--use_float", "-b", "cuda",
+                                         "-p", "gpu_nvidia", lin_file, lin_model])
+        preps = dict(gm.preparations)
+    check(rc == 0 and made[-1].last_cg_info["mode"] == "linear",
+          f"(e) the linear train CLI: rc {rc}, mode {made[-1].last_cg_info['mode']}")
+    check(preps["bf16x3"] == preps["bf16cast"] == 0,
+          f"(e) the default linear learn prepared bf16 operands: {preps}")
+    iters = made[-1].last_cg_info["iterations"]
+    del made
+    rc, plog = run_cli(predict_main, ["--use_float", "-b", "cuda", "-p", "gpu_nvidia",
+                                      lin_file, lin_model, out])
+    m = re.search(r"Accuracy = ([0-9.]+)%", plog)
+    Xl64 = Xl.astype(np.float64)
+    alpha, bias = direct_solve(Xl64, yl, lambda A, B: A @ B.T)
+    direct = 100.0 * float(np.mean(np.sign(Xl64 @ (Xl64.T @ alpha) + bias) == yl))
+    check(rc == 0 and m is not None and float(m.group(1)) >= direct - 1.0,
+          f"(e) the default linear learn's accuracy {m and m.group(1)}% against the float64 "
+          f"solve's {direct:.2f}% less 1")
+    print(f"[22 float64] (e) default linear learn, float32 {LINEAR_N} x {LINEAR_F}: fixed "
+          f"exact tier (no bf16 operand prepared), {iters} CG iterations, training accuracy "
+          f"{m.group(1)}% against the direct float64 solve's {direct:.2f}%", flush=True)
+    print(f"[22 float64] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2887,6 +3153,8 @@ def main(argv=None) -> int:
                         help="build, then phase 20 only: the kernels' scratch in strips")
     parser.add_argument("--tools", action="store_true",
                         help="build, then phase 21 only: the on-chip tools at small sizes")
+    parser.add_argument("--float64", action="store_true",
+                        help="build, then phase 22 only: float64 learns on the card")
     parser.add_argument("--probe", action="store_true",
                         help="build, show the compiler's resource lines, check the split and "
                              "every bf16 kernel with one launch each, and stop")
@@ -2933,6 +3201,11 @@ def main(argv=None) -> int:
             phase_tools()
             print("tools phase passed", flush=True)
             return 0
+        if args.float64:
+            os.environ["PLSSVM_DEVICES"] = "1"
+            phase_float64(dev)
+            print("float64 phase passed", flush=True)
+            return 0
         # phases 3-16 are the one-device paths, whatever the machine holds
         os.environ["PLSSVM_DEVICES"] = "1"
         # phases 3-10 hold the exact tier; the plan is off while a tier is pinned
@@ -2969,6 +3242,7 @@ def main(argv=None) -> int:
         distributed, dist_panel = phase_distributed(dev)
         strips = phase_strips(dev)
         phase_tools()
+        phase_float64(dev)
         if args.profile:
             with environ(PLSSVM_MATMUL_PRECISION="highest"):
                 phase_profile(sparse)

@@ -46,7 +46,8 @@ from ..io.model import write_model_file
 from ..ops.gram_matvec import gram_matvec, gram_matvec_plain, row_sqnorms
 from ..ops.kernel_functions import gram_block, kernel_scalar
 from ..ops.matvec import (_k_cache_budget_bytes, build_operator, choose_mode,
-                          choose_sharded_mode, jacobi_minv, resolve_mxu_plan, tier_precision)
+                          choose_sharded_mode, jacobi_minv, resolve_mxu_plan, tier_precision,
+                          uses_kernels)
 from ..params import Parameter
 from ..solver.cg import cg_init, cg_run, cg_solve, cg_solve_adaptive
 from ..types import BackendType, KernelType, TargetPlatform
@@ -538,18 +539,18 @@ class CSVM:
         strategy applies at this density and packing, else ``None``
         (``base.py:694-754``): the density pre-check, the skew-robust
         packing, the half-dense guard, and the sweep schedule with its
-        memory envelope.  ``use_cuda`` is the ``cuda`` backend, where the
-        panel pairs run K1/K3 and float64 is refused; on the ``torch``
-        backend their plain versions run.  Each pair splits or casts its two
-        panels itself and drops the copies with the pair, so the bf16 tiers
-        add at most two panels' bytes to the sweep and the 4x envelope
-        stands.
+        memory envelope.  ``use_cuda`` is ``ops.matvec.uses_kernels`` (the
+        JAX package's ``use_pallas``, ``base.py:751-753``): the panel pairs
+        run K1/K3 on the ``cuda`` backend at float32, their plain versions
+        on the ``torch`` backend and for float64.  Each pair splits or casts
+        its two panels itself and drops the copies with the pair, so the
+        bf16 tiers add at most two panels' bytes to the sweep and the 4x
+        envelope stands.
 
         ``ndev > 1`` plans the panel ring: the packing is built on the host,
         to be sharded, and the envelope applies to each device's ``1/ndev``
         share (its own panels and the one in flight), as if each shard had
-        a device of its own; float64 is not refused, since the ring's hops
-        take the plain product for it, as the dense ring's do."""
+        a device of its own."""
         from ..ops.sparse import TiledHybrid, panel_sweep_strategy, streaming_stream_strategy
 
         f = csr.shape[1]
@@ -566,7 +567,7 @@ class CSVM:
         if 2 * packed_bytes > dense_bytes:
             return None
         physical = self._device_memory_bytes()
-        use_cuda = self.backend == BackendType.cuda
+        use_cuda = uses_kernels(self.backend, self.dtype)
         if ndev > 1:
             if 4 * dense_bytes // ndev > physical:
                 return None
@@ -579,12 +580,6 @@ class CSVM:
             eff_budget = min(_k_cache_budget_bytes(), physical // 3)
             if packed_bytes + eff_budget > (9 * physical) // 10:
                 return None
-        if use_cuda and self.dtype != torch.float32:
-            raise PLSSVMError(
-                "the sparse panel tier on the CUDA backend needs float32: the "
-                "Gram kernels have no float64 version, as the JAX package's "
-                "Pallas kernels have none (train with --use_float, or raise "
-                "PLSSVM_K_CACHE_BYTES so the exact sparse_gram tier applies)")
         return th, use_cuda, sweep
 
     def _device_memory_bytes(self) -> int:
@@ -875,7 +870,7 @@ class CSVM:
             X_sv = self._X_all_device()
             kw = {"Y": X_sv, "degree": self.degree, "gamma": self.gamma,
                   "coef0": self.coef0, "sqy": self._X_all_sq}
-            if self.backend == BackendType.cuda and self.dtype == torch.float32:
+            if uses_kernels(self.backend, self.dtype):
                 Kv = gram_matvec(self.kernel, P, alphas_dev, **kw)  # K2
             else:
                 # float64 and the torch backend stay on gram_block + matmul

@@ -14,8 +14,9 @@ matvec.  Three modes:
 - ``linear``   — K v = X (X^T v): two matrix products.
 - ``cached``   — K assembled once (masked), one GEMV per iteration.
 - ``implicit`` — K recomputed every iteration: kernel K1 on the ``cuda``
-  backend (K2 with ``PLSSVM_PALLAS_SYMMETRIC=0``), the plain blocked
-  version on the ``torch`` backend.
+  backend at float32 (K2 with ``PLSSVM_PALLAS_SYMMETRIC=0``), the plain
+  blocked version on the ``torch`` backend and for float64
+  (:func:`uses_kernels`).
 
 ``linear`` and ``implicit`` run at a precision tier (``exact``, ``bf16x3``,
 ``bf16cast``; ``ops/gram_matvec.py``).  :func:`resolve_mxu_plan` decides
@@ -77,23 +78,38 @@ def resolve_mxu_plan(mode: str, dtype: torch.dtype,
     (``matvec.py:86-111`` of the JAX package, with the ``cuda`` backend in
     the place of a TPU).
 
-    On the ``cuda`` backend the plan is the default for float32 systems
-    whose A·v is a Gram product (the ``implicit`` and ``linear`` modes): CG
-    starts on one bf16 tensor-core product and escalates to the bf16x3
-    tier only if the accurate-tier residual misses the target.
+    On the ``cuda`` backend the plan is the default for float32 ``implicit``
+    systems: CG starts on one bf16 tensor-core product and escalates to the
+    bf16x3 tier only if the accurate-tier residual misses the target.
     ``PLSSVM_MATMUL_PRECISION`` set to a fixed tier (``highest`` / ``high``
     / ``default``) disables the plan; ``adaptive`` forces it on any backend
     (the ``torch`` backend then runs the plain versions at both tiers, with
     real bf16 rounding).  ``cached`` mode is bound by reading K and float64
-    needs exact products, so neither takes the plan."""
+    needs exact products, so neither takes the plan.
+
+    The ``linear`` mode takes the plan only under ``adaptive``, where the
+    JAX package plans it by default (``matvec.py:109-111``): its tiers are
+    PyTorch products of bf16 parts upcast to float32, which move and
+    compute as much as the exact tier, so the plan costs accuracy and gains
+    no time on the card."""
     name = os.environ.get("PLSSVM_MATMUL_PRECISION", "").lower()
     if name not in ("", "adaptive"):
         return None  # explicitly pinned tier
     if dtype != torch.float32 or mode not in ("implicit", "linear"):
         return None
-    if name != "adaptive" and backend != BackendType.cuda:
-        return None  # the torch backend's f32 products are exact: nothing to adapt
+    if name != "adaptive" and (backend != BackendType.cuda or mode == "linear"):
+        return None  # exact products, or bf16 parts that gain nothing: nothing to adapt
     return ("default", "high")
+
+
+def uses_kernels(backend: BackendType | None, dtype: torch.dtype) -> bool:
+    """Whether a Gram product runs the hand kernels: on the ``cuda`` backend
+    at float32, the counterpart of the JAX package's ``use_pallas_impl``
+    (``matvec.py:256-258``).  float64 and the ``torch`` backend run the
+    plain blocked product instead (on the card its GEMM is a float64
+    ``torch.matmul``), as the JAX package computes float64 outside Pallas;
+    the kernels have no float64 version."""
+    return backend == BackendType.cuda and dtype == torch.float32
 
 
 def fixed_tier(backend: BackendType) -> str:
@@ -191,11 +207,12 @@ def build_operator(
     """Construct the implicit-A matvec for the padded system.
 
     ``backend=cuda`` needs the tensors on a CUDA device and runs the
-    ``implicit`` mode through the hand kernels; it raises rather than run
-    anything else in their place.  ``precision`` is the tier of the
-    ``linear`` / ``implicit`` Gram products (``exact``, ``bf16x3``,
-    ``bf16cast``; the adaptive CG builds the operator at two);  ``None``
-    keeps the backend's fixed tier (:func:`fixed_tier`)."""
+    float32 ``implicit`` mode through the hand kernels; float64 runs the
+    blocked plain product on the device (:func:`uses_kernels`).
+    ``precision`` is the tier of the ``linear`` / ``implicit`` Gram
+    products (``exact``, ``bf16x3``, ``bf16cast``; the adaptive CG builds
+    the operator at two);  ``None`` keeps the backend's fixed tier
+    (:func:`fixed_tier`)."""
     D, f = X_pad.shape
     plssvm_assert(q.shape == (D,) and mask.shape == (D,),
                   "operator vectors must match the padded system: q {} mask {} D {}",
@@ -239,13 +256,7 @@ def build_operator(
             return _corrections(K @ v, v, q, mask, QA_cost, cost_inv)
 
     elif mode == "implicit":
-        if backend == BackendType.cuda:
-            if dtype != torch.float32:
-                raise PLSSVMError(
-                    "implicit mode on the CUDA backend needs float32: the Gram "
-                    "kernels have no float64 version, as the JAX package's Pallas "
-                    "kernels have none (train with --use_float, or raise "
-                    "PLSSVM_K_CACHE_BYTES so the exact cached mode applies)")
+        if uses_kernels(backend, dtype):
             if symmetric_enabled():
                 kv_fn = make_sym_matvec(kernel, X_pad, degree=degree,
                                         gamma=gamma, coef0=coef0, tier=tier)
@@ -258,6 +269,8 @@ def build_operator(
                                        coef0=coef0, sqx=sq, sqy=sq, tier=tier,
                                        operands=(Xo, Xo))
         else:
+            # the blocked product over ROW_BLOCK_SIZE rows, the JAX package's
+            # lax.map block_fn (matvec.py:286-305)
             sq = row_sqnorms(X_pad)
             Xo = tier_operands(tier, X_pad)
 

@@ -86,7 +86,8 @@ from ..ops.gram_matvec import (gram_matvec, gram_matvec_plain, resolve_tier, row
                                tier_matmul, tier_operands)
 from ..ops.kernel_functions import (gram_block, integer_pow, kernel_diag, kernel_scalar,
                                     kernel_transform)
-from ..ops.matvec import _corrections, fixed_tier, jacobi_minv_from_kii, tier_precision
+from ..ops.matvec import (_corrections, fixed_tier, jacobi_minv_from_kii, tier_precision,
+                          uses_kernels)
 from ..ops.sparse import (TILE, ELLMatrix, HybridSparse, _heavy_by_panel, densify_tiled,
                           hybrid_matvec, hybrid_rmatvec, hybrid_row_sqnorms,
                           make_streaming_cross_contrib, sparse_q_qa_kii, tiled_matvec)
@@ -368,10 +369,7 @@ def _build_local_matvec(kernel, mesh, Xs, q, mask, QA_cost, cost_inv, degree, ga
             return corrections(_gather(mesh, {i: K_locs[i] @ v_on[mesh[i]] for i in mine}), v)
 
     elif mode == "implicit":
-        # float64 hops take the plain product on either backend: the kernels
-        # are float32 only
-        use_kernel = backend == BackendType.cuda and dtype == torch.float32
-        hop_fn = gram_matvec if use_kernel else gram_matvec_plain
+        hop_fn = gram_matvec if uses_kernels(backend, dtype) else gram_matvec_plain
         sq = {i: row_sqnorms(Xs[i]) for i in mine}
         ops = {i: tier_operands(tier, Xs[i]) for i in mine}  # split or cast once per operator
         ring = _Ring(mesh, [(*ops[j], sq[j]) if j in ops else None for j in range(p)])
@@ -560,8 +558,7 @@ def make_sharded_predict(mesh, kernel: KernelType, degree: int,
 
     def run(points, Xs_sv, alphas_s, bias, gamma, coef0):
         _check_system(mesh, Xs_sv, backend)
-        use_kernel = backend == BackendType.cuda and points.dtype == torch.float32
-        fn = gram_matvec if use_kernel else gram_matvec_plain
+        fn = gram_matvec if uses_kernels(backend, points.dtype) else gram_matvec_plain
         P_on = _scatter(points, mesh)
         return _reduce(mesh, {i: fn(kernel, P_on[mesh[i]], alphas_s[i], Y=Xs_sv[i],
                                     degree=degree, gamma=float(gamma), coef0=float(coef0))
@@ -974,10 +971,7 @@ def _prepare_sparse_panel_local(kernel, mesh, tvals, tlcols, heavy, hrow, x_last
                                       torch.dot(x_last, x_last), _gather(mesh, sq), mask,
                                       cost_inv)
 
-    # float64 hops take the plain product on either backend: the kernels are
-    # float32 only
-    use_kernel = backend == BackendType.cuda and dtype == torch.float32
-    hop_fn = gram_matvec if use_kernel else gram_matvec_plain
+    hop_fn = gram_matvec if uses_kernels(backend, dtype) else gram_matvec_plain
     tier = resolve_tier(fixed_tier(backend) if precision is None else precision, dtype)
     kw = {"degree": degree, "gamma": gamma, "coef0": coef0, "tier": tier}
     local = {i: [densify(i, J, tvals[i], tlcols[i], heavy[i], mesh[i]) for J in range(nP)]

@@ -14,4 +14,10 @@ one JSON object on its last line of output.
   against ``docs/DESIGN.md``'s model (``scripts/comms_check.py``);
 - :mod:`.scaling_bench`: CG iterations/s over meshes of 1, 2 and 4 shards
   (``scripts/scaling_bench.py``).
+
+Two more write the port's documentation on the CPU (``main(argv)``
+returns the paths written): :mod:`.gen_apidoc` the API reference in
+``docs/api_torch/`` (``scripts/gen_apidoc.py``) and :mod:`.gen_man` the man
+pages ``docs/*-torch.1`` from their markdown sources
+(``scripts/gen_man.py``).
 """

@@ -18,9 +18,9 @@ gamma 1/f, coef0 1, C 1, eps 1e-6) records:
   learn escalated.
 
 The port reads the variable per call, so every cell runs in this one
-process (the JAX study starts a child process per cell).  The ``linear``
-rows are the dense ``linear`` mode's first measurement on the card, where
-the plan runs its two tiers as upcast plain products::
+process (the JAX study starts a child process per cell).  On the card the
+``linear`` kernel's default is the fixed ``highest`` tier, not the plan
+(``ops/matvec.resolve_mxu_plan``), so its plan row is that tier's learn::
 
     python -m plssvm_sparse_fp22_tpu_torch.scripts.precision_study [--cpu] [--n 4096] [--f 256]
 """

@@ -23,7 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
-import torch
+
+torch = pytest.importorskip("torch")
 
 import plssvm_sparse_fp22_tpu as jp
 import plssvm_sparse_fp22_tpu_torch as tp

@@ -9,7 +9,8 @@ float64.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from plssvm_sparse_fp22_tpu.solver import cg as jcg
 from plssvm_sparse_fp22_tpu_torch.solver import cg as tcg

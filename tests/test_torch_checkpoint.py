@@ -22,7 +22,8 @@ import os
 import numpy as np
 import pytest
 import scipy.sparse as sp
-import torch
+
+torch = pytest.importorskip("torch")
 
 import plssvm_sparse_fp22_tpu as jp
 import plssvm_sparse_fp22_tpu_torch as tp

@@ -7,6 +7,9 @@ import pytest
 
 from plssvm_sparse_fp22_tpu.cli.predict import main as jax_predict
 from plssvm_sparse_fp22_tpu.cli.train import main as jax_train
+
+torch = pytest.importorskip("torch")
+
 from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
 from plssvm_sparse_fp22_tpu_torch.cli.train import main as train_main
 from plssvm_sparse_fp22_tpu_torch.io.model import parse_model_file

@@ -22,6 +22,8 @@ shard, float32):
 import numpy as np
 import pytest
 
+torch = pytest.importorskip("torch")
+
 from plssvm_sparse_fp22_tpu_torch.ops.sparse import HybridSparse, TiledHybrid
 from plssvm_sparse_fp22_tpu_torch.parallel import distributed
 from plssvm_sparse_fp22_tpu_torch.parallel.sharded import _feature_block_rows

@@ -17,7 +17,8 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed:
 import numpy as np
 import pytest
 import scipy.sparse as sp
-import torch
+
+torch = pytest.importorskip("torch")
 
 from plssvm_sparse_fp22_tpu_torch.exceptions import PLSSVMError
 from plssvm_sparse_fp22_tpu_torch.io.libsvm import ParsedData
@@ -207,6 +208,71 @@ def test_learn_predict_cuda_backend_matches_torch_backend(dev, kernel, monkeypat
     np.testing.assert_array_equal(np.sign(dec_c), np.sign(dec_t))
     assert launches_c["gram_matvec_sym/exact"] > 0 and launches_c["gram_matvec_rect/exact"] == 1
     assert not any(launches_t.values())
+
+
+def test_float64_implicit_learn_launches_no_kernel(dev, monkeypatch):
+    """A float64 rbf learn forced to ``implicit`` (K at 512 x 512 over a
+    1000-byte budget) runs the blocked float64 product on the card, as the
+    JAX package runs float64 outside Pallas: no K1, no K2 in the predict,
+    and the numpy oracle's float64 learn to its float64 early-stop
+    tolerance (``tests/test_torch_model.py``: equal iterations, alphas and
+    decision values to 1e-9 of their scale at eps 1e-3)."""
+    from plssvm_sparse_fp22_tpu_torch.utils import oracle
+
+    monkeypatch.setenv("PLSSVM_K_CACHE_BYTES", "1000")
+    monkeypatch.delenv("PLSSVM_MATMUL_PRECISION", raising=False)
+    rng = np.random.default_rng(12)
+    n, f = 512, 32
+    X = np.concatenate([rng.normal(1.0, 1.0, (n // 2, f)), rng.normal(-1.0, 1.0, (n // 2, f))])
+    y = np.concatenate([np.ones(n // 2), -np.ones(n // 2)])
+    hyper = {"kernel": KernelType.rbf, "gamma": 1.0 / f}
+    p = Parameter(epsilon=1e-3, max_iter=200, dtype=np.float64, backend=BackendType.cuda,
+                  print_info=False, sparse_threshold=0.0, **hyper)
+    p.data = ParsedData(csr=sp.csr_matrix(X), values=y, _dense=X)
+    p.values = y
+    svm = make_csvm(p)
+    gm.reset_launches()
+    svm.learn()
+    dec = svm.predict(X)
+    assert svm.last_cg_info["mode"] == "implicit"
+    assert not any(gm.launches.values())
+    alphas, bias, info = oracle.solve_lssvm(X, y, epsilon=1e-3, max_iter=200, **hyper)
+    assert svm.last_cg_info["iterations"] == info["iterations"]
+    scale = np.abs(alphas).max()
+    np.testing.assert_allclose(svm.alphas, alphas, rtol=1e-9, atol=1e-9 * scale)
+    want = oracle.predict_values(X, alphas, bias, X, **hyper)
+    np.testing.assert_allclose(dec, want, rtol=0, atol=1e-9 * np.abs(want).max())
+
+
+def test_default_linear_learn_keeps_the_float64_accuracy(dev, monkeypatch):
+    """The dense ``linear`` learn at float32 with the tier unpinned runs the
+    fixed exact tier on the card, not the bf16 plan (no bf16 operand is
+    prepared), and its training accuracy lies within one point of a direct
+    float64 solve's.  Two blobs at -0.2 and +0.2, 4096 x 32: CG stops at
+    eps 1e-6 near enough to the solution for the accuracies to compare (a
+    CPU rehearsal on the ``torch`` backend: 87.8 % against 88.0 %)."""
+    monkeypatch.delenv("PLSSVM_MATMUL_PRECISION", raising=False)
+    rng = np.random.default_rng(11)
+    n, f = 4096, 32
+    X = np.concatenate([rng.normal(-0.2, 1.0, (n // 2, f)),
+                        rng.normal(0.2, 1.0, (n // 2, f))]).astype(np.float32)
+    y = np.concatenate([-np.ones(n // 2), np.ones(n // 2)])
+    p = Parameter(kernel=KernelType.linear, epsilon=1e-6, dtype=np.float32,
+                  backend=BackendType.cuda, print_info=False, sparse_threshold=0.0)
+    p.data = ParsedData(csr=sp.csr_matrix(X), values=y, _dense=X)
+    p.values = y
+    svm = make_csvm(p)
+    gm.reset_preparations()
+    svm.learn()
+    assert svm.last_cg_info["mode"] == "linear"
+    assert gm.preparations["bf16x3"] == gm.preparations["bf16cast"] == 0
+    Xd = X.astype(np.float64)
+    M = np.zeros((n + 1, n + 1))
+    M[:n, :n] = Xd @ Xd.T + np.eye(n)
+    M[:n, n] = M[n, :n] = 1.0
+    sol = np.linalg.solve(M, np.concatenate([y, [0.0]]))
+    direct = np.mean(np.sign(Xd @ (Xd.T @ sol[:n]) + sol[n]) == y)
+    assert svm.accuracy() >= direct - 0.01, (svm.accuracy(), direct)
 
 
 # --- the bf16 tiers ---------------------------------------------------------------

@@ -3,7 +3,9 @@ port would pick; it changes nothing."""
 
 import json
 
-import torch
+import pytest
+
+torch = pytest.importorskip("torch")
 
 import plssvm_sparse_fp22_tpu_torch as tp
 from plssvm_sparse_fp22_tpu_torch.cli.detect import detect, main

@@ -7,6 +7,9 @@ import pytest
 
 from plssvm_sparse_fp22_tpu.cli.generate_data import generate as jax_generate
 from plssvm_sparse_fp22_tpu.cli.generate_data import main as jax_main
+
+torch = pytest.importorskip("torch")
+
 from plssvm_sparse_fp22_tpu_torch.cli.generate_data import generate, main, minmax_scale
 from plssvm_sparse_fp22_tpu_torch.io.arff import parse_arff_file
 from plssvm_sparse_fp22_tpu_torch.io.libsvm import parse_libsvm_file

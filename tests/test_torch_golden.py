@@ -8,6 +8,8 @@ import os
 import numpy as np
 import pytest
 
+torch = pytest.importorskip("torch")
+
 from plssvm_sparse_fp22_tpu_torch.io.libsvm import parse_libsvm_file
 from plssvm_sparse_fp22_tpu_torch.io.model import parse_model_file
 from plssvm_sparse_fp22_tpu_torch.models import make_csvm

@@ -15,7 +15,8 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 from jax import lax
 
 from plssvm_sparse_fp22_tpu.ops.pallas_matvec import gram_matvec_pallas, gram_matvec_pallas_sym

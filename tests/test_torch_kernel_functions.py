@@ -8,7 +8,8 @@ those of ``test_solver.py:45``: 1e-12 in float64, 1e-5 in float32.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 from jax import lax
 
 from plssvm_sparse_fp22_tpu.ops import kernel_functions as jkf

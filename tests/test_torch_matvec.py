@@ -9,7 +9,8 @@ tolerance 1e-10; padding entries must stay exactly zero.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from plssvm_sparse_fp22_tpu.ops import matvec as jmv
 from plssvm_sparse_fp22_tpu.types import BackendType as JBackend

@@ -5,6 +5,9 @@ import pytest
 
 from plssvm_sparse_fp22_tpu.types import KernelType as JKernel
 from plssvm_sparse_fp22_tpu.utils import oracle as joracle
+
+torch = pytest.importorskip("torch")
+
 from plssvm_sparse_fp22_tpu_torch.types import KernelType
 from plssvm_sparse_fp22_tpu_torch.utils import oracle
 

@@ -19,7 +19,8 @@ result's scale (same operands, another order of f32 sums).
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from plssvm_sparse_fp22_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from plssvm_sparse_fp22_tpu.parallel.sharded import (make_sharded_learn as jax_sharded_learn,

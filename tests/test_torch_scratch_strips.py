@@ -19,7 +19,8 @@ strips of row blocks.  The CUDA side runs only on the card
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 from jax import lax
 
 from plssvm_sparse_fp22_tpu.ops.pallas_matvec import make_sym_matvec as jax_sym_matvec

@@ -23,6 +23,9 @@ import scipy.sparse as sp
 
 import plssvm_sparse_fp22_tpu as jp
 from plssvm_sparse_fp22_tpu.io.libsvm import ParsedData as JParsed
+
+torch = pytest.importorskip("torch")
+
 from plssvm_sparse_fp22_tpu_torch.scripts import (_common, gpu_validate, precision_study,
                                                   profile_cg, scaling_bench)
 from test_torch_model import cg_bias_tolerance

@@ -21,6 +21,9 @@ import pytest
 import scipy.sparse as sp
 
 import plssvm_sparse_fp22_tpu as jp
+
+torch = pytest.importorskip("torch")
+
 import plssvm_sparse_fp22_tpu_torch as tp
 from plssvm_sparse_fp22_tpu.io.libsvm import ParsedData as JParsed
 from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main

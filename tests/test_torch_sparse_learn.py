@@ -17,7 +17,8 @@ different summation orders, so:
 import numpy as np
 import pytest
 import scipy.sparse as sp
-import torch
+
+torch = pytest.importorskip("torch")
 
 import plssvm_sparse_fp22_tpu as jp
 import plssvm_sparse_fp22_tpu_torch as tp
@@ -208,20 +209,17 @@ def test_plan_goes_windowed_beyond_memory(monkeypatch):
     assert svm._plan_sparse_panel(csr, 127, 128) is None
 
 
-def test_panel_tier_on_cuda_refuses_float64(monkeypatch):
-    """On the ``cuda`` backend the panel pairs run K1/K3, which are float32
-    only: float64 is refused, as the dense implicit mode refuses it, rather
-    than run the plain pairs on the card."""
+def test_panel_tier_on_cuda_runs_float64_on_plain_pairs(monkeypatch):
+    """On the ``cuda`` backend the panel pairs run K1/K3 at float32; float64
+    panels run the plain pairs on the card, as the JAX package's
+    ``use_pallas`` sends them to XLA (``base.py:751-753``), and nothing is
+    refused."""
     csr, y = _random_sparse(128, 64, density=0.1, seed=61)
     monkeypatch.setattr(TCSVM, "_device_memory_bytes", lambda self: 80 << 30)
-    for dtype, raises in ((np.float64, True), (np.float32, False)):
+    for dtype, use_cuda in ((np.float64, False), (np.float32, True)):
         svm = tp.CSVM(_params("torch", csr, y, KT.rbf, dtype=dtype))
         svm.backend = tp.BackendType.cuda
-        if raises:
-            with pytest.raises(PLSSVMError, match="no float64 version.*--use_float"):
-                svm._plan_sparse_panel(csr, 127, 128)
-        else:
-            assert svm._plan_sparse_panel(csr, 127, 128)[1] is True
+        assert svm._plan_sparse_panel(csr, 127, 128)[1] is use_cuda
 
 
 def test_sparse_refusals():

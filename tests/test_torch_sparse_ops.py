@@ -13,7 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
-import torch
+
+torch = pytest.importorskip("torch")
 
 from plssvm_sparse_fp22_tpu.ops import pallas_matvec as jpm
 from plssvm_sparse_fp22_tpu.ops import sparse as js

@@ -25,7 +25,8 @@ import functools
 import numpy as np
 import pytest
 import scipy.sparse as sp
-import torch
+
+torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 import plssvm_sparse_fp22_tpu as jp

@@ -6,7 +6,8 @@ import re
 import time
 
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from plssvm_sparse_fp22_tpu.utils import timing as jtiming
 from plssvm_sparse_fp22_tpu_torch.utils import timing

@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path once on an NVIDIA GPU.
 
     python3 chip_smoke.py [--profile | --probe | --sharded | --distributed | --strips | --tools
-                           | --float64]
+                           | --float64 | --cg]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the repository around this script; it imports nothing of JAX.  Phases 3-10
@@ -24,7 +24,9 @@ Phases, one line or more each, any failure exits non-zero:
    seeded 32768 x 256 two-blob LIBSVM file (rbf, float32, ``-b cuda``),
    then ``plssvm-predict-torch`` on a 4096-point test file; the launch
    counters must show K1 in training and K2 in prediction, accuracy
-   >= 95 %; and a small learn checked against a direct solve of the
+   >= 95 %, the learn's steps replayed as CUDA graphs, its wall split into
+   set-up and CG ms (``Timings`` sink) beside its steps issued, host reads
+   and chunk size; and a small learn checked against a direct solve of the
    LS-SVM system;
 7. timing at rbf 4096 x 256 float32: CG iterations/s at a pinned count
    (eps = 0, slope between two caps) with K1 and with the plain version,
@@ -60,8 +62,9 @@ Phases, one line or more each, any failure exits non-zero:
     panel); two runs of each are compared bitwise;
 12. the adaptive dense main path: ``plssvm-train-torch`` on phase 6's
     32768 x 256 file with the default plan (bf16cast CG, verified and, if
-    need be, continued on bf16x3), then ``plssvm-predict-torch`` with each
-    bf16 tier pinned (K2 at that tier);
+    need be, continued on bf16x3), with phase 6's split and loop line,
+    then ``plssvm-predict-torch`` with each bf16 tier pinned (K2 at that
+    tier);
 13. the adaptive sparse ``dense`` and ``implicit`` tiers through the CLIs
     on phase 8's 16384 x 4096, 1 % files;
 14. a forced escalation (``PLSSVM_CG_STAG_PATIENCE=2``, eps 1e-9) at rbf
@@ -142,12 +145,19 @@ Phases, one line or more each, any failure exits non-zero:
     check at float64, forced to ``implicit``, eps 1e-10
     (``F64_REFERENCE_TOL``); (e) the default float32 ``linear`` learn
     through the CLIs on the exact tier (no bf16 operand prepared), at the
-    direct float64 solve's training accuracy less one point.
+    direct float64 solve's training accuracy less one point;
+23. the CG loop on the device (``solver/cg.py``) at rbf 4096 x 256 and
+    32768 x 256, each tier: CG it/s by the two-cap slope with the step
+    replayed as a CUDA graph and in the eager masked loop, the idle share
+    of a pinned solve under ``torch.profiler``, its host reads and chunk
+    size ``c``, and the graph solve bit for bit the eager loop's (``x``,
+    ``delta``, iterations), pinned across the refresh at 49 and to eps
+    1e-6.
 
 ``--sharded`` runs phases 1, 2, 17, 18 and 19 only (the phases that differ
 on a machine with several cards); ``--distributed`` phases 1, 2 and 19;
 ``--strips`` phases 1, 2 and 20; ``--tools`` phases 1, 2 and 21;
-``--float64`` phases 1, 2 and 22.
+``--float64`` phases 1, 2 and 22; ``--cg`` phases 1, 2 and 23.
 ``--probe`` is the short first run after a change to a kernel source:
 phases 1 and 2, the compiler's resource lines of every kernel (the whole
 log goes to ``build.log`` beside the built library), and phase 11's checks
@@ -326,7 +336,7 @@ def environ(**env):
 @contextlib.contextmanager
 def recording_csvms(cli_module, timings: bool = False):
     """Keep the CSVMs a CLI module builds, to read their ``last_cg_info``;
-    with ``timings`` each gets a ``Timings`` sink for its chunked learn."""
+    with ``timings`` each gets a ``Timings`` sink for its learn's spans."""
     made, build = [], cli_module.make_csvm
 
     def make(params):
@@ -590,9 +600,21 @@ def phase_k3(dev, rng):
     return record
 
 
+def learn_split(svm, log: str) -> str:
+    """A CLI learn's wall split from its ``Timings`` sink (set-up and CG
+    ms, the rest of the CLI's own learn time) and its device loop: steps
+    issued beside the iterations, host reads, chunk size, CUDA graphs."""
+    spans, loop = svm.timings.summary(), svm.last_cg_loop
+    rest = cg_ms(log) - spans["setup"] - spans["cg"]
+    return (f"learn split: set-up {spans['setup']:.1f} ms, CG {spans['cg']:.1f} ms, rest "
+            f"{rest:.1f} ms of {cg_ms(log)} ms; {loop['steps']} steps issued for "
+            f"{svm.last_cg_info['iterations']} iterations, {loop['host_reads']} host reads, "
+            f"chunk {loop['chunk']}, CUDA graphs {loop['graph']}")
+
+
 def phase_main_path(rng):
+    from plssvm_sparse_fp22_tpu_torch.cli import train as train_cli
     from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
-    from plssvm_sparse_fp22_tpu_torch.cli.train import main as train_main
     from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
 
     n_train, n_test, f = 32768, 4096, 256
@@ -607,11 +629,13 @@ def phase_main_path(rng):
 
     gm.reset_launches()
     t0 = time.perf_counter()
-    rc, log = run_cli(train_main, ["-t", "2", "-e", "1e-6", "--use_float", "-b", "cuda",
-                                   "-p", "gpu_nvidia", train, model])
+    with recording_csvms(train_cli, timings=True) as made:
+        rc, log = run_cli(train_cli.main, ["-t", "2", "-e", "1e-6", "--use_float", "-b", "cuda",
+                                           "-p", "gpu_nvidia", train, model])
     train_s = time.perf_counter() - t0
     after_train = dict(gm.launches)
     check(rc == 0, f"train CLI returned {rc}")
+    check(made[-1].last_cg_loop["graph"], "the one-device learn replayed no CUDA graph")
     m = re.search(r"Finished after (\d+) iterations", log)
     check(m is not None, "train CLI printed no iteration count")
     iters = int(m.group(1))
@@ -622,7 +646,8 @@ def phase_main_path(rng):
           f"K1 launches {k1} != one per CG iteration plus the initial residual and the "
           f"refreshes ({iters} iterations)")
     print(f"[6 main path] train CLI: rc 0, {iters} CG iterations in implicit mode, "
-          f"{train_s:.1f} s end to end, launches {nonzero(after_train)}", flush=True)
+          f"{train_s:.1f} s end to end, launches {nonzero(after_train)}; "
+          f"{learn_split(made[-1], log)}", flush=True)
 
     t0 = time.perf_counter()
     rc, log = run_cli(predict_main, ["--use_float", "-b", "cuda", "-p", "gpu_nvidia",
@@ -1384,7 +1409,7 @@ def phase_adaptive_dense(main):
     from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
 
     model, out = os.path.join(WORK, "adaptive.model"), os.path.join(WORK, "adaptive.predict")
-    with environ(PLSSVM_MATMUL_PRECISION=""), recording_csvms(train_cli) as made:
+    with environ(PLSSVM_MATMUL_PRECISION=""), recording_csvms(train_cli, timings=True) as made:
         gm.reset_launches()
         t0 = time.perf_counter()
         rc, log = run_cli(train_cli.main, ["-t", "2", "-e", "1e-6", "--use_float", "-b", "cuda",
@@ -1399,7 +1424,8 @@ def phase_adaptive_dense(main):
           f"CG iterations, fast_iterations {info['fast_iterations']}, escalated "
           f"{info['escalated']}, learn {cg_ms(log)} ms, CLI {train_s:.1f} s, residual "
           f"{info['delta']:.3e} <= eps^2 delta0 {1e-12 * info['delta0']:.3e}, launches "
-          f"{nonzero(counts)}", flush=True)
+          f"{nonzero(counts)}; {learn_split(made[-1], log)}", flush=True)
+    check(made[-1].last_cg_loop["graph"], "the adaptive learn replayed no CUDA graph")
     launches = {k: counts[k] for k in ("gram_matvec_sym/bf16cast", "gram_matvec_sym/bf16x3",
                                        "split_bf16")}
     for pinned, tier in (("high", "bf16x3"), ("default", "bf16cast")):
@@ -3133,6 +3159,106 @@ def phase_float64(dev):
     print(f"[22 float64] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def timed_solve(op, b, mask) -> float:
+    """Seconds of one CG solve of ``op`` to eps 1e-6, synchronised."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.solver.cg import cg_solve
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cg_solve(op.matvec, b, mask, 1e-6, 500)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+#: phase 23's shapes: the JAX headline (``bench.py:532``) and the main path's
+LOOP_SHAPES = ((4096, 256), (32768, 256))
+#: phase 23's slope caps and its profiled solve's iterations
+LOOP_CAPS = (20, 120)
+
+
+def phase_cg_loop(dev):
+    """23. The CG loop on the device at rbf 4096 x 256 and 32768 x 256
+    (``scripts/profile_cg.system``), each tier: CG it/s by the two-cap
+    slope with the step replayed as a CUDA graph and in the eager masked
+    loop, the idle share of a pinned solve under ``torch.profiler``
+    (``profile_cg.idle_share``), its host reads and chunk size ``c``, and
+    the graph solve's ``x``, ``delta`` and ``k`` bit for bit the eager
+    loop's, pinned across the refresh at 49 and to eps 1e-6."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.ops.matvec import build_operator
+    from plssvm_sparse_fp22_tpu_torch.scripts.profile_cg import idle_share, system
+    from plssvm_sparse_fp22_tpu_torch.solver import cg as cg_loop
+    from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType
+
+    out = {}
+    for D, f in LOOP_SHAPES:
+        X, q, mask, QA, ci = system(dev, D, f)
+        b = torch.tensor(np.random.default_rng(D).normal(size=D), dtype=torch.float32,
+                         device=dev)
+        for tier in TIERS_ALL:
+            op = build_operator(KernelType.rbf, X, q, mask, QA, ci, gamma=1.0 / f,
+                                mode="implicit", backend=BackendType.cuda, precision=tier)
+            # a solve to eps 1e-6 on the fresh operator (its first step eager,
+            # the plain step's capture), again on its graphs, and eagerly
+            first_ms = 1e3 * timed_solve(op, b, mask)
+            again_ms = 1e3 * timed_solve(op, b, mask)
+            with cg_loop.eager_loop():
+                eager_ms = 1e3 * timed_solve(op, b, mask)
+            solves = {}
+            for eps, imax in ((0.0, 60), (1e-6, 500)):
+                cg_loop.reset_counts()
+                gm.reset_launches()
+                graph = cg_loop.cg_solve(op.matvec, b, mask, eps, imax)
+                steps, reads = cg_loop.counts["steps"], cg_loop.counts["host_reads"]
+                k1 = gm.launches[f"gram_matvec_sym/{tier}"]
+                check(cg_loop.last_run["graph"] and cg_loop.counts["replays"] > 0,
+                      f"[{D} x {f} {tier}] the one-device solve replayed no CUDA graph")
+                # one K1 per step issued, one for the initial residual, one
+                # more per refresh step (the capture itself launches none)
+                check(k1 == steps + 1 + steps // 50,
+                      f"[{D} x {f} {tier}] K1 counted {k1} for {steps} steps issued")
+                with cg_loop.eager_loop():
+                    gm.reset_launches()
+                    eager = cg_loop.cg_solve(op.matvec, b, mask, eps, imax)
+                check(gm.launches[f"gram_matvec_sym/{tier}"] == k1,
+                      f"[{D} x {f} {tier}] the eager loop launched K1 "
+                      f"{gm.launches[f'gram_matvec_sym/{tier}']} times, the graphs {k1}")
+                check(graph.iterations == eager.iterations and torch.equal(graph.x, eager.x)
+                      and torch.equal(graph.delta, eager.delta),
+                      f"[{D} x {f} {tier}] eps {eps}: the graph solve ({graph.iterations} "
+                      f"iterations) is not bitwise the eager loop's ({eager.iterations})")
+                solves[eps] = (graph.iterations, steps, reads, cg_loop.last_run["chunk"])
+            rate = pinned_cg_rate(op, b, mask, LOOP_CAPS)
+            with cg_loop.eager_loop():
+                eager_rate = pinned_cg_rate(op, b, mask, LOOP_CAPS)
+            prof = idle_share(dev, op.matvec, mask, D, LOOP_CAPS[1])
+            idle = prof["idle_share"]
+            # the profiled solve's device time per iteration against the
+            # slope's iteration, which leaves out the set-up and the tracing
+            busy = None if idle is None else prof["device_busy_ms"] / LOOP_CAPS[1]
+            iters, steps, reads, chunk = solves[1e-6]
+            out[f"{D}x{f}/{tier}"] = {"it_per_s": rate, "eager_it_per_s": eager_rate,
+                                     **prof, "eps_1e-6": solves[1e-6],
+                                     "solve_ms": (first_ms, again_ms, eager_ms)}
+            print(f"[23 cg loop] rbf {D} x {f} {tier:8s}: {rate:.1f} CG it/s with CUDA graphs, "
+                  f"{eager_rate:.1f} in the eager loop (slope {LOOP_CAPS[0]} -> {LOOP_CAPS[1]}); "
+                  f"idle share {'n/a' if idle is None else f'{idle:.3f}'} over a pinned "
+                  f"{LOOP_CAPS[1]}-iteration solve ({prof['cg_wall_ms']:.2f} ms wall), device "
+                  f"busy {'n/a' if busy is None else f'{busy:.4f}'} ms per iteration, "
+                  f"{'n/a' if busy is None else f'{busy * rate / 1e3:.3f}'} of the slope's, "
+                  f"{prof['host_reads_per_iteration'] * LOOP_CAPS[1]:.0f} host reads in it, "
+                  f"chunk c = {prof['chunk']}; eps 1e-6: {iters} iterations, {steps} steps "
+                  f"issued, {reads} host reads, c = {chunk}, solve {first_ms:.2f} ms on the "
+                  f"fresh operator (warm-up and capture), {again_ms:.2f} ms on its graphs, "
+                  f"{eager_ms:.2f} ms eager; graph solve bitwise the eager loop's, pinned 60 "
+                  f"and to eps 1e-6", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3155,6 +3281,8 @@ def main(argv=None) -> int:
                         help="build, then phase 21 only: the on-chip tools at small sizes")
     parser.add_argument("--float64", action="store_true",
                         help="build, then phase 22 only: float64 learns on the card")
+    parser.add_argument("--cg", action="store_true",
+                        help="build, then phase 23 only: the CG loop on the device")
     parser.add_argument("--probe", action="store_true",
                         help="build, show the compiler's resource lines, check the split and "
                              "every bf16 kernel with one launch each, and stop")
@@ -3206,6 +3334,10 @@ def main(argv=None) -> int:
             phase_float64(dev)
             print("float64 phase passed", flush=True)
             return 0
+        if args.cg:
+            phase_cg_loop(dev)
+            print("cg loop phase passed", flush=True)
+            return 0
         # phases 3-16 are the one-device paths, whatever the machine holds
         os.environ["PLSSVM_DEVICES"] = "1"
         # phases 3-10 hold the exact tier; the plan is off while a tier is pinned
@@ -3243,6 +3375,7 @@ def main(argv=None) -> int:
         strips = phase_strips(dev)
         phase_tools()
         phase_float64(dev)
+        phase_cg_loop(dev)
         if args.profile:
             with environ(PLSSVM_MATMUL_PRECISION="highest"):
                 phase_profile(sparse)

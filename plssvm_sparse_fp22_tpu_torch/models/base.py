@@ -49,6 +49,7 @@ from ..ops.matvec import (_k_cache_budget_bytes, build_operator, choose_mode,
                           choose_sharded_mode, jacobi_minv, resolve_mxu_plan, tier_precision,
                           uses_kernels)
 from ..params import Parameter
+from ..solver import cg as cg_loop
 from ..solver.cg import cg_init, cg_run, cg_solve, cg_solve_adaptive
 from ..types import BackendType, KernelType, TargetPlatform
 from ..utils.timing import scoped_timer
@@ -112,10 +113,12 @@ class CSVM:
         self.QA_cost_ = 0.0
         self.w_: np.ndarray | None = None
         self.last_cg_info: dict = {}
+        self.last_cg_loop: dict = {}
         #: optional sink ``(label, ms)`` (``utils.timing.Timings``) for the
-        #: chunked learn's spans: ``setup`` (transfer, operator, initial
-        #: residual) and ``cg`` (each chunk), the device synchronised around
-        #: each; ``None`` takes no spans and adds no synchronisation
+        #: learns' spans: ``setup`` (packing, transfer, operators, and in the
+        #: chunked learn the initial residual) and ``cg`` (the solve, or each
+        #: chunk), the device synchronised around each; ``None`` takes no
+        #: spans and adds no synchronisation
         self.timings = None
 
         self.num_data_points = self.data.num_points
@@ -233,6 +236,7 @@ class CSVM:
             return
 
         start = time.perf_counter()
+        loop_before = dict(cg_loop.counts)
         imax = self.params.max_iter if self.params.max_iter is not None else f
         # don't spread a tiny system over devices: rows per shard >= PAD_SIZE
         # (the analog of devices_ = min(device_count, num_features),
@@ -280,6 +284,16 @@ class CSVM:
             # (possible) escalation to the accurate tier
             "fast_iterations": k_fast,
             "escalated": int(iters) > k_fast,
+        }
+        # the device loop of solver/cg.py (no counterpart in the JAX
+        # package's last_cg_info): steps issued (masked no-ops after the stop
+        # included), host reads, the last run's chunk size, and whether the
+        # steps replayed CUDA graphs
+        self.last_cg_loop = {
+            "steps": cg_loop.counts["steps"] - loop_before["steps"],
+            "host_reads": cg_loop.counts["host_reads"] - loop_before["host_reads"],
+            "chunk": cg_loop.last_run["chunk"],
+            "graph": cg_loop.counts["replays"] > loop_before["replays"],
         }
 
         if self.print_info:
@@ -356,22 +370,27 @@ class CSVM:
         :func:`~..solver.cg.cg_solve_adaptive` (``base.py:76-88``).  With a
         checkpoint path or ``verbose_cg`` the chunked CG loop runs instead, on
         the fixed tier (``base.py:539-544``): a checkpoint's state does not
-        depend on a tier, and the adaptive solve is one uninterrupted run."""
+        depend on a tier, and the adaptive solve is one uninterrupted run.
+        The system and operators are the ``setup`` span of :attr:`timings`,
+        the solve the ``cg`` span."""
         if mode is None:
             mode = choose_mode(self.kernel, dept, self.dtype, num_features=f,
                                backend=self.backend)
         if self.params.checkpoint_path is not None or self.params.verbose_cg:
             return self._learn_dense_checkpointed(D, dept, f, b_pad, mask, imax, mode)
-        b, m, q, QA_cost, minv, make_op = self._dense_system(D, dept, f, b_pad, mask, mode)
         plan = resolve_mxu_plan(mode, self.dtype, self.backend)
-        if plan is None:
-            res = cg_solve(make_op(None).matvec, b, m, self.epsilon, imax, minv=minv)
-            k_fast = res.iterations
-        else:
-            res = cg_solve_adaptive(make_op(tier_precision(plan[0])).matvec,
-                                    make_op(tier_precision(plan[1])).matvec, b, m,
-                                    self.epsilon, imax, minv=minv)
-            k_fast = res.fast_iterations
+        with self._span("setup"):
+            b, m, q, QA_cost, minv, make_op = self._dense_system(D, dept, f, b_pad, mask, mode)
+            tiers = [None] if plan is None else [tier_precision(t) for t in plan]
+            ops = [make_op(tier) for tier in tiers]
+        with self._span("cg"):
+            if plan is None:
+                res = cg_solve(ops[0].matvec, b, m, self.epsilon, imax, minv=minv)
+                k_fast = res.iterations
+            else:
+                res = cg_solve_adaptive(ops[0].matvec, ops[1].matvec, b, m, self.epsilon,
+                                        imax, minv=minv)
+                k_fast = res.fast_iterations
         s = torch.sum(res.x)
         t = torch.dot(q, res.x)
         return mode, (res.x, s, t, QA_cost, res.iterations, res.delta, res.delta0, k_fast)
@@ -690,7 +709,9 @@ class CSVM:
         3. ``implicit``: streaming CG from the packing, through transient
            dense panels on K1/K3 (``panel``) or the ELL ``gather`` arm.
 
-        ``PLSSVM_SPARSE_MODE`` forces ``gram`` / ``dense`` / ``implicit``."""
+        ``PLSSVM_SPARSE_MODE`` forces ``gram`` / ``dense`` / ``implicit``.
+        The host packing and the device set-up are ``setup`` spans of
+        :attr:`timings`, the solve the ``cg`` span."""
         from ..ops.sparse import (HybridSparse, device_gram_max_features,
                                   host_gram_from_csr, stream_panel_rows)
         from .sparse_learn import (learn_from_gram, learn_sparse_implicit,
@@ -700,15 +721,17 @@ class CSVM:
         precond = str(self.params.precond)
         csr = self.data.csr
         dev, np_dtype = self.device, self._np_dtype
-        b, m = self._to_device(b_pad), self._to_device(mask)
-        x_last = self._to_device(csr[-1].toarray().ravel())
+        with self._span("setup"):
+            b, m = self._to_device(b_pad), self._to_device(mask)
+            x_last = self._to_device(csr[-1].toarray().ravel())
         common = (self.cost, self.epsilon, imax)
         if self.kernel == KernelType.linear:
-            h = HybridSparse.from_csr(csr[:dept], dtype=np_dtype, pad_rows=D, device=dev)
-            xt = HybridSparse.from_csr(csr[:dept].T.tocsr(), dtype=np_dtype, device=dev)
+            with self._span("setup"):
+                h = HybridSparse.from_csr(csr[:dept], dtype=np_dtype, pad_rows=D, device=dev)
+                xt = HybridSparse.from_csr(csr[:dept].T.tocsr(), dtype=np_dtype, device=dev)
             out = learn_sparse_linear(h.ell.values, h.ell.cols, h.coo_rows, h.coo_cols,
                                       h.coo_vals, x_last, b, m, *common, f=f, xt=xt,
-                                      precond=precond)
+                                      precond=precond, span=self._span)
             return "sparse_linear", out
 
         itemsize = self.dtype.itemsize
@@ -724,7 +747,8 @@ class CSVM:
             _, out = self._learn_dense(D, dept, f, b_pad, mask, imax, mode="implicit")
             return "sparse_dense_implicit", out
         if sparse_mode == "implicit" or (sparse_mode != "gram" and not gram_fits):
-            plan = self._plan_sparse_panel(csr, dept, D)
+            with self._span("setup"):
+                plan = self._plan_sparse_panel(csr, dept, D)
             if plan is not None:
                 th, use_cuda, sweep = plan
                 budget = _k_cache_budget_bytes()
@@ -733,13 +757,14 @@ class CSVM:
                     # panels and the resident packing stay inside the device
                     budget = min(budget, physical // 3)
                 panel_rows = stream_panel_rows(D, th.tell.padded_features, itemsize, budget)
-                # the heavy rows' O(n) vectors, built on the host
-                hs = np.zeros(D, dtype=np_dtype)
-                hg = np.zeros(D, dtype=np_dtype)
-                if len(th.heavy_idx):
-                    hrows = csr[th.heavy_idx]
-                    hs[th.heavy_idx] = np.asarray(hrows.multiply(hrows).sum(axis=1)).ravel()
-                    hg[th.heavy_idx] = np.asarray((hrows @ csr[-1].T).todense()).ravel()
+                with self._span("setup"):
+                    # the heavy rows' O(n) vectors, built on the host
+                    hs = np.zeros(D, dtype=np_dtype)
+                    hg = np.zeros(D, dtype=np_dtype)
+                    if len(th.heavy_idx):
+                        hrows = csr[th.heavy_idx]
+                        hs[th.heavy_idx] = np.asarray(hrows.multiply(hrows).sum(axis=1)).ravel()
+                        hg[th.heavy_idx] = np.asarray((hrows @ csr[-1].T).todense()).ravel()
                 out = learn_sparse_panel(
                     th.tell.vals, th.tell.lcols, x_last, b, m, self.gamma, self.coef0,
                     *common, kernel=self.kernel, degree=self.degree, ntiles=th.tell.ntiles,
@@ -747,38 +772,40 @@ class CSVM:
                     heavy=th.heavy, heavy_rows=tuple(int(r) for r in th.heavy_idx),
                     heavy_sq_vec=self._to_device(hs), heavy_g_vec=self._to_device(hg),
                     mxu_plan=resolve_mxu_plan("implicit", self.dtype, self.backend),
-                    sweep=sweep)
+                    sweep=sweep, span=self._span)
                 return "sparse_implicit", out
-            h = HybridSparse.from_csr(csr[:dept], dtype=np_dtype, pad_rows=D, device=dev)
+            with self._span("setup"):
+                h = HybridSparse.from_csr(csr[:dept], dtype=np_dtype, pad_rows=D, device=dev)
             out = learn_sparse_implicit(h.ell.values, h.ell.cols, h.coo_rows, h.coo_cols,
                                         h.coo_vals, x_last, b, m, self.gamma, self.coef0,
                                         *common, kernel=self.kernel, degree=self.degree, f=f,
-                                        precond=precond)
+                                        precond=precond, span=self._span)
             return "sparse_implicit", out
 
         # gram tier: densify on the host (a budget-gated transient) and one
         # device product, or the host SpGEMM for very wide data
-        if f <= device_gram_max_features() and dense_x_fits:
-            X_pad = np.zeros((D, f), dtype=np_dtype)
-            X_pad[:dept] = csr[:dept].toarray()
-            Xd = self._to_device(X_pad)
-            G = Xd @ Xd.T
-            sq = torch.sum(Xd * Xd, dim=1)
-            del Xd
-        else:
-            G_host = host_gram_from_csr(csr, dept)
-            G_pad = np.zeros((D, D), dtype=np_dtype)
-            G_pad[:dept, :dept] = G_host
-            sq_pad = np.zeros(D, dtype=np_dtype)
-            sq_pad[:dept] = np.diag(G_host)
-            G, sq = self._to_device(G_pad), self._to_device(sq_pad)
-        q_lin = np.zeros(D, dtype=np_dtype)
-        q_lin[:dept] = np.asarray((csr[:dept] @ csr[-1].T).todense()).ravel()
-        qa_lin = float((csr[-1] @ csr[-1].T).toarray()[0, 0])
+        with self._span("setup"):
+            if f <= device_gram_max_features() and dense_x_fits:
+                X_pad = np.zeros((D, f), dtype=np_dtype)
+                X_pad[:dept] = csr[:dept].toarray()
+                Xd = self._to_device(X_pad)
+                G = Xd @ Xd.T
+                sq = torch.sum(Xd * Xd, dim=1)
+                del Xd
+            else:
+                G_host = host_gram_from_csr(csr, dept)
+                G_pad = np.zeros((D, D), dtype=np_dtype)
+                G_pad[:dept, :dept] = G_host
+                sq_pad = np.zeros(D, dtype=np_dtype)
+                sq_pad[:dept] = np.diag(G_host)
+                G, sq = self._to_device(G_pad), self._to_device(sq_pad)
+            q_lin = np.zeros(D, dtype=np_dtype)
+            q_lin[:dept] = np.asarray((csr[:dept] @ csr[-1].T).todense()).ravel()
+            qa_lin = float((csr[-1] @ csr[-1].T).toarray()[0, 0])
         out = learn_from_gram(G, sq, self._to_device(q_lin),
                               torch.tensor(qa_lin, dtype=self.dtype, device=dev), b, m,
                               self.gamma, self.coef0, *common, kernel=self.kernel,
-                              degree=self.degree, precond=precond)
+                              degree=self.degree, precond=precond, span=self._span)
         return "sparse_gram", out
 
     # ---------------------------------------------------------------- predict

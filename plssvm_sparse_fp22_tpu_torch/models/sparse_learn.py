@@ -18,10 +18,13 @@ Every learn returns ``(x, s, t, QA_cost, iterations, delta, delta0)``,
 :func:`learn_sparse_panel` also the fast-tier iteration count: given a
 ``mxu_plan`` it runs the adaptive two-tier CG over panel operators at the
 plan's two tiers, else one fixed tier (and the count equals the iteration
-count).
+count).  Each takes ``span(label)``, a context manager (``CSVM._span``):
+its device set-up runs in a ``setup`` span, its solve in a ``cg`` span.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -49,6 +52,10 @@ def _cost_inv(cost, like: torch.Tensor) -> torch.Tensor:
     return one / torch.tensor(cost, dtype=like.dtype, device=like.device)
 
 
+def _no_span(label: str):
+    return contextlib.nullcontext()
+
+
 def _finish(res, q):
     s = torch.sum(res.x)
     t = torch.dot(q, res.x)
@@ -56,27 +63,30 @@ def _finish(res, q):
 
 
 def learn_sparse_linear(vals, cols, coo_rows, coo_cols, coo_vals, x_last_dense, b_pad, mask,
-                        cost, eps, imax, *, f, xt: HybridSparse, precond: str = "none"):
+                        cost, eps, imax, *, f, xt: HybridSparse, precond: str = "none",
+                        span=_no_span):
     """Linear-kernel learn over the ELL+COO hybrid packing: O(nnz) per CG
     iteration, robust to skewed row fills.  ``xt`` is the same packing of
     X^T (one row per feature), built once on the host: X^T v then
     contracts by rows, a gather and a row sum, like X u, instead of the
     JAX package's scatter-add over X's nonzeros (``hybrid_rmatvec``); only
     a skewed column's COO tail still adds by segments."""
-    cost_inv = _cost_inv(cost, vals)
-    h = HybridSparse(ell=ELLMatrix(values=vals, cols=cols, shape=(vals.shape[0], f)),
-                     coo_rows=coo_rows, coo_cols=coo_cols, coo_vals=coo_vals)
-    q = hybrid_matvec(h, x_last_dense) * mask
-    QA_cost = torch.dot(x_last_dense, x_last_dense) + cost_inv
+    with span("setup"):
+        cost_inv = _cost_inv(cost, vals)
+        h = HybridSparse(ell=ELLMatrix(values=vals, cols=cols, shape=(vals.shape[0], f)),
+                         coo_rows=coo_rows, coo_cols=coo_cols, coo_vals=coo_vals)
+        q = hybrid_matvec(h, x_last_dense) * mask
+        QA_cost = torch.dot(x_last_dense, x_last_dense) + cost_inv
+        minv = None
+        if precond == "jacobi":
+            minv = _diag_minv(hybrid_row_sqnorms(h), q, mask, QA_cost, cost_inv)
 
     def matvec(v):
         Kv = hybrid_matvec(h, hybrid_matvec(xt, v))  # X (X^T v)
         return _corrections(Kv, v, q, mask, QA_cost, cost_inv)
 
-    minv = None
-    if precond == "jacobi":
-        minv = _diag_minv(hybrid_row_sqnorms(h), q, mask, QA_cost, cost_inv)
-    res = cg_solve(matvec, b_pad, mask, eps, imax, minv=minv)
+    with span("cg"):
+        res = cg_solve(matvec, b_pad, mask, eps, imax, minv=minv)
     s, t = _finish(res, q)
     return res.x, s, t, QA_cost, res.iterations, res.delta, res.delta0
 
@@ -85,7 +95,8 @@ def learn_sparse_panel(tvals, tlcols, x_last_dense, b_pad, mask, gamma, coef0, c
                        imax, *, kernel, degree, ntiles, Lt, panel_rows,
                        precond: str = "none", use_cuda: bool = False, heavy=None,
                        heavy_rows: tuple = (), heavy_sq_vec=None, heavy_g_vec=None,
-                       mxu_plan: tuple | None = None, sweep: str | None = None):
+                       mxu_plan: tuple | None = None, sweep: str | None = None,
+                       span=_no_span):
     """Streaming poly/rbf learn, ``panel`` strategy: CG over the kernel
     matrix recomputed every iteration from the tiled-ELL packing through
     transient dense panels, the diagonal panel pairs on K1 and the others on
@@ -109,26 +120,27 @@ def learn_sparse_panel(tvals, tlcols, x_last_dense, b_pad, mask, gamma, coef0, c
                      panel_rows=panel_rows, use_cuda=use_cuda, heavy=heavy,
                      heavy_rows=heavy_rows, heavy_sq_vec=heavy_sq_vec, precision=tier)
 
-    if mxu_plan is not None:
-        kv_fast, sq = make_kv(tier_precision(mxu_plan[0]))
-        kv_acc, _ = make_kv(tier_precision(mxu_plan[1]))
-    else:
-        kv_fn, sq = make_kv(None)
+    with span("setup"):
+        if mxu_plan is not None:
+            kv_fast, sq = make_kv(tier_precision(mxu_plan[0]))
+            kv_acc, _ = make_kv(tier_precision(mxu_plan[1]))
+        else:
+            kv_fn, sq = make_kv(None)
 
-    f = x_last_dense.shape[0]
-    fp = ntiles * 128
-    x_last_p = x_last_dense
-    if f != fp:
-        x_last_p = torch.cat([x_last_dense, x_last_dense.new_zeros(fp - f)])
-    g_last = tiled_matvec(tvals, tlcols, x_last_p, ntiles, Lt)
-    if heavy_g_vec is not None:
-        g_last = g_last + heavy_g_vec  # heavy rows' <x_i, x_last>, built on the host
-    sq_last = torch.dot(x_last_dense, x_last_dense)
-    q, QA_cost, kii = sparse_q_qa_kii(int(kernel), degree, gamma, coef0, g_last, sq_last, sq,
-                                      mask, cost_inv)
-    minv = None
-    if precond == "jacobi":
-        minv = _diag_minv(kii, q, mask, QA_cost, cost_inv)
+        f = x_last_dense.shape[0]
+        fp = ntiles * 128
+        x_last_p = x_last_dense
+        if f != fp:
+            x_last_p = torch.cat([x_last_dense, x_last_dense.new_zeros(fp - f)])
+        g_last = tiled_matvec(tvals, tlcols, x_last_p, ntiles, Lt)
+        if heavy_g_vec is not None:
+            g_last = g_last + heavy_g_vec  # heavy rows' <x_i, x_last>, built on the host
+        sq_last = torch.dot(x_last_dense, x_last_dense)
+        q, QA_cost, kii = sparse_q_qa_kii(int(kernel), degree, gamma, coef0, g_last, sq_last,
+                                          sq, mask, cost_inv)
+        minv = None
+        if precond == "jacobi":
+            minv = _diag_minv(kii, q, mask, QA_cost, cost_inv)
 
     if mxu_plan is not None:
         def mv_fast(v):
@@ -137,13 +149,15 @@ def learn_sparse_panel(tvals, tlcols, x_last_dense, b_pad, mask, gamma, coef0, c
         def mv_acc(v):
             return _corrections(kv_acc(v), v, q, mask, QA_cost, cost_inv)
 
-        res = cg_solve_adaptive(mv_fast, mv_acc, b_pad, mask, eps, imax, minv=minv)
+        with span("cg"):
+            res = cg_solve_adaptive(mv_fast, mv_acc, b_pad, mask, eps, imax, minv=minv)
         k_fast = res.fast_iterations
     else:
         def matvec(v):
             return _corrections(kv_fn(v), v, q, mask, QA_cost, cost_inv)
 
-        res = cg_solve(matvec, b_pad, mask, eps, imax, minv=minv)
+        with span("cg"):
+            res = cg_solve(matvec, b_pad, mask, eps, imax, minv=minv)
         k_fast = res.iterations
     s, t = _finish(res, q)
     return res.x, s, t, QA_cost, res.iterations, res.delta, res.delta0, k_fast
@@ -151,27 +165,30 @@ def learn_sparse_panel(tvals, tlcols, x_last_dense, b_pad, mask, gamma, coef0, c
 
 def learn_sparse_implicit(vals, cols, coo_rows, coo_cols, coo_vals, x_last_dense, b_pad,
                           mask, gamma, coef0, cost, eps, imax, *, kernel, degree, f,
-                          precond: str = "none", bm=None, bn=None):
+                          precond: str = "none", bm=None, bn=None, span=_no_span):
     """Streaming poly/rbf learn, ``gather`` strategy: CG over the kernel
     matrix recomputed block by block from the ELL+COO packing every
     iteration with the nnz-proportional gather contraction: O(n·L) memory,
     no (n, n) Gram, no (n, f) densification.  The extreme-sparsity arm."""
-    cost_inv = _cost_inv(cost, vals)
-    h = HybridSparse(ell=ELLMatrix(values=vals, cols=cols, shape=(vals.shape[0], f)),
-                     coo_rows=coo_rows, coo_cols=coo_cols, coo_vals=coo_vals)
-    kv_fn, sq = make_streaming_gram_matvec(h, int(kernel), degree, gamma, coef0, bm=bm, bn=bn)
-    g_last = hybrid_matvec(h, x_last_dense)  # <x_i, x_last>
-    sq_last = torch.dot(x_last_dense, x_last_dense)
-    q, QA_cost, kii = sparse_q_qa_kii(int(kernel), degree, gamma, coef0, g_last, sq_last, sq,
-                                      mask, cost_inv)
+    with span("setup"):
+        cost_inv = _cost_inv(cost, vals)
+        h = HybridSparse(ell=ELLMatrix(values=vals, cols=cols, shape=(vals.shape[0], f)),
+                         coo_rows=coo_rows, coo_cols=coo_cols, coo_vals=coo_vals)
+        kv_fn, sq = make_streaming_gram_matvec(h, int(kernel), degree, gamma, coef0, bm=bm,
+                                               bn=bn)
+        g_last = hybrid_matvec(h, x_last_dense)  # <x_i, x_last>
+        sq_last = torch.dot(x_last_dense, x_last_dense)
+        q, QA_cost, kii = sparse_q_qa_kii(int(kernel), degree, gamma, coef0, g_last, sq_last,
+                                          sq, mask, cost_inv)
+        minv = None
+        if precond == "jacobi":
+            minv = _diag_minv(kii, q, mask, QA_cost, cost_inv)
 
     def matvec(v):
         return _corrections(kv_fn(v), v, q, mask, QA_cost, cost_inv)
 
-    minv = None
-    if precond == "jacobi":
-        minv = _diag_minv(kii, q, mask, QA_cost, cost_inv)
-    res = cg_solve(matvec, b_pad, mask, eps, imax, minv=minv)
+    with span("cg"):
+        res = cg_solve(matvec, b_pad, mask, eps, imax, minv=minv)
     s, t = _finish(res, q)
     return res.x, s, t, QA_cost, res.iterations, res.delta, res.delta0
 
@@ -182,35 +199,37 @@ def _transform_gram(kernel: KernelType, G, sq, degree, gamma, coef0):
 
 
 def learn_from_gram(G_pad, sq, q_lin, qa_lin, b_pad, mask, gamma, coef0, cost, eps, imax, *,
-                    kernel, degree, precond: str = "none"):
+                    kernel, degree, precond: str = "none", span=_no_span):
     """Cached-mode learn from an assembled linear Gram matrix.
 
     ``G_pad`` is (D, D) with ``G[i, j] = <x_i, x_j>`` over the first dept
     rows (zero padding elsewhere); ``sq`` the squared norms, ``q_lin[i] =
     <x_i, x_last>``, ``qa_lin = <x_last, x_last>``.  The kernel transform
     and every CG iteration run on the device."""
-    cost_inv = _cost_inv(cost, G_pad)
-    if kernel == KernelType.polynomial:
-        q = integer_pow(gamma * q_lin + coef0, degree) * mask
-        QA_cost = integer_pow(gamma * qa_lin + coef0, degree) + cost_inv
-    elif kernel == KernelType.rbf:
-        d2 = sq + qa_lin - 2.0 * q_lin
-        q = torch.exp(-gamma * torch.clamp(d2, min=0.0)) * mask
-        QA_cost = torch.ones((), dtype=G_pad.dtype, device=G_pad.device) + cost_inv  # exp(0)
-    else:
-        q = q_lin * mask
-        QA_cost = qa_lin + cost_inv
+    with span("setup"):
+        cost_inv = _cost_inv(cost, G_pad)
+        if kernel == KernelType.polynomial:
+            q = integer_pow(gamma * q_lin + coef0, degree) * mask
+            QA_cost = integer_pow(gamma * qa_lin + coef0, degree) + cost_inv
+        elif kernel == KernelType.rbf:
+            d2 = sq + qa_lin - 2.0 * q_lin
+            q = torch.exp(-gamma * torch.clamp(d2, min=0.0)) * mask
+            QA_cost = torch.ones((), dtype=G_pad.dtype, device=G_pad.device) + cost_inv  # exp(0)
+        else:
+            q = q_lin * mask
+            QA_cost = qa_lin + cost_inv
 
-    K = _transform_gram(kernel, G_pad, sq, degree, gamma, coef0)
-    K = K * (mask[:, None] * mask[None, :])
+        K = _transform_gram(kernel, G_pad, sq, degree, gamma, coef0)
+        K = K * (mask[:, None] * mask[None, :])
+        minv = None
+        if precond == "jacobi":
+            minv = _diag_minv(torch.diagonal(K), q, mask, QA_cost, cost_inv)
 
     def matvec(v):
         return _corrections(K @ v, v, q, mask, QA_cost, cost_inv)
 
-    minv = None
-    if precond == "jacobi":
-        minv = _diag_minv(torch.diagonal(K), q, mask, QA_cost, cost_inv)
-    res = cg_solve(matvec, b_pad, mask, eps, imax, minv=minv)
+    with span("cg"):
+        res = cg_solve(matvec, b_pad, mask, eps, imax, minv=minv)
     s, t = _finish(res, q)
     return res.x, s, t, QA_cost, res.iterations, res.delta, res.delta0
 

@@ -121,6 +121,27 @@ def reset_preparations() -> None:
         preparations[tier] = 0
 
 
+def counts_snapshot() -> tuple[dict, dict]:
+    """Copies of :data:`launches` and :data:`preparations`."""
+    return dict(launches), dict(preparations)
+
+
+def counts_since(snapshot: tuple[dict, dict]) -> tuple[dict, dict]:
+    """What :data:`launches` and :data:`preparations` counted since
+    ``snapshot``: the entries that grew, by how much."""
+    return tuple({k: now[k] - then[k] for k in now if now[k] != then[k]}
+                 for now, then in zip((launches, preparations), snapshot))
+
+
+def add_counts(added: tuple[dict, dict], times: int = 1) -> None:
+    """Count ``added`` (of :func:`counts_since`) ``times`` more: a CUDA
+    graph's replay launches what its capture counted, without running the
+    wrappers' Python."""
+    for counter, inc in zip((launches, preparations), added):
+        for k, v in inc.items():
+            counter[k] += times * v
+
+
 def row_sqnorms(X: torch.Tensor) -> torch.Tensor:
     """``|x|^2`` of every row, computed outside the kernels from the float32
     rows at every tier, as ``make_sym_matvec`` of the JAX package does

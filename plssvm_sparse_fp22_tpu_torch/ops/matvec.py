@@ -285,5 +285,8 @@ def build_operator(
     else:
         raise ValueError(f"unknown matvec mode '{mode}'")
 
+    # the name a failed CUDA-graph capture of its CG step reports
+    # (solver/cg.py)
+    matvec.__qualname__ = f"build_operator[{mode}, {tier}, {dtype}]"
     return MatvecOperator(matvec=matvec, q=q, mask=mask, QA_cost=QA_cost,
                           cost_inv=cost_inv, mode=mode)

@@ -30,7 +30,11 @@ each shard computes its rows of K·v, and the rows are gathered on the home
 device, where the rank-1 corrections and the BLAS-1 of CG run.  Every
 reduction over shards (the CG dot products, ``sum(v)``, the ``linear``
 mode's ``X^T v``) adds the shards' partials in shard order, so a result
-does not depend on timing and two runs agree bitwise.
+does not depend on timing and two runs agree bitwise.  Every operator
+reaches the solver marked ``solver.cg.across_devices``: its step runs the
+masked loop eagerly with one host read per step, never as a CUDA graph,
+so every rank issues the same steps and no ring hop waits for a step its
+partner never issues.
 
 The three modes of A·v:
 
@@ -91,7 +95,7 @@ from ..ops.matvec import (_corrections, fixed_tier, jacobi_minv_from_kii, tier_p
 from ..ops.sparse import (TILE, ELLMatrix, HybridSparse, _heavy_by_panel, densify_tiled,
                           hybrid_matvec, hybrid_rmatvec, hybrid_row_sqnorms,
                           make_streaming_cross_contrib, sparse_q_qa_kii, tiled_matvec)
-from ..solver.cg import CGState, cg_init, cg_run, cg_solve, cg_solve_adaptive
+from ..solver.cg import CGState, across_devices, cg_init, cg_run, cg_solve, cg_solve_adaptive
 from ..types import BackendType, KernelType
 from . import distributed
 from .mesh import local_shards, place_local, spans_processes
@@ -480,7 +484,7 @@ def make_sharded_learn(mesh, kernel: KernelType, degree: int, mode: str,
                 precond)
         if mxu_plan is None:
             q, QA_cost, _ci, matvec, minv = _prepare_local(*args)
-            res = cg_solve(matvec, b, mask, eps, imax, minv=minv, dot=dot)
+            res = cg_solve(across_devices(matvec), b, mask, eps, imax, minv=minv, dot=dot)
             extra = ()
         else:
             q, QA_cost, cost_inv, mv_fast, minv = _prepare_local(
@@ -488,7 +492,8 @@ def make_sharded_learn(mesh, kernel: KernelType, degree: int, mode: str,
             mv_acc = _build_local_matvec(kernel, mesh, Xs, q, mask, QA_cost, cost_inv, degree,
                                          gamma, coef0, mode, backend=backend,
                                          precision=tier_precision(mxu_plan[1]))
-            res = cg_solve_adaptive(mv_fast, mv_acc, b, mask, eps, imax, minv=minv, dot=dot)
+            res = cg_solve_adaptive(across_devices(mv_fast), across_devices(mv_acc), b, mask,
+                                    eps, imax, minv=minv, dot=dot)
             extra = (res.fast_iterations,)
         s = _psum([c.sum() for c in res.x.chunk(p)])
         t = dot(q, res.x)
@@ -527,7 +532,9 @@ def _chunked_fns(prepare, dot):
 
     def operator(Xs, x_last, mask, gamma, coef0, cost):
         if not built:
-            built.append(prepare(Xs, x_last, mask, float(gamma), float(coef0), cost))
+            q, QA_cost, ci, matvec, minv = prepare(Xs, x_last, mask, float(gamma),
+                                                   float(coef0), cost)
+            built.append((q, QA_cost, ci, across_devices(matvec), minv))
         return built[0]
 
     def setup(Xs, x_last, b, mask, gamma, coef0, cost):
@@ -613,7 +620,7 @@ def _solve(matvec, q, QA_cost, b, mask, eps, imax, minv, p: int):
     QA_cost, iterations, delta, delta0)``, every dot product reduced in
     shard order."""
     dot = partial(_psum_dot, num=p)
-    res = cg_solve(matvec, b, mask, eps, int(imax), minv=minv, dot=dot)
+    res = cg_solve(across_devices(matvec), b, mask, eps, int(imax), minv=minv, dot=dot)
     s = _psum([c.sum() for c in res.x.chunk(p)])
     return res.x, s, dot(q, res.x), QA_cost, res.iterations, res.delta, res.delta0
 
@@ -715,7 +722,7 @@ def make_feature_sharded_learn(mesh, kernel: KernelType, degree: int, precond: s
     def run(Xs, x_lasts, b, mask, gamma, coef0, cost, eps, imax):
         q, QA_cost, _ci, matvec, minv = _prepare_feature_local(
             kernel, mesh, Xs, x_lasts, mask, float(gamma), float(coef0), cost, degree, precond)
-        res = cg_solve(matvec, b, mask, eps, int(imax), minv=minv)
+        res = cg_solve(across_devices(matvec), b, mask, eps, int(imax), minv=minv)
         return (res.x, torch.sum(res.x), torch.dot(q, res.x), QA_cost, res.iterations,
                 res.delta, res.delta0)
 

@@ -11,10 +11,18 @@ float32) and each precision tier it times:
    of the eps = 0 solve between two iteration caps, so set-up cancels;
 4. the CG skeleton with a trivial matvec (a fixed diagonal of condition
    1e6, so that CG at eps = 0 does not converge within the caps): the
-   floor that the BLAS-1 and the per-iteration host synchronisation of
-   ``solver/cg.py`` set;
+   floor of ``solver/cg.py``'s loop itself, its masked step (replayed as a
+   CUDA graph on the card) and one host read per chunk of steps;
 5. the device's idle share over one pinned solve under ``torch.profiler``:
-   1 - (device time of every kernel) / (the solve's wall time).
+   1 - (device time of every kernel) / (the solve's wall time), and the
+   loop's host reads per iteration and chunk size ``c`` in that solve;
+6. the time to a trained model: the median wall ms of ``learn()`` to
+   eps 1e-6 on two blobs of ``D + 1`` points (``--learns`` runs after a
+   warm-up), each tier pinned and with the default plan.
+
+Steps 1-4 and 6 use only interfaces that predate the device loop, so the
+script also measures an older checkout of the package (copied into it);
+the loop's counts are then null.
 
 On the CPU (``--cpu``) the same steps run the plain versions, a harness
 check: the profiler sees no device there and the idle share is null.
@@ -31,15 +39,19 @@ import time
 import numpy as np
 import torch
 
+from ..models import make_csvm
 from ..ops.gram_matvec import make_sym_matvec
 from ..ops.kernel_functions import gram_block, kernel_scalar
 from ..ops.matvec import build_operator
+from ..solver import cg as cg_loop
 from ..solver.cg import cg_solve
 from ..types import KernelType
 from ..utils.timing import slope_rate
 from . import _common
 
 TIERS = ("exact", "bf16x3", "bf16cast")
+#: ``PLSSVM_MATMUL_PRECISION`` that pins each tier
+PINS = {"exact": "highest", "bf16x3": "high", "bf16cast": "default"}
 
 
 def _sizes(text: str) -> list[tuple[int, int]]:
@@ -100,18 +112,54 @@ def cg_rate(dev, matvec, mask, D: int, lo: int, hi: int, trials: int) -> float:
     return slope_rate(run, lo, hi, trials=trials)
 
 
+def loop_counts() -> dict | None:
+    """A copy of ``solver.cg.counts`` (None where the solver keeps none)."""
+    counts = getattr(cg_loop, "counts", None)
+    return None if counts is None else dict(counts)
+
+
+def loop_stats(before: dict | None, iters: int) -> dict:
+    """The loop's host reads per iteration since ``before`` (of
+    :func:`loop_counts`) over ``iters`` iterations, its chunk size and
+    whether it replayed CUDA graphs; null where the solver keeps no counts."""
+    if before is None:
+        return {"host_reads_per_iteration": None, "chunk": None, "graph": None}
+    reads = cg_loop.counts["host_reads"] - before["host_reads"]
+    return {"host_reads_per_iteration": reads / iters, "chunk": cg_loop.last_run["chunk"],
+            "graph": cg_loop.last_run["graph"]}
+
+
+def learn_ms(dev, D: int, f: int, precision: str, learns: int) -> dict:
+    """Median wall ms of ``learn()`` to eps 1e-6 on two blobs of ``D + 1``
+    points (``D`` CG unknowns), rbf, gamma 1/f, float32, with
+    ``PLSSVM_MATMUL_PRECISION=precision`` (empty: the default plan), after
+    one warm-up learn; and its iteration count."""
+    X, y = _common.two_blobs(D + 1, f)
+    svm = make_csvm(_common.parameter(X, y, kernel=KernelType.rbf, gamma=1.0 / f,
+                                      epsilon=1e-6, max_iter=1000, dtype=np.float32,
+                                      backend=_common.backend_of(dev)))
+    with _common.environ(PLSSVM_MATMUL_PRECISION=precision or None):
+        svm.learn()
+        times = sorted(_common.wall(dev, svm.learn) for _ in range(learns))
+    return {"learn_ms": times[len(times) // 2] * 1e3,
+            "learn_iterations": svm.last_cg_info["iterations"]}
+
+
 def idle_share(dev, matvec, mask, D: int, iters: int) -> dict:
     """One eps = 0 solve of ``iters`` iterations under ``torch.profiler``:
-    its wall ms, the device ms of every kernel it ran, and the idle share
-    ``1 - device / wall`` (null where the profiler saw no device time)."""
+    its wall ms, the device ms of every kernel it ran, the idle share
+    ``1 - device / wall`` (null where the profiler saw no device time), and
+    the loop's :func:`loop_stats`."""
     from torch.profiler import ProfilerActivity, profile
 
     b = torch.ones(D, device=dev)
     cg_solve(matvec, b, mask, 0.0, iters)  # warm-up
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     _common.sync(dev)
+    before = loop_counts()
     with profile(activities=activities) as prof:
         secs = _common.wall(dev, lambda: cg_solve(matvec, b, mask, 0.0, iters))
+    stats = loop_stats(before, iters)
     busy_us = 0.0
     if dev.type == "cuda":
         for ev in prof.key_averages():
@@ -120,20 +168,30 @@ def idle_share(dev, matvec, mask, D: int, iters: int) -> dict:
     wall_ms = secs * 1e3
     busy_ms = busy_us / 1e3
     return {"cg_wall_ms": wall_ms, "device_busy_ms": busy_ms if busy_us else None,
-            "idle_share": 1.0 - busy_ms / wall_ms if busy_us else None}
+            "idle_share": 1.0 - busy_ms / wall_ms if busy_us else None, **stats}
 
 
-def profile_shape(dev, D: int, f: int, reps: int, lo: int, hi: int, trials: int) -> dict:
+def _num(x, spec: str) -> str:
+    return "n/a" if x is None else format(x, spec)
+
+
+def profile_shape(dev, D: int, f: int, reps: int, lo: int, hi: int, trials: int,
+                  learns: int) -> dict:
     backend = _common.backend_of(dev)
     X, q, mask, QA, cost_inv = system(dev, D, f)
     v0 = torch.tensor(np.random.default_rng(1).normal(size=D), dtype=torch.float32, device=dev)
     out = {"rows": D, "features": f, "tiers": {}}
     # condition 1e6: CG at eps = 0 keeps going far past the caps
     diag = torch.logspace(0, 6, D, dtype=torch.float32, device=dev)
+    before = loop_counts()
     skeleton = cg_rate(dev, lambda v: diag * v, mask, D, lo, hi, trials)
     out["skeleton_it_per_s"] = skeleton
-    print(f"[{D} x {f}] CG skeleton (trivial matvec): {1e6 / skeleton:9.1f} us per iteration",
-          flush=True)
+    # the rate's solves: the warm-up at lo, then per trial one at lo and one at hi
+    stats = loop_stats(before, lo + trials * (lo + hi))
+    out.update({f"skeleton_{k}": v for k, v in stats.items()})
+    print(f"[{D} x {f}] CG skeleton (trivial matvec): {1e6 / skeleton:9.1f} us per iteration, "
+          f"{_num(stats['host_reads_per_iteration'], '.3f')} host reads per iteration, chunk "
+          f"{stats['chunk']}, graph {stats['graph']}", flush=True)
     for tier in TIERS:
         rec = {}
         for kernel in (KernelType.rbf, KernelType.linear, KernelType.polynomial):
@@ -145,13 +203,21 @@ def profile_shape(dev, D: int, f: int, reps: int, lo: int, hi: int, trials: int)
         rec["cg_it_per_s"] = cg_rate(dev, op.matvec, mask, D, lo, hi, trials)
         rec["cg_iteration_ms"] = 1e3 / rec["cg_it_per_s"]
         rec.update(idle_share(dev, op.matvec, mask, D, hi))
+        rec.update(learn_ms(dev, D, f, PINS[tier], learns))
         out["tiers"][tier] = rec
         idle = rec["idle_share"]
         print(f"[{D} x {f} {tier:8s}] K1 rbf {rec['k1_rbf_ms']:.4f} / linear "
               f"{rec['k1_linear_ms']:.4f} / poly {rec['k1_polynomial_ms']:.4f} ms, operator "
               f"{rec['operator_ms']:.4f} ms, CG iteration {rec['cg_iteration_ms']:.4f} ms "
               f"({rec['cg_it_per_s']:.1f} it/s), idle share "
-              f"{'n/a' if idle is None else f'{idle:.3f}'}", flush=True)
+              f"{_num(idle, '.3f')}, {_num(rec['host_reads_per_iteration'], '.3f')} host "
+              f"reads per iteration, chunk {rec['chunk']}, graph {rec['graph']}; learn() to "
+              f"1e-6 {rec['learn_ms']:.2f} ms ({rec['learn_iterations']} iterations)",
+              flush=True)
+    plan = learn_ms(dev, D, f, "", learns)
+    out.update({f"plan_{k}": v for k, v in plan.items()})
+    print(f"[{D} x {f}] learn() to 1e-6 with the default plan: {plan['learn_ms']:.2f} ms "
+          f"({plan['learn_iterations']} iterations)", flush=True)
     return out
 
 
@@ -163,10 +229,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--reps", type=int, default=64, help="calls per kernel timing")
     parser.add_argument("--caps", default="32,128", help="the slope's two iteration caps")
     parser.add_argument("--trials", type=int, default=3, help="slope samples (median)")
+    parser.add_argument("--learns", type=int, default=3, help="timed learns (median)")
     args = parser.parse_args(argv)
     dev = _common.device(args.cpu)
     lo, hi = (int(c) for c in args.caps.split(","))
-    shapes = [profile_shape(dev, D, f, args.reps, lo, hi, args.trials)
+    shapes = [profile_shape(dev, D, f, args.reps, lo, hi, args.trials, args.learns)
               for D, f in _sizes(args.sizes)]
     return _common.emit({"metric": "cg_profile", "platform": dev.type,
                          "card": _common.card(dev), "caps": [lo, hi], "shapes": shapes})

@@ -15,19 +15,59 @@ semantics:
 - ``beta = delta_new / delta_old``, ``d = beta * d + r``; diagonal PCG
   through ``minv``.
 
-The loop is a Python loop that reads ``delta`` on the host every
-iteration: one device sync per iteration, and iteration counts equal to
-the reference's.
+The loop is the JAX package's ``lax.while_loop`` (``cg.py:175, 269``) in
+PyTorch terms: its carry stays on the device.  ``k``, ``delta``, the
+stagnation detector's ``best`` and ``since``, and an ``active`` flag (the
+loop's condition: ``k < imax``, ``delta > target``, and not ``armed and
+since >= patience``) are device tensors.  A step applies its update through
+``torch.where(active, new, old)`` and adds ``active`` to ``k``, so a step
+issued after the loop has stopped is an exact no-op.  The host chooses the
+residual refresh from the issued step's index (while the loop is active,
+``k`` is the start ``k`` plus the steps issued, so the refresh falls where
+the reference's does, after a resume from any ``k`` too), issues steps in
+chunks of ``c`` and reads ``(active, k)`` once per chunk: one small
+device-to-host copy per chunk, not one per iteration.  Results and
+iteration counts do not depend on ``c``; ``k`` is read once more when a
+run ends and returned as a Python int.
+
+On the card a one-device solve replays its step as a CUDA graph: two
+one-step graphs per operator and loop (the plain step and the refresh
+step; :func:`cg_run`'s loop, or the stagnation loop's, which also carries
+``best`` and ``since``), captured on static buffers in a private memory pool, each at its first
+use once the operator's first step has run eagerly (the warm-up capture
+needs), and kept for the operator's life (a chunked learn's chunks reuse
+them).  A graph's replay
+adds the kernel launches its capture counted to
+``ops/gram_matvec.launches``.  A failed capture raises
+:class:`~..exceptions.PLSSVMError` naming the operator; nothing falls back.
+There ``c = 1 + floor(t_turn / t_step)``, at most 16: ``t_step`` is one
+replay's device time (CUDA events) and ``t_turn`` the host's turnaround
+for one read and relaunch, each the least of two single-step chunks
+measured once per operator.  The masked steps issued after convergence
+then cost at most about one turnaround.
+
+The same masked step runs eagerly, one read per step (``c = 1``), on the
+CPU, for an A·v marked :func:`across_devices` (the sharded learns: their
+hops copy between devices and processes, so every rank issues the same
+steps), and everywhere under :func:`eager_loop`, the plain version the
+graphs are held against.  :data:`counts` counts the steps issued, the host
+reads, the captures and the replays.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import os
+import time
+import weakref
 from typing import Callable, NamedTuple
 
 import torch
 
 from ..constants import RESIDUAL_REFRESH_INTERVAL
+from ..exceptions import PLSSVMError
+from ..ops import gram_matvec as gm
 from ..utils.assertions import plssvm_assert
 
 
@@ -61,8 +101,75 @@ class AdaptiveCGResult(NamedTuple):
     fast_iterations: int
 
 
+#: since the last :func:`reset_counts`: CG steps issued (masked no-ops
+#: included), host reads of the device's state, CUDA-graph captures and
+#: replays
+counts = {"steps": 0, "host_reads": 0, "captures": 0, "replays": 0}
+#: the last run's chunk size ``c`` and whether it replayed graphs
+last_run = {"chunk": 1, "graph": False}
+
+#: the largest chunk the graph path derives
+MAX_CHUNK = 16
+#: ``eager``: :func:`eager_loop` is on; ``chunk``: a fixed ``c`` for tests
+_mode = {"eager": False, "chunk": None}
+
+
+def reset_counts() -> None:
+    for name in counts:
+        counts[name] = 0
+
+
+@contextlib.contextmanager
+def eager_loop():
+    """Run every solve's masked loop eagerly, on the card too: the plain
+    version that the CUDA graphs are held against, bit for bit."""
+    old = _mode["eager"]
+    _mode["eager"] = True
+    try:
+        yield
+    finally:
+        _mode["eager"] = old
+
+
+@contextlib.contextmanager
+def _fixed_chunk(c: int):
+    """Issue ``c`` steps per host read on every path (tests: results do
+    not depend on ``c``)."""
+    old = _mode["chunk"]
+    _mode["chunk"] = int(c)
+    try:
+        yield
+    finally:
+        _mode["chunk"] = old
+
+
+class _AcrossDevices:
+    """An A·v that spans several devices or processes: never captured."""
+
+    __slots__ = ("matvec",)
+
+    def __init__(self, matvec: Callable):
+        self.matvec = matvec
+
+    def __call__(self, v):
+        return self.matvec(v)
+
+
+def across_devices(matvec: Callable) -> Callable:
+    """Mark ``matvec`` as spanning several devices or processes (the
+    sharded learns): the solver runs its masked step eagerly, one host read
+    per step, so every rank issues the same steps."""
+    return matvec if isinstance(matvec, _AcrossDevices) else _AcrossDevices(matvec)
+
+
 def _dot(a, b):
     return torch.dot(a, b)
+
+
+def _read(t: torch.Tensor) -> list:
+    """One host read of the device's state."""
+    counts["host_reads"] += 1
+    return t.tolist()
 
 
 def cg_solve(
@@ -103,26 +210,247 @@ def cg_init(matvec: Callable, b: torch.Tensor, mask: torch.Tensor,
     return CGState(k=0, x=x0, r=r0, d=d0, delta=delta0, delta0=delta0)
 
 
-def _cg_step(matvec, b, minv, dot, refresh_interval, k, x, r, d, delta):
-    """One CG iteration from ``(k, x, r, d, delta)``: returns ``(x, r, d,
-    delta_new)``."""
-    Ad = matvec(d)
+class _Carry:
+    """A run's inputs (``b``, ``minv``, ``target``, ``imax``, the stagnation
+    window) and its carry (``x``, ``r``, ``d``, ``delta``, ``best``,
+    ``since``, ``k``, ``active``) as tensors on the system's device.
+    ``status`` holds ``(active, k)``, the one thing the host reads.  Without
+    ``stagnation`` (:func:`cg_run`'s loop) ``best`` and ``since`` are not
+    kept, as the JAX ``cg_run`` carries neither."""
+
+    def __init__(self, b: torch.Tensor, minv: torch.Tensor | None, stagnation: bool):
+        dev, dtype = b.device, b.dtype
+        self.stagnation = stagnation
+
+        def scalar(dt):
+            return torch.zeros((), dtype=dt, device=dev)
+
+        self.b = torch.empty_like(b)
+        self.minv = None if minv is None else torch.empty_like(minv)
+        self.x, self.r, self.d = (torch.empty_like(b) for _ in range(3))
+        self.delta, self.best, self.target = (scalar(dtype) for _ in range(3))
+        self.since, self.imax, self.window = (scalar(torch.int64) for _ in range(3))
+        self.active = scalar(torch.bool)
+        self.status = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.k = self.status[1]
+
+    def load(self, b, minv, state: CGState, target, imax: int, patience: int | None):
+        """Start a run from ``state``; the stagnation exit (``patience``,
+        given with ``stagnation``) is armed where ``target > 0``."""
+        self.b.copy_(b)
+        if minv is not None:
+            self.minv.copy_(minv)
+        for dst, src in ((self.x, state.x), (self.r, state.r), (self.d, state.d),
+                         (self.delta, state.delta), (self.best, state.delta),
+                         (self.target, target)):
+            dst.copy_(src)
+        self.since.zero_()
+        self.k.fill_(int(state.k))
+        self.imax.fill_(imax)
+        if self.stagnation:
+            self.window.fill_(torch.iinfo(torch.int64).max)
+            self.window.masked_fill_(self.target > 0, patience)
+        self.update_active()
+
+    def update_active(self) -> None:
+        """The loop's condition on the device (the JAX ``cond``)."""
+        torch.logical_and(self.k < self.imax, self.delta > self.target, out=self.active)
+        if self.stagnation:
+            self.active.logical_and_(self.since < self.window)
+        self.status[0].copy_(self.active)
+
+
+def _step(c: _Carry, matvec: Callable, dot: Callable, refresh: bool) -> None:
+    """One masked CG iteration on the carry, in place: every update goes
+    through ``torch.where(active, new, old)``, so an inactive step changes
+    nothing (its ``0/0`` never reaches the state)."""
+    Ad = matvec(c.d)
     # PCG step scalars come from r.z; recomputing r.z from the stored r
     # keeps the state identical for both paths
-    rz = delta if minv is None else dot(r, minv * r)
-    alpha = rz / dot(d, Ad)
-    x = x + alpha * d
-    if k % refresh_interval == refresh_interval - 1:
-        r = b - matvec(x)
+    rz = c.delta if c.minv is None else dot(c.r, c.minv * c.r)
+    alpha = rz / dot(c.d, Ad)
+    x = c.x + alpha * c.d
+    r = c.b - matvec(x) if refresh else c.r - alpha * Ad
+    delta = dot(r, r)
+    if c.minv is None:
+        d = (delta / c.delta) * c.d + r
     else:
-        r = r - alpha * Ad
-    delta_new = dot(r, r)
-    if minv is None:
-        d = (delta_new / delta) * d + r
+        z = c.minv * r
+        d = (dot(r, z) / rz) * c.d + z
+    updates = [(x, c.x), (r, c.r), (d, c.d), (delta, c.delta)]
+    if c.stagnation:
+        since = torch.where(delta < 0.9 * c.best, 0, c.since + 1)
+        updates += [(torch.minimum(c.best, delta), c.best), (since, c.since)]
+    for new, old in updates:
+        torch.where(c.active, new, old, out=old)
+    c.k.add_(c.active)
+    c.update_active()
+
+
+def _name(matvec: Callable) -> str:
+    return getattr(matvec, "__qualname__", None) or type(matvec).__name__
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(dev: torch.device):
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _SIDE_STREAMS[dev]
+
+
+class _StepGraphs:
+    """One operator's CG step as two CUDA graphs (plain, refresh), each
+    captured at its first use on a static :class:`_Carry`, sharing one
+    private memory pool, with the chunk size measured for it."""
+
+    def __init__(self, name: str, b: torch.Tensor, minv: torch.Tensor | None,
+                 stagnation: bool):
+        self.name = name
+        self.carry = _Carry(b, minv, stagnation)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: dict = {}  # refresh -> (CUDAGraph, counter increments per replay)
+        self.warm = False
+        self.chunk: int | None = None
+
+    def issue(self, matvec: Callable, dot: Callable, refresh: bool) -> None:
+        """One step: the operator's first runs eagerly (the warm-up: the
+        libraries loaded and their workspaces allocated outside the graphs),
+        each later one replays its kind's graph, captured at its first use
+        (a solve of under 50 iterations never captures the refresh step)."""
+        if not self.warm:
+            with self._side_stream():
+                _step(self.carry, matvec, dot, refresh)
+            self.warm = True
+            return
+        if refresh not in self.graphs:
+            with self._side_stream():
+                torch.cuda.synchronize(self.carry.b.device)
+                self.graphs[refresh] = self._capture(matvec, dot, refresh)
+        graph, added = self.graphs[refresh]
+        graph.replay()
+        gm.add_counts(added)
+        counts["replays"] += 1
+
+    @contextlib.contextmanager
+    def _side_stream(self):
+        """Warm-up and capture run on a side stream, ordered after the
+        current stream's work and before its next."""
+        dev = self.carry.b.device
+        side, cur = _side_stream(dev), torch.cuda.current_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            yield
+        cur.wait_stream(side)
+
+    def _capture(self, matvec, dot, refresh: bool):
+        graph = torch.cuda.CUDAGraph()
+        before = gm.counts_snapshot()
+        failure = None
+        graph.capture_begin(pool=self.pool)
+        try:
+            _step(self.carry, matvec, dot, refresh)
+        except Exception as err:  # the capture must end before anything else runs
+            failure = err
+        try:
+            graph.capture_end()
+        except RuntimeError as err:
+            failure = failure or err
+        added = gm.counts_since(before)
+        gm.add_counts(added, -1)  # a capture launches nothing; each replay counts it
+        if failure is not None:
+            kind = "refresh" if refresh else "plain"
+            raise PLSSVMError(
+                f"capturing the {kind} CG step of operator '{self.name}' (D = "
+                f"{self.carry.b.shape[0]}, {self.carry.b.dtype}) as a CUDA graph failed: "
+                f"{failure}") from failure
+        counts["captures"] += 1
+        return graph, added
+
+
+#: per A·v callable, its step graphs keyed by the system's layout
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _graphs_for(matvec, b, minv, dot, stagnation: bool) -> _StepGraphs | None:
+    """The step graphs of a one-device solve on the card, else ``None``
+    (the eager loop)."""
+    if _mode["eager"] or not b.is_cuda or isinstance(matvec, _AcrossDevices):
+        return None
+    key = (b.shape[0], b.dtype, b.device, minv is None, dot, stagnation)
+    try:
+        per_op = _GRAPHS.setdefault(matvec, {})
+    except TypeError:  # not weakly referenceable: graphs for this run only
+        per_op = {}
+    if key not in per_op:
+        per_op[key] = _StepGraphs(_name(matvec), b, minv, stagnation)
+    return per_op[key]
+
+
+def _derive_chunk(samples: list) -> int:
+    """``1 + floor(t_turn / t_step)``, at most :data:`MAX_CHUNK`, from
+    ``(host ms, device ms)`` of single-step chunks."""
+    t_step = min(dev_ms for _, dev_ms in samples)
+    t_turn = min(max(0.0, host_ms - dev_ms) for host_ms, dev_ms in samples)
+    if t_step <= 0.0:
+        return MAX_CHUNK
+    return max(1, min(MAX_CHUNK, 1 + math.floor(t_turn / t_step)))
+
+
+def _run(matvec, b, minv, dot, state: CGState, target, imax, patience,
+         refresh_interval: int) -> CGState:
+    """Continue CG from ``state`` to ``imax`` total iterations (or the
+    stopping rule), in chunks of steps between host reads."""
+    imax, k0 = int(imax), int(state.k)
+    if k0 >= imax:
+        return CGState(k=k0, x=state.x, r=state.r, d=state.d, delta=state.delta,
+                       delta0=state.delta0)
+    stagnation = patience is not None
+    graphs = _graphs_for(matvec, b, minv, dot, stagnation)
+    carry = _Carry(b, minv, stagnation) if graphs is None else graphs.carry
+    carry.load(b, minv, state, target, imax, patience)
+    if graphs is None:
+        def issue(refresh):
+            _step(carry, matvec, dot, refresh)
     else:
-        z = minv * r
-        d = (dot(r, z) / rz) * d + z
-    return x, r, d, delta_new
+        def issue(refresh):
+            graphs.issue(matvec, dot, refresh)
+
+    # a set chunk (tests), else the operator's measured one, else 1; the
+    # graph path measures c on its operator's chunks 2 and 3 (chunk 1 warms
+    # up), one step each, and the least of the two leaves out a capture
+    measure = graphs is not None and graphs.chunk is None and not _mode["chunk"]
+    c = _mode["chunk"] or (graphs.chunk if graphs is not None and graphs.chunk else 1)
+    samples, k_host, chunk_no = [], k0, 0
+    while True:
+        n = min(c, imax - k_host)
+        timed = measure and chunk_no > 0
+        if timed:
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            events[0].record()
+        for _ in range(n):
+            issue(k_host % refresh_interval == refresh_interval - 1)
+            k_host += 1
+        if timed:
+            events[1].record()
+        counts["steps"] += n
+        active, k = _read(carry.status)
+        if timed:
+            samples.append(((time.perf_counter() - t0) * 1e3,
+                            events[0].elapsed_time(events[1])))
+            if len(samples) == 2:
+                c = graphs.chunk = _derive_chunk(samples)
+                measure = False
+        chunk_no += 1
+        if not active:
+            break
+    last_run.update(chunk=c, graph=graphs is not None)
+    x, r, d, delta = carry.x, carry.r, carry.d, carry.delta
+    if graphs is not None:  # the static buffers serve the operator's next run
+        x, r, d, delta = x.clone(), r.clone(), d.clone(), delta.clone()
+    return CGState(k=k, x=x, r=r, d=d, delta=delta, delta0=state.delta0)
 
 
 def cg_run(
@@ -140,11 +468,7 @@ def cg_run(
     iterations.  ``state.delta`` always holds the plain residual ``r.r``."""
     eps = torch.as_tensor(eps, dtype=b.dtype, device=b.device)
     target = eps * eps * state.delta0
-    k, x, r, d, delta = state.k, state.x, state.r, state.d, state.delta
-    while k < imax and bool(delta > target):
-        x, r, d, delta = _cg_step(matvec, b, minv, dot, refresh_interval, k, x, r, d, delta)
-        k += 1
-    return CGState(k=k, x=x, r=r, d=d, delta=delta, delta0=state.delta0)
+    return _run(matvec, b, minv, dot, state, target, imax, None, refresh_interval)
 
 
 #: iterations without a >= 10 % residual improvement before the adaptive
@@ -179,8 +503,8 @@ def cg_run_stagnation(
     on its best-seen value by at least 10 % for ``patience`` consecutive
     iterations, the signature of a matvec whose error floor (a bf16 tier)
     sits above the requested tolerance.  The detector is armed only when the
-    target is positive; ``eps = 0`` (pinned-iteration mode) runs exactly
-    like :func:`cg_run`.
+    target is positive (decided on the device); ``eps = 0``
+    (pinned-iteration mode) runs exactly like :func:`cg_run`.
 
     The caller tells the exits apart from the returned state:
     ``delta <= eps^2 * delta0`` converged, ``k >= imax`` exhausted, anything
@@ -189,16 +513,7 @@ def cg_run_stagnation(
         patience = _default_patience()
     eps = torch.as_tensor(eps, dtype=b.dtype, device=b.device)
     target = eps * eps * state.delta0
-    armed = bool(target > 0)
-    k, x, r, d, delta = state.k, state.x, state.r, state.d, state.delta
-    best, since = delta, 0
-    while k < imax and bool(delta > target) and not (armed and since >= patience):
-        x, r, d, delta = _cg_step(matvec, b, minv, dot, refresh_interval, k, x, r, d, delta)
-        improved = bool(delta < 0.9 * best)
-        best = torch.minimum(best, delta)
-        since = 0 if improved else since + 1
-        k += 1
-    return CGState(k=k, x=x, r=r, d=d, delta=delta, delta0=state.delta0)
+    return _run(matvec, b, minv, dot, state, target, imax, int(patience), refresh_interval)
 
 
 def cg_solve_adaptive(
@@ -221,7 +536,8 @@ def cg_solve_adaptive(
     continues from the current iterate on the accurate tier, within the
     same ``imax``.  The verify step replaces r and d with the accurate
     residual, so a returned ``delta <= eps^2 * delta0`` is always an
-    accurate-tier residual.
+    accurate-tier residual.  The verify and the escalation are decided once
+    each, as the two ``lax.cond`` (``cg.py:326, 335``): one host read each.
 
     ``eps = 0`` pins the iteration count on the fast tier: stagnation,
     verification and escalation all disarm, as in :func:`cg_solve`."""
@@ -233,12 +549,12 @@ def cg_solve_adaptive(
     k_fast = state.k
     eps_t = torch.as_tensor(eps, dtype=b.dtype, device=b.device)
     target = eps_t * eps_t * state.delta0
-    if bool(target > 0):
+    if _read(target > 0):
         # accurate-tier residual at the fast iterate: one matvec
         r = b - matvec_acc(state.x)
         d = r if minv is None else minv * r
         state = CGState(k=state.k, x=state.x, r=r, d=d, delta=dot(r, r), delta0=state.delta0)
-        if bool(state.delta > target) and state.k < imax:
+        if state.k < imax and _read(state.delta > target):
             state = cg_run(matvec_acc, b, mask, eps, imax, state, refresh_interval, minv, dot)
     return AdaptiveCGResult(x=state.x, iterations=state.k, delta=state.delta,
                             delta0=state.delta0, fast_iterations=k_fast)

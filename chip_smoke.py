@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path once on an NVIDIA GPU.
 
     python3 chip_smoke.py [--profile | --probe | --sharded | --distributed | --strips | --tools
-                           | --float64 | --cg]
+                           | --float64 | --cg | --cli]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the repository around this script; it imports nothing of JAX.  Phases 3-10
@@ -25,9 +25,13 @@ Phases, one line or more each, any failure exits non-zero:
    then ``plssvm-predict-torch`` on a 4096-point test file; the launch
    counters must show K1 in training and K2 in prediction, accuracy
    >= 95 %, the learn's steps replayed as CUDA graphs, its wall split into
-   set-up and CG ms (``Timings`` sink) beside its steps issued, host reads
-   and chunk size; and a small learn checked against a direct solve of the
-   LS-SVM system;
+   set-up and CG ms (``Timings`` sink) with their parts (set-up: ``load``,
+   ``pad``, ``h2d``, ``system``, ``operands``; CG: ``capture``) beside its
+   steps issued, host reads and chunk size, each CLI's wall split into its
+   parts (train: ``parse``, ``learn``, ``write``; predict:
+   ``parse_model``, ``parse_data``, ``predict``, ``write``), the model
+   file's and the predictions' SHA-256; and a small learn checked against a
+   direct solve of the LS-SVM system;
 7. timing at rbf 4096 x 256 float32: CG iterations/s at a pinned count
    (eps = 0, slope between two caps) with K1 and with the plain version,
    and learn() time to eps = 1e-6;
@@ -62,9 +66,9 @@ Phases, one line or more each, any failure exits non-zero:
     panel); two runs of each are compared bitwise;
 12. the adaptive dense main path: ``plssvm-train-torch`` on phase 6's
     32768 x 256 file with the default plan (bf16cast CG, verified and, if
-    need be, continued on bf16x3), with phase 6's split and loop line,
-    then ``plssvm-predict-torch`` with each bf16 tier pinned (K2 at that
-    tier);
+    need be, continued on bf16x3), with phase 6's splits, loop line and
+    digests, then ``plssvm-predict-torch`` with each bf16 tier pinned (K2
+    at that tier);
 13. the adaptive sparse ``dense`` and ``implicit`` tiers through the CLIs
     on phase 8's 16384 x 4096, 1 % files;
 14. a forced escalation (``PLSSVM_CG_STAG_PATIENCE=2``, eps 1e-9) at rbf
@@ -137,8 +141,8 @@ Phases, one line or more each, any failure exits non-zero:
     ``--use_float`` on two blobs of 40960 x 256, rbf (float64 K 12.5 GiB,
     beyond the 8 GiB budget: ``implicit`` as the blocked float64 product),
     converged to eps 1e-6, then the predict CLI without ``--use_float`` on
-    4096 points at >= 95 %; (b) that system's float64 A·v against the
-    float64 cached K under a 16 GiB budget (``F64_AV_TOL``), with ms of
+    4096 points at >= 95 %, each with phase 6's splits and digests; (b)
+    that system's float64 A·v against the float64 cached K under a 16 GiB budget (``F64_AV_TOL``), with ms of
     both; (c) the sparse panel tier at float64 on phase 8's set (512 MiB
     budget: plain pairs), converged, its A·v against the gram tier's
     (``F64_AV_TOL``), accuracy on the test rows; (d) phase 6's reference
@@ -152,12 +156,20 @@ Phases, one line or more each, any failure exits non-zero:
     of a pinned solve under ``torch.profiler``, its host reads and chunk
     size ``c``, and the graph solve bit for bit the eager loop's (``x``,
     ``delta``, iterations), pinned across the refresh at 49 and to eps
-    1e-6.
+    1e-6; (b) ``learn()`` on fresh ``CSVM``s of one layout (rbf 4096 x
+    256, the default plan and ``highest``): after
+    ``solver.cg.clear_graphs()`` the first learn captures, a second of the
+    same data nothing, bit for bit the first, one at another ``cost`` or
+    ``eps`` only loops not run before (a repeat nothing), one at another
+    ``gamma`` its own; each learn's wall ms.
 
 ``--sharded`` runs phases 1, 2, 17, 18 and 19 only (the phases that differ
 on a machine with several cards); ``--distributed`` phases 1, 2 and 19;
 ``--strips`` phases 1, 2 and 20; ``--tools`` phases 1, 2 and 21;
-``--float64`` phases 1, 2 and 22; ``--cg`` phases 1, 2 and 23.
+``--float64`` phases 1, 2 and 22; ``--cg`` phases 1, 2 and 23; ``--cli``
+phases 1, 2, 6 (its reference check first, on its own data, so that the
+CLIs' splits are those of a process that has used the card, as in the
+full run), 12, 22 (a) and 23 (b): the CLIs and learns with their splits.
 ``--probe`` is the short first run after a change to a kernel source:
 phases 1 and 2, the compiler's resource lines of every kernel (the whole
 log goes to ``build.log`` beside the built library), and phase 11's checks
@@ -434,11 +446,12 @@ def bound_ms(name: str, Di: int, Dj: int, f: int) -> dict:
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
 
-def run_cli(main, argv) -> tuple[int, str]:
-    """Run a CLI ``main`` in-process, echo and return its stdout."""
+def run_cli(main, argv, **kw) -> tuple[int, str]:
+    """Run a CLI ``main`` in-process (``kw``: its ``timings`` sink), echo
+    and return its stdout."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = main(argv)
+        rc = main(argv, **kw)
     out = buf.getvalue()
     sys.stdout.write(out)
     return rc, out
@@ -600,22 +613,45 @@ def phase_k3(dev, rng):
     return record
 
 
+def parts_text(timings, name: str) -> str:
+    """``a 1.0, b 2.0`` ms of span ``name``'s parts in a ``Timings`` sink."""
+    return ", ".join(f"{k} {v:.1f}" for k, v in timings.part_summary(name).items())
+
+
 def learn_split(svm, log: str) -> str:
     """A CLI learn's wall split from its ``Timings`` sink (set-up and CG
-    ms, the rest of the CLI's own learn time) and its device loop: steps
-    issued beside the iterations, host reads, chunk size, CUDA graphs."""
+    ms, each with its parts, the rest of the CLI's own learn time) and its
+    device loop: steps issued beside the iterations, host reads, chunk
+    size, CUDA graphs."""
     spans, loop = svm.timings.summary(), svm.last_cg_loop
     rest = cg_ms(log) - spans["setup"] - spans["cg"]
-    return (f"learn split: set-up {spans['setup']:.1f} ms, CG {spans['cg']:.1f} ms, rest "
+    return (f"learn split: set-up {spans['setup']:.1f} ms ({parts_text(svm.timings, 'setup')}), "
+            f"CG {spans['cg']:.1f} ms ({parts_text(svm.timings, 'cg')}), rest "
             f"{rest:.1f} ms of {cg_ms(log)} ms; {loop['steps']} steps issued for "
             f"{svm.last_cg_info['iterations']} iterations, {loop['host_reads']} host reads, "
             f"chunk {loop['chunk']}, CUDA graphs {loop['graph']}")
+
+
+def cli_split(timings) -> str:
+    """A CLI run's wall split from the ``Timings`` sink its ``main`` took:
+    the ``cli`` span's parts in ms, and the span."""
+    return f"CLI split: {parts_text(timings, 'cli')} of {timings.summary()['cli']:.1f} ms"
+
+
+def file_digest(path: str) -> str:
+    """The first 16 hex digits of a file's SHA-256: the model and prediction
+    files of two runs compare by it."""
+    import hashlib
+
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()[:16]
 
 
 def phase_main_path(rng):
     from plssvm_sparse_fp22_tpu_torch.cli import train as train_cli
     from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
     from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.utils.timing import Timings
 
     n_train, n_test, f = 32768, 4096, 256
     X, y = two_blobs(n_train + n_test, f, rng)
@@ -629,9 +665,9 @@ def phase_main_path(rng):
 
     gm.reset_launches()
     t0 = time.perf_counter()
-    with recording_csvms(train_cli, timings=True) as made:
+    with recording_csvms(train_cli) as made:
         rc, log = run_cli(train_cli.main, ["-t", "2", "-e", "1e-6", "--use_float", "-b", "cuda",
-                                           "-p", "gpu_nvidia", train, model])
+                                           "-p", "gpu_nvidia", train, model], timings=Timings())
     train_s = time.perf_counter() - t0
     after_train = dict(gm.launches)
     check(rc == 0, f"train CLI returned {rc}")
@@ -645,13 +681,16 @@ def phase_main_path(rng):
     check(k1 == iters + 1 + iters // 50,
           f"K1 launches {k1} != one per CG iteration plus the initial residual and the "
           f"refreshes ({iters} iterations)")
-    print(f"[6 main path] train CLI: rc 0, {iters} CG iterations in implicit mode, "
-          f"{train_s:.1f} s end to end, launches {nonzero(after_train)}; "
-          f"{learn_split(made[-1], log)}", flush=True)
+    info = made[-1].last_cg_info
+    print(f"[6 main path] train CLI: rc 0, {iters} CG iterations in implicit mode, residual "
+          f"{info['delta']!r} of delta0 {info['delta0']!r}, {train_s:.1f} s end to end, "
+          f"launches {nonzero(after_train)}; {learn_split(made[-1], log)}; "
+          f"{cli_split(made[-1].timings)}; model sha256 {file_digest(model)}", flush=True)
 
     t0 = time.perf_counter()
+    timings = Timings()
     rc, log = run_cli(predict_main, ["--use_float", "-b", "cuda", "-p", "gpu_nvidia",
-                                     test, model, out])
+                                     test, model, out], timings=timings)
     predict_s = time.perf_counter() - t0
     launches = dict(gm.launches)
     check(rc == 0, f"predict CLI returned {rc}")
@@ -667,7 +706,8 @@ def phase_main_path(rng):
     check(abs(np.mean(labels == y[n_train:]) * 100 - acc) < 1e-9,
           "accuracy line disagrees with the labels")
     print(f"[6 main path] predict CLI: rc 0, accuracy {acc}%, {predict_s:.1f} s end to end, "
-          f"launches {nonzero(launches)}", flush=True)
+          f"launches {nonzero(launches)}; {cli_split(timings)}; predictions sha256 "
+          f"{file_digest(out)}", flush=True)
     return {"launches": launches, "train": train, "test": test}
 
 
@@ -1407,13 +1447,15 @@ def phase_adaptive_dense(main):
     from plssvm_sparse_fp22_tpu_torch.cli import train as train_cli
     from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
     from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.utils.timing import Timings
 
     model, out = os.path.join(WORK, "adaptive.model"), os.path.join(WORK, "adaptive.predict")
-    with environ(PLSSVM_MATMUL_PRECISION=""), recording_csvms(train_cli, timings=True) as made:
+    with environ(PLSSVM_MATMUL_PRECISION=""), recording_csvms(train_cli) as made:
         gm.reset_launches()
         t0 = time.perf_counter()
         rc, log = run_cli(train_cli.main, ["-t", "2", "-e", "1e-6", "--use_float", "-b", "cuda",
-                                           "-p", "gpu_nvidia", main["train"], model])
+                                           "-p", "gpu_nvidia", main["train"], model],
+                          timings=Timings())
         train_s = time.perf_counter() - t0
         counts = dict(gm.launches)
     check(rc == 0, f"adaptive train CLI returned {rc}")
@@ -1423,16 +1465,18 @@ def phase_adaptive_dense(main):
     print(f"[12 adaptive] dense rbf 32768 x 256 train CLI (default plan): {info['iterations']} "
           f"CG iterations, fast_iterations {info['fast_iterations']}, escalated "
           f"{info['escalated']}, learn {cg_ms(log)} ms, CLI {train_s:.1f} s, residual "
-          f"{info['delta']:.3e} <= eps^2 delta0 {1e-12 * info['delta0']:.3e}, launches "
-          f"{nonzero(counts)}; {learn_split(made[-1], log)}", flush=True)
+          f"{info['delta']!r} <= eps^2 delta0 {1e-12 * info['delta0']:.3e}, launches "
+          f"{nonzero(counts)}; {learn_split(made[-1], log)}; {cli_split(made[-1].timings)}; "
+          f"model sha256 {file_digest(model)}", flush=True)
     check(made[-1].last_cg_loop["graph"], "the adaptive learn replayed no CUDA graph")
     launches = {k: counts[k] for k in ("gram_matvec_sym/bf16cast", "gram_matvec_sym/bf16x3",
                                        "split_bf16")}
     for pinned, tier in (("high", "bf16x3"), ("default", "bf16cast")):
         with environ(PLSSVM_MATMUL_PRECISION=pinned):
             gm.reset_launches()
+            timings = Timings()
             rc, log = run_cli(predict_main, ["--use_float", "-b", "cuda", "-p", "gpu_nvidia",
-                                             main["test"], model, out])
+                                             main["test"], model, out], timings=timings)
             counts = dict(gm.launches)
         m = re.search(r"Accuracy = ([0-9.]+)%", log)
         check(rc == 0 and m is not None and float(m.group(1)) >= 95.0,
@@ -1443,7 +1487,8 @@ def phase_adaptive_dense(main):
         launches[f"gram_matvec_rect/{tier}"] = counts[f"gram_matvec_rect/{tier}"]
         launches["split_bf16"] += counts["split_bf16"]
         print(f"[12 adaptive] predict CLI, PLSSVM_MATMUL_PRECISION={pinned}: accuracy "
-              f"{m.group(1)}%, launches {nonzero(counts)}", flush=True)
+              f"{m.group(1)}%, launches {nonzero(counts)}; {cli_split(timings)}; predictions "
+              f"sha256 {file_digest(out)}", flush=True)
     return launches
 
 
@@ -2959,6 +3004,60 @@ def direct_solve(X, y, kernel_matrix):
     return sol[:n], sol[n]
 
 
+def float64_clis():
+    """22 (a): the train and predict CLIs at their default precision,
+    float64, on two blobs of ``F64_N`` x ``F64_F`` (rbf, ``implicit``: the
+    blocked float64 product), no kernel launched; each CLI's split.  Returns
+    the blobs."""
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch.cli import train as train_cli
+    from plssvm_sparse_fp22_tpu_torch.cli.predict import main as predict_main
+    from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
+    from plssvm_sparse_fp22_tpu_torch.utils.timing import Timings
+
+    rng = np.random.default_rng(SEED + 22)
+    f = F64_F
+    X, y = two_blobs(F64_N + F64_TEST, f, rng)
+    train, test = os.path.join(WORK, "f64.libsvm"), os.path.join(WORK, "f64.test.libsvm")
+    model, out = os.path.join(WORK, "f64.model"), os.path.join(WORK, "f64.predict")
+    write_libsvm(train, X[:F64_N], y[:F64_N])
+    write_libsvm(test, X[F64_N:], y[F64_N:])
+    with recording_csvms(train_cli) as made:
+        gm.reset_launches()
+        t0 = time.perf_counter()
+        rc, log = run_cli(train_cli.main, ["-t", "2", "-e", "1e-6", "-b", "cuda",
+                                           "-p", "gpu_nvidia", train, model], timings=Timings())
+        train_s = time.perf_counter() - t0
+        counts = nonzero(gm.launches)
+    check(rc == 0, f"(a) the float64 train CLI returned {rc}")
+    info = made[-1].last_cg_info
+    check(made[-1].dtype == torch.float64 and info["mode"] == "implicit",
+          f"(a) the train CLI ran {made[-1].dtype} in mode {info['mode']}, not float64 implicit")
+    check(info["delta"] <= 1e-12 * info["delta0"], f"(a) the learn stopped at residual "
+          f"{info['delta']:.3e} > eps^2 delta0 = {1e-12 * info['delta0']:.3e}")
+    learn_line = f"{learn_split(made[-1], log)}; {cli_split(made[-1].timings)}"
+    del made
+    gm.reset_launches()
+    t0 = time.perf_counter()
+    timings = Timings()
+    rc, plog = run_cli(predict_main, ["-b", "cuda", "-p", "gpu_nvidia", test, model, out],
+                       timings=timings)
+    predict_s = time.perf_counter() - t0
+    counts.update(nonzero(gm.launches))
+    m = re.search(r"Accuracy = ([0-9.]+)%", plog)
+    check(rc == 0 and m is not None and float(m.group(1)) >= 95.0,
+          f"(a) the float64 predict CLI: rc {rc}, accuracy {m and m.group(1)}% (bar 95 %)")
+    check(not counts, f"(a) a float64 learn or predict launched a kernel: {counts}")
+    print(f"[22 float64] (a) train CLI without --use_float, rbf {F64_N} x {f}: mode implicit "
+          f"(blocked float64 product), {info['iterations']} CG iterations, residual "
+          f"{info['delta']!r} of delta0 {info['delta0']!r}, {train_s:.1f} s; predict CLI "
+          f"{F64_TEST} points {predict_s:.1f} s, accuracy {m.group(1)}%; no kernel launched; "
+          f"train {learn_line}; model sha256 {file_digest(model)}; predict {cli_split(timings)}; "
+          f"predictions sha256 {file_digest(out)}", flush=True)
+    return X, y
+
+
 def phase_float64(dev):
     """22. float64 on the card: every learn routes around the kernels, which
     are float32 only, as the JAX package routes float64 around Pallas.
@@ -2982,43 +3081,8 @@ def phase_float64(dev):
 
     smi = cards()
     t_phase = time.perf_counter()
-    rng = np.random.default_rng(SEED + 22)
     rbf, f = KernelType.rbf, F64_F
-
-    # (a) the CLIs at their default precision, float64
-    X, y = two_blobs(F64_N + F64_TEST, f, rng)
-    train, test = os.path.join(WORK, "f64.libsvm"), os.path.join(WORK, "f64.test.libsvm")
-    model, out = os.path.join(WORK, "f64.model"), os.path.join(WORK, "f64.predict")
-    write_libsvm(train, X[:F64_N], y[:F64_N])
-    write_libsvm(test, X[F64_N:], y[F64_N:])
-    with recording_csvms(train_cli) as made:
-        gm.reset_launches()
-        t0 = time.perf_counter()
-        rc, log = run_cli(train_cli.main, ["-t", "2", "-e", "1e-6", "-b", "cuda",
-                                           "-p", "gpu_nvidia", train, model])
-        train_s = time.perf_counter() - t0
-        counts = nonzero(gm.launches)
-    check(rc == 0, f"(a) the float64 train CLI returned {rc}")
-    info = made[-1].last_cg_info
-    check(made[-1].dtype == torch.float64 and info["mode"] == "implicit",
-          f"(a) the train CLI ran {made[-1].dtype} in mode {info['mode']}, not float64 implicit")
-    check(info["delta"] <= 1e-12 * info["delta0"], f"(a) the learn stopped at residual "
-          f"{info['delta']:.3e} > eps^2 delta0 = {1e-12 * info['delta0']:.3e}")
-    del made
-    gm.reset_launches()
-    t0 = time.perf_counter()
-    rc, plog = run_cli(predict_main, ["-b", "cuda", "-p", "gpu_nvidia", test, model, out])
-    predict_s = time.perf_counter() - t0
-    counts.update(nonzero(gm.launches))
-    m = re.search(r"Accuracy = ([0-9.]+)%", plog)
-    check(rc == 0 and m is not None and float(m.group(1)) >= 95.0,
-          f"(a) the float64 predict CLI: rc {rc}, accuracy {m and m.group(1)}% (bar 95 %)")
-    check(not counts, f"(a) a float64 learn or predict launched a kernel: {counts}")
-    print(f"[22 float64] (a) train CLI without --use_float, rbf {F64_N} x {f}: mode implicit "
-          f"(blocked float64 product), {info['iterations']} CG iterations, residual "
-          f"{info['delta'] / info['delta0']:.2e} of delta0, {train_s:.1f} s; predict CLI "
-          f"{F64_TEST} points {predict_s:.1f} s, accuracy {m.group(1)}%; no kernel launched",
-          flush=True)
+    X, y = float64_clis()
 
     # (b) that system's float64 A·v, blocked implicit against the cached K
     Xd, q, mask, QA, ci, b = dense_system(dev, X[:F64_N], y[:F64_N], 1.0 / f, dtype=np.float64)
@@ -3132,6 +3196,7 @@ def phase_float64(dev):
                          rng_e.normal(0.2, 1.0, (LINEAR_N - half, LINEAR_F))]).astype(np.float32)
     yl = np.concatenate([-np.ones(half), np.ones(LINEAR_N - half)])
     lin_file, lin_model = os.path.join(WORK, "linear.libsvm"), os.path.join(WORK, "lin.model")
+    out = os.path.join(WORK, "lin.predict")
     write_libsvm(lin_file, Xl, yl)
     with recording_csvms(train_cli) as made:
         gm.reset_preparations()
@@ -3259,6 +3324,86 @@ def phase_cg_loop(dev):
     return out
 
 
+#: phase 23 (b)'s layout: rbf, float32, the JAX headline's 4096 CG unknowns
+#: (``bench.py:532``)
+RELEARN_N, RELEARN_F = 4097, 256
+
+
+def second_learns():
+    """23 (b): ``learn()`` on fresh ``CSVM``s of one layout (rbf 4096 x 256,
+    float32, ``cuda``, eps 1e-6), with the default plan and on ``highest``:
+    after :func:`~plssvm_sparse_fp22_tpu_torch.solver.cg.clear_graphs` a
+    first learn captures its step graphs; a second learn of the same data
+    captures none and is bit for bit the first (alphas, bias, iterations);
+    one at another ``cost`` and one at eps 1e-8 capture only loops the
+    layout has not run (the plan's escalation, the refresh step), their
+    repeats none, and no learn of the layout captures a graph twice; one at
+    another ``gamma`` captures its own.  Prints each learn's wall ms and
+    captures."""
+    import scipy.sparse as sp
+    import torch
+
+    from plssvm_sparse_fp22_tpu_torch import make_csvm
+    from plssvm_sparse_fp22_tpu_torch.io.libsvm import ParsedData
+    from plssvm_sparse_fp22_tpu_torch.params import Parameter
+    from plssvm_sparse_fp22_tpu_torch.solver import cg as cg_loop
+    from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType
+
+    f = RELEARN_F
+    X, y = two_blobs(RELEARN_N, f, np.random.default_rng(SEED + 231))
+    csr = sp.csr_matrix(X)
+
+    def kept_graphs() -> int:
+        kept = cg_loop._LAYOUTS.get(torch.device("cuda", 0))
+        return 0 if kept is None else sum(len(g.graphs) for g in kept.graphs.values())
+
+    def learn(gamma=1.0 / f, cost=1.0, eps=1e-6):
+        p = Parameter(kernel=KernelType.rbf, gamma=gamma, cost=cost, epsilon=eps,
+                      max_iter=1000, dtype=np.float32, backend=BackendType.cuda,
+                      print_info=False)
+        p.data = ParsedData(csr=csr, values=y, _dense=X)
+        p.values = y
+        svm = make_csvm(p)
+        before, graphs = cg_loop.counts["captures"], kept_graphs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svm.learn()  # ends on a device-to-host copy of the alphas
+        ms = (time.perf_counter() - t0) * 1e3
+        captured = cg_loop.counts["captures"] - before
+        # on the first learn's layout a capture is a loop not run before
+        check(gamma != 1.0 / f or not graphs or captured == kept_graphs() - graphs,
+              f"(b) a learn of one layout captured {captured} graphs for "
+              f"{kept_graphs() - graphs} new loops: a graph was captured twice")
+        return svm, ms, captured
+
+    out = {}
+    for precision in ("", "highest"):
+        name = precision or "plan"
+        with environ(PLSSVM_MATMUL_PRECISION=precision):
+            cg_loop.clear_graphs()
+            runs = {"first": learn(), "second": learn(), "cost 2": learn(cost=2.0),
+                    "cost 2 again": learn(cost=2.0), "eps 1e-8": learn(eps=1e-8),
+                    "eps 1e-8 again": learn(eps=1e-8), "gamma 2/f": learn(gamma=2.0 / f)}
+        first, second = runs["first"][0], runs["second"][0]
+        check(runs["first"][2] > 0, f"(b) {name}: the first learn of the layout captured no "
+              "graph")
+        for what in ("second", "cost 2 again", "eps 1e-8 again"):
+            check(runs[what][2] == 0, f"(b) {name}: the {what} learn of one layout captured "
+                  f"{runs[what][2]} graphs")
+        check(runs["gamma 2/f"][2] > 0, f"(b) {name}: a learn at another gamma captured none")
+        check(np.array_equal(first.alphas, second.alphas) and first.bias_ == second.bias_
+              and first.last_cg_info["iterations"] == second.last_cg_info["iterations"],
+              f"(b) {name}: the second learn of one layout is not bitwise the first")
+        out[name] = {k: (ms, caps, svm.last_cg_info["iterations"])
+                     for k, (svm, ms, caps) in runs.items()}
+        print(f"[23 cg loop] (b) learn() to eps 1e-6 on fresh CSVMs, rbf {RELEARN_N - 1} x {f} "
+              f"float32, {name}: " + "; ".join(
+                  f"{k} {ms:.2f} ms ({iters} iterations, {caps} captures)"
+                  for k, (ms, caps, iters) in out[name].items())
+              + "; the second bitwise the first", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3283,6 +3428,10 @@ def main(argv=None) -> int:
                         help="build, then phase 22 only: float64 learns on the card")
     parser.add_argument("--cg", action="store_true",
                         help="build, then phase 23 only: the CG loop on the device")
+    parser.add_argument("--cli", action="store_true",
+                        help="build, then the CLIs with their splits: phases 6 and 12 (dense "
+                             "rbf 32768 x 256, float32), 22 (a) (float64) and 23 (b) (learns "
+                             "of one layout)")
     parser.add_argument("--probe", action="store_true",
                         help="build, show the compiler's resource lines, check the split and "
                              "every bf16 kernel with one launch each, and stop")
@@ -3336,7 +3485,21 @@ def main(argv=None) -> int:
             return 0
         if args.cg:
             phase_cg_loop(dev)
+            second_learns()
             print("cg loop phase passed", flush=True)
+            return 0
+        if args.cli:
+            os.environ["PLSSVM_DEVICES"] = "1"
+            with environ(PLSSVM_MATMUL_PRECISION="highest"):
+                # a first learn and predict, as phases 3-5 launch the kernels
+                # before phase 6 in the full run: phase 6's split is then the
+                # learn's own, not the process's first use of the card
+                phase_reference(np.random.default_rng(SEED + 6))
+                dense = phase_main_path(rng)
+            phase_adaptive_dense(dense)
+            float64_clis()
+            second_learns()
+            print("cli phases passed", flush=True)
             return 0
         # phases 3-16 are the one-device paths, whatever the machine holds
         os.environ["PLSSVM_DEVICES"] = "1"
@@ -3376,6 +3539,7 @@ def main(argv=None) -> int:
         phase_tools()
         phase_float64(dev)
         phase_cg_loop(dev)
+        second_learns()
         if args.profile:
             with environ(PLSSVM_MATMUL_PRECISION="highest"):
                 phase_profile(sparse)

@@ -24,6 +24,7 @@ from ..types import (
     list_available_backends,
     list_available_target_platforms,
 )
+from ..utils.timing import span
 
 
 def _argtype(converter):
@@ -102,7 +103,12 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None) -> int:
+def main(argv=None, timings=None) -> int:
+    """Run the CLI on ``argv``.  ``timings`` (a ``utils.timing.Timings``)
+    receives the run's ``cli`` span, after the arguments are checked, with
+    its parts ``cli/parse`` (the data file), ``cli/learn`` and
+    ``cli/write`` (the model file), and the learn's own spans (``setup``
+    and ``cg`` with their parts, ``CSVM.timings``)."""
     args = build_parser().parse_args(argv)
 
     # argument validation precedes any device/backend initialization
@@ -131,35 +137,8 @@ def main(argv=None) -> int:
     )
 
     try:
-        params.parse_train_file(args.input)
-        if args.model is not None:
-            params.model_filename = args.model
-
-        if params.print_info:
-            print()
-            print("task: training")
-            print(f"kernel type: {params.kernel} -> ", end="")
-            if params.kernel == KernelType.linear:
-                print("u'*v")
-            elif params.kernel == KernelType.polynomial:
-                print("(gamma*u'*v + coef0)^degree")
-                print(f"gamma: {params.gamma}")
-                print(f"coef0: {params.coef0}")
-                print(f"degree: {params.degree}")
-            else:
-                print("exp(-gamma*|u-v|^2)")
-                print(f"gamma: {params.gamma}")
-            print(f"cost: {params.cost}")
-            print(f"epsilon: {params.epsilon}")
-            print(f"input file (data set): '{params.input_filename}'")
-            print(f"output file (model): '{params.model_filename}'")
-            print()
-
-        svm = make_csvm(params)
-        if params.print_info:
-            print(svm.device_description())
-        svm.learn()
-        svm.write_model(params.model_filename)
+        with span(timings, "cli"):
+            _run(params, args, timings)
     except PLSSVMError as e:
         print(e.what_with_loc(), file=sys.stderr)
         return 1
@@ -167,6 +146,43 @@ def main(argv=None) -> int:
         print(e, file=sys.stderr)
         return 1
     return 0
+
+
+def _run(params: Parameter, args, timings) -> None:
+    with span(timings, "cli/parse"):
+        params.parse_train_file(args.input)
+    if args.model is not None:
+        params.model_filename = args.model
+
+    if params.print_info:
+        print()
+        print("task: training")
+        print(f"kernel type: {params.kernel} -> ", end="")
+        if params.kernel == KernelType.linear:
+            print("u'*v")
+        elif params.kernel == KernelType.polynomial:
+            print("(gamma*u'*v + coef0)^degree")
+            print(f"gamma: {params.gamma}")
+            print(f"coef0: {params.coef0}")
+            print(f"degree: {params.degree}")
+        else:
+            print("exp(-gamma*|u-v|^2)")
+            print(f"gamma: {params.gamma}")
+        print(f"cost: {params.cost}")
+        print(f"epsilon: {params.epsilon}")
+        print(f"input file (data set): '{params.input_filename}'")
+        print(f"output file (model): '{params.model_filename}'")
+        print()
+
+    svm = make_csvm(params)
+    if timings is not None:
+        svm.timings = timings
+    if params.print_info:
+        print(svm.device_description())
+    with span(timings, "cli/learn", svm.device):
+        svm.learn()
+    with span(timings, "cli/write"):
+        svm.write_model(params.model_filename)
 
 
 if __name__ == "__main__":

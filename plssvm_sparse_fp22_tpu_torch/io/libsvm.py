@@ -62,8 +62,24 @@ class ParsedData:
     @property
     def dense(self) -> np.ndarray:
         if self._dense is None:
-            self._dense = self.csr.toarray()
+            rows = self.stored_rows()
+            self._dense = self.csr.toarray() if rows is None else rows.copy()
         return self._dense
+
+    def stored_rows(self) -> np.ndarray | None:
+        """The dense rows without a copy where they are stored already: the
+        dense matrix once made, or the CSR's values where the CSR holds
+        every entry of every row once, in column order (a dense file's
+        parse), which is then ``csr.toarray()`` bit for bit; else None."""
+        if self._dense is not None:
+            return self._dense
+        csr = self.csr
+        n, f = csr.shape
+        if (csr.nnz != n * f or n * f == 0
+                or not np.array_equal(csr.indptr, np.arange(n + 1) * f)
+                or not csr.has_canonical_format):
+            return None
+        return csr.data.reshape(n, f)
 
     @property
     def density(self) -> float:
@@ -139,16 +155,37 @@ def parse_libsvm_content(
 
     col_arr = np.concatenate([np.asarray(c, dtype=np.int64) for c in col_chunks]) if n else np.zeros(0, np.int64)
     val_arr = np.concatenate([np.asarray(v, dtype=dtype) for v in val_chunks]) if n else np.zeros(0, dtype)
+    return assemble_csr(val_arr, col_arr, indptr, max_index, dtype), values, any_unlabeled
+
+
+def assemble_csr(val_arr: np.ndarray, col_arr: np.ndarray, indptr: np.ndarray,
+                 max_index: int, dtype) -> sp.csr_matrix:
+    """The CSR matrix of parsed lines: ``val_arr`` (in ``dtype``) and the
+    int64 ``col_arr`` in line order, ``indptr`` per line, ``max_index + 1``
+    columns; a repeated index within a line keeps its last value."""
+    n = len(indptr) - 1
     # duplicate indices within a line: last one wins in the reference's dense
     # write (vline[index] = v); CSR assembly would sum them, so deduplicate.
-    row_arr = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
-    keys = row_arr * np.int64(max_index + 1) + col_arr
-    if len(np.unique(keys)) != len(keys):
-        csr = _dedup_last_wins(val_arr, col_arr, indptr, (n, max_index + 1), dtype)
-    else:
-        csr = sp.csr_matrix((val_arr, col_arr, indptr), shape=(n, max_index + 1), dtype=dtype)
-        csr.sort_indices()
-    return csr, values, any_unlabeled
+    if not _no_repeats(col_arr, indptr, max_index + 1):
+        return _dedup_last_wins(val_arr, col_arr, indptr, (n, max_index + 1), dtype)
+    csr = sp.csr_matrix((val_arr, col_arr, indptr), shape=(n, max_index + 1), dtype=dtype)
+    csr.sort_indices()
+    csr.has_canonical_format = True  # sorted, no repeats: spares scipy the scan
+    return csr
+
+
+def _no_repeats(cols: np.ndarray, indptr: np.ndarray, ncols: int) -> bool:
+    """Whether no line repeats a column index: one pass where every line's
+    indices rise (as the writers write them), else a sort of all
+    ``(line, column)`` keys."""
+    rising = cols[1:] > cols[:-1]
+    starts = indptr[1:-1]
+    rising[starts[(starts > 0) & (starts < len(cols))] - 1] = True
+    if rising.all():
+        return True
+    rows = np.repeat(np.arange(len(indptr) - 1, dtype=np.int64), np.diff(indptr))
+    keys = rows * np.int64(ncols) + cols
+    return len(np.unique(keys)) == len(keys)
 
 
 def _dedup_last_wins(vals, cols, indptr, shape, dtype) -> sp.csr_matrix:
@@ -172,6 +209,7 @@ def _dedup_last_wins(vals, cols, indptr, shape, dtype) -> sp.csr_matrix:
     vals2 = np.concatenate(new_vals) if new_vals else np.zeros(0, dtype)
     out = sp.csr_matrix((vals2, cols2, new_indptr), shape=shape, dtype=dtype)
     out.sort_indices()
+    out.has_canonical_format = True
     return out
 
 
@@ -197,9 +235,8 @@ def parse_libsvm_file(filename: str | os.PathLike, dtype=np.float64) -> ParsedDa
         csr, raw_values, any_unlabeled = result
         # duplicate (row, col) entries need last-wins semantics that CSR
         # assembly can't express; defer those rare files to the Python parser
-        rows = np.repeat(np.arange(csr.shape[0], dtype=np.int64), np.diff(csr.indptr))
-        keys = rows * np.int64(csr.shape[1] + 1) + csr.indices
-        if csr.nnz == len(np.unique(keys)):
+        if _no_repeats(csr.indices, csr.indptr, csr.shape[1] + 1):
+            csr.has_canonical_format = True  # sorted, no repeats
             if any_unlabeled:
                 values = None
             else:

@@ -15,6 +15,12 @@ kernels.  So processes that start together on a fresh tree (test workers,
 ranks) build once and never load a half-written file; the library is
 rebuilt when the hash of the sources or the Makefile changes.
 
+The support-vector section of a model file has a parser of the port's own,
+``sv_parser.cpp`` beside this module (:func:`parse_sv_native`), which
+``g++`` builds into the same directory under the same lock, also rebuilt on
+a changed source; where no compiler is found, the model file takes the
+Python parse.
+
 Set ``PLSSVM_NO_NATIVE_PARSER=1`` to force the Python paths.
 """
 
@@ -39,9 +45,15 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file_
                          "_build", "native")
 _LIB_NAME = "libplssvm_native.so"
 
+_SV_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sv_parser.cpp")
+_SV_LIB_NAME = "libplssvm_torch_sv.so"
+_SV_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-pthread", "-shared"]
+
 _lock = threading.Lock()
 _lib = None
 _load_attempted = False
+_sv_lib = None
+_sv_attempted = False
 
 
 def _source_hash() -> str:
@@ -66,33 +78,121 @@ def _build_lock(build_dir: str):
             fcntl.flock(fh, fcntl.LOCK_UN)
 
 
-def build_native(build_dir: str = BUILD_DIR) -> str | None:
-    """The path of the native library in ``build_dir``, built there first
-    unless a build of the current sources exists; None where the sources or
-    the compiler are missing or the build fails.  Holds the directory's
-    build lock throughout, so a concurrent caller waits and then finds the
-    finished library."""
-    if not os.path.isfile(os.path.join(_NATIVE_DIR, "Makefile")):
-        return None
-    lib_path = os.path.join(build_dir, _LIB_NAME)
+def _build_once(build_dir: str, lib_name: str, digest: str, command, cwd=None) -> str | None:
+    """The path of ``lib_name`` in ``build_dir``, built first unless a build
+    stamped ``digest`` exists: ``command(tmp)`` (an argv) leaves the library
+    in a temporary directory, from which it replaces the old one at once.
+    None where the compiler is missing or the build fails.  Holds the
+    directory's build lock throughout, so a concurrent caller waits and then
+    finds the finished library."""
+    lib_path = os.path.join(build_dir, lib_name)
     stamp = lib_path + ".sha256"
     with _build_lock(build_dir):
-        digest = _source_hash()
         if os.path.exists(lib_path) and os.path.exists(stamp):
             with open(stamp) as fh:
                 if fh.read().strip() == digest:
                     return lib_path
         try:
             with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-                subprocess.run(["make", "-s", f"BUILD={tmp}"], cwd=_NATIVE_DIR, check=True,
-                               stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
-                               timeout=120)
-                os.replace(os.path.join(tmp, _LIB_NAME), lib_path)
+                subprocess.run(command(tmp), cwd=cwd, check=True, stdout=subprocess.DEVNULL,
+                               stderr=subprocess.DEVNULL, timeout=120)
+                os.replace(os.path.join(tmp, lib_name), lib_path)
         except (OSError, subprocess.SubprocessError):
             return None
         with open(stamp, "w") as fh:
             fh.write(digest)
         return lib_path
+
+
+def build_native(build_dir: str = BUILD_DIR) -> str | None:
+    """The path of the native library in ``build_dir``, built there first
+    (``make`` in ``native/``) unless a build of the current sources exists;
+    None where the sources or the compiler are missing or the build fails."""
+    if not os.path.isfile(os.path.join(_NATIVE_DIR, "Makefile")):
+        return None
+    return _build_once(build_dir, _LIB_NAME, _source_hash(),
+                       lambda tmp: ["make", "-s", f"BUILD={tmp}"], cwd=_NATIVE_DIR)
+
+
+def build_sv_parser(build_dir: str = BUILD_DIR) -> str | None:
+    """The path of the support-vector parser's library in ``build_dir``,
+    compiled from ``sv_parser.cpp`` first (``$CXX``, else ``g++``, as the
+    Makefile of ``native/`` takes it) unless a build of the current source
+    and flags exists; None where the compiler is missing or fails."""
+    digest = hashlib.sha256(" ".join(_SV_FLAGS).encode())
+    with open(_SV_SOURCE, "rb") as fh:
+        digest.update(fh.read())
+    cxx = os.environ.get("CXX") or "g++"
+    return _build_once(build_dir, _SV_LIB_NAME, digest.hexdigest(),
+                       lambda tmp: [cxx, *_SV_FLAGS, "-o", os.path.join(tmp, _SV_LIB_NAME),
+                                    _SV_SOURCE])
+
+
+def get_sv_lib():
+    """Load (building if needed) the support-vector parser, or None."""
+    global _sv_lib, _sv_attempted
+    if os.environ.get("PLSSVM_NO_NATIVE_PARSER") == "1":
+        return None
+    with _lock:
+        if _sv_attempted:
+            return _sv_lib
+        _sv_attempted = True
+        lib_path = build_sv_parser()
+        if lib_path is None:
+            return None
+        try:
+            lib = ctypes.CDLL(lib_path)
+        except OSError:
+            return None
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        f64p = ctypes.POINTER(ctypes.c_double)
+        lib.plssvm_torch_parse_sv.restype = ctypes.c_int
+        lib.plssvm_torch_parse_sv.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(i64p), ctypes.POINTER(i64p), ctypes.POINTER(f64p),
+            ctypes.POINTER(f64p), i64p, i64p,
+        ]
+        lib.plssvm_torch_sv_free.restype = None
+        lib.plssvm_torch_sv_free.argtypes = [ctypes.c_void_p]
+        _sv_lib = lib
+        return _sv_lib
+
+
+def parse_sv_native(content: bytes, offset: int, count: int, dtype=np.float64):
+    """``(csr, alphas)`` of the ``count`` support-vector lines of a model
+    file's bytes ``content`` from byte ``offset`` on: bit for bit what
+    :func:`..libsvm.parse_libsvm_content` gives on the same lines.  None
+    where the library is unavailable or the section holds anything its
+    strict grammar leaves to the Python parser (``sv_parser.cpp``), which
+    then parses it, errors included."""
+    from .libsvm import assemble_csr
+
+    lib = get_sv_lib()
+    if lib is None:
+        return None
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    indptr_p, indices_p = i64p(), i64p()
+    values_p, alphas_p = f64p(), f64p()
+    nnz, max_index = ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.plssvm_torch_parse_sv(content, len(content), offset, count,
+                                   ctypes.byref(indptr_p), ctypes.byref(indices_p),
+                                   ctypes.byref(values_p), ctypes.byref(alphas_p),
+                                   ctypes.byref(nnz), ctypes.byref(max_index))
+    if rc == -1:
+        raise MemoryError("the support-vector parser ran out of memory")
+    if rc != 0:
+        return None
+    try:
+        m = nnz.value
+        indptr = np.ctypeslib.as_array(indptr_p, shape=(count + 1,)).copy()
+        cols = np.ctypeslib.as_array(indices_p, shape=(max(m, 1),))[:m].copy()
+        vals = np.ctypeslib.as_array(values_p, shape=(max(m, 1),))[:m].astype(dtype)
+        alphas = np.ctypeslib.as_array(alphas_p, shape=(count,)).copy()
+    finally:
+        for ptr in (indptr_p, indices_p, values_p, alphas_p):
+            lib.plssvm_torch_sv_free(ptr)
+    return assemble_csr(vals, cols, indptr, max_index.value, dtype), alphas
 
 
 def get_native_lib():

@@ -721,16 +721,19 @@ def _launch_pair(kernel, tier, Xio, Xjo, v_i, v_j, sq_i, sq_j, degree, gamma, co
 # --------------------------------------------------------------------------
 
 def make_sym_matvec(kernel: KernelType, X, *, degree=3, gamma=1.0, coef0=0.0,
-                    tier: str | None = None, scratch_bytes: int = SCRATCH_BYTES):
+                    tier: str | None = None, scratch_bytes: int = SCRATCH_BYTES,
+                    sq=None, operands=None):
     """Build ``v -> K(X, X) v`` (K1) at ``tier`` (``None``:
     :func:`pallas_tier`).  The row norms and the tier's split or cast of X
     are computed once here, outside the returned closure, as the JAX
     package does (``pallas_matvec.py:663-668``), so a CG loop pays only for
-    the kernel.  ``scratch_bytes`` bounds the kernel's slab per launch (the
-    plain version holds none)."""
+    the kernel; a caller that has them passes ``sq`` (:func:`row_sqnorms`)
+    and ``operands`` (:func:`tier_operands` at the tier).
+    ``scratch_bytes`` bounds the kernel's slab per launch (the plain version
+    holds none)."""
     tier = resolve_tier(tier, X.dtype)
-    sq = row_sqnorms(X)
-    Xo = tier_operands(tier, X)
+    sq = row_sqnorms(X) if sq is None else sq
+    Xo = tier_operands(tier, X) if operands is None else operands
 
     def matvec(v):
         if X.is_cuda:

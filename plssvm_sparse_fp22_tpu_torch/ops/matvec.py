@@ -160,9 +160,10 @@ def jacobi_minv_from_kii(kii, q, mask, QA_cost, cost_inv):
     return mask / torch.clamp(diag, min=tiny)
 
 
-def jacobi_minv(kernel, X_pad, q, mask, QA_cost, cost_inv, degree, gamma, coef0):
-    """:func:`jacobi_minv_from_kii` with ``kii`` computed from dense rows."""
-    sq = torch.sum(X_pad * X_pad, dim=1)
+def jacobi_minv(kernel, X_pad, q, mask, QA_cost, cost_inv, degree, gamma, coef0, sq=None):
+    """:func:`jacobi_minv_from_kii` with ``kii`` computed from dense rows
+    (``sq``: their squared norms, where the caller has them)."""
+    sq = row_sqnorms(X_pad) if sq is None else sq
     kii = kernel_diag(kernel, sq, degree, gamma, coef0)
     return jacobi_minv_from_kii(kii, q, mask, QA_cost, cost_inv)
 
@@ -203,6 +204,8 @@ def build_operator(
     backend: BackendType = BackendType.torch,
     row_block: int = ROW_BLOCK_SIZE,
     precision: str | None = None,
+    sq: torch.Tensor | None = None,
+    operands: tuple | None = None,
 ) -> MatvecOperator:
     """Construct the implicit-A matvec for the padded system.
 
@@ -212,7 +215,10 @@ def build_operator(
     ``precision`` is the tier of the ``linear`` / ``implicit`` Gram
     products (``exact``, ``bf16x3``, ``bf16cast``; the adaptive CG builds
     the operator at two);  ``None`` keeps the backend's fixed tier
-    (:func:`fixed_tier`)."""
+    (:func:`fixed_tier`).  The ``implicit`` mode takes the row norms ``sq``
+    and the tier's ``operands`` (:func:`~.gram_matvec.tier_operands`) where
+    the caller has prepared them once for all its operators, else prepares
+    its own."""
     D, f = X_pad.shape
     plssvm_assert(q.shape == (D,) and mask.shape == (D,),
                   "operator vectors must match the padded system: q {} mask {} D {}",
@@ -256,13 +262,13 @@ def build_operator(
             return _corrections(K @ v, v, q, mask, QA_cost, cost_inv)
 
     elif mode == "implicit":
+        sq = row_sqnorms(X_pad) if sq is None else sq
+        Xo = tier_operands(tier, X_pad) if operands is None else operands  # split or cast once
         if uses_kernels(backend, dtype):
             if symmetric_enabled():
-                kv_fn = make_sym_matvec(kernel, X_pad, degree=degree,
-                                        gamma=gamma, coef0=coef0, tier=tier)
+                kv_fn = make_sym_matvec(kernel, X_pad, degree=degree, gamma=gamma,
+                                        coef0=coef0, tier=tier, sq=sq, operands=Xo)
             else:
-                sq = row_sqnorms(X_pad)
-                Xo = tier_operands(tier, X_pad)  # split or cast once
 
                 def kv_fn(v):
                     return gram_matvec(kernel, X_pad, v, degree=degree, gamma=gamma,
@@ -271,8 +277,6 @@ def build_operator(
         else:
             # the blocked product over ROW_BLOCK_SIZE rows, the JAX package's
             # lax.map block_fn (matvec.py:286-305)
-            sq = row_sqnorms(X_pad)
-            Xo = tier_operands(tier, X_pad)
 
             def kv_fn(v):
                 return gram_matvec_sym_plain(kernel, X_pad, v, degree=degree,

@@ -133,7 +133,8 @@ def learn_ms(dev, D: int, f: int, precision: str, learns: int) -> dict:
     """Median wall ms of ``learn()`` to eps 1e-6 on two blobs of ``D + 1``
     points (``D`` CG unknowns), rbf, gamma 1/f, float32, with
     ``PLSSVM_MATMUL_PRECISION=precision`` (empty: the default plan), after
-    one warm-up learn; and its iteration count."""
+    one warm-up learn, which captures the layout's step graphs that the
+    timed learns replay (``solver.cg.layout``); and its iteration count."""
     X, y = _common.two_blobs(D + 1, f)
     svm = make_csvm(_common.parameter(X, y, kernel=KernelType.rbf, gamma=1.0 / f,
                                       epsilon=1e-6, max_iter=1000, dtype=np.float32,

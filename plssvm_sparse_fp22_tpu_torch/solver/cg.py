@@ -35,8 +35,23 @@ one-step graphs per operator and loop (the plain step and the refresh
 step; :func:`cg_run`'s loop, or the stagnation loop's, which also carries
 ``best`` and ``since``), captured on static buffers in a private memory pool, each at its first
 use once the operator's first step has run eagerly (the warm-up capture
-needs), and kept for the operator's life (a chunked learn's chunks reuse
-them).  A graph's replay
+needs).  An A·v that carries a :class:`Layout` (``matvec.layout``, a weak
+reference, as the learns' operators do: the layout holds the operators, so
+a strong one would make a cycle that only the garbage collector frees, at
+any moment, a capture's included) keeps its graphs in that layout, so every solve of
+the layout, in later learns too, replays them: the counterpart of the JAX
+package's compiled-program cache (``_learn_jit``).  The layout holds the
+buffers the captured launches read, and its owner writes each learn's
+values into them; its key holds everything a capture bakes in (the shape,
+the kernel and its constants ``gamma``, ``coef0`` and ``degree``, the
+tiers), so another ``gamma`` captures anew, while ``cost`` and ``eps``
+reach the step as device tensors and capture nothing again (a solve that
+reaches a loop the layout has not run yet, the adaptive escalation or the
+refresh step past iteration 49, captures that loop once).  One layout is kept
+per device, the last one asked for (:func:`layout`), the one it replaces
+freed with its graphs; :func:`clear_graphs` frees them all.  Any other A·v
+keeps its graphs for its own life (a chunked learn's chunks reuse them).
+A graph's replay
 adds the kernel launches its capture counted to
 ``ops/gram_matvec.launches``.  A failed capture raises
 :class:`~..exceptions.PLSSVMError` naming the operator; nothing falls back.
@@ -107,6 +122,10 @@ class AdaptiveCGResult(NamedTuple):
 counts = {"steps": 0, "host_reads": 0, "captures": 0, "replays": 0}
 #: the last run's chunk size ``c`` and whether it replayed graphs
 last_run = {"chunk": 1, "graph": False}
+#: since the last :func:`reset_counts`: host milliseconds of the graph
+#: path's eager warm-up steps and captures, the device synchronised around
+#: each (a learn reports them as the ``cg/capture`` part of its ``cg`` span)
+spent = {"capture_ms": 0.0}
 
 #: the largest chunk the graph path derives
 MAX_CHUNK = 16
@@ -117,6 +136,7 @@ _mode = {"eager": False, "chunk": None}
 def reset_counts() -> None:
     for name in counts:
         counts[name] = 0
+    spent["capture_ms"] = 0.0
 
 
 @contextlib.contextmanager
@@ -300,6 +320,43 @@ def _side_stream(dev: torch.device):
     return _SIDE_STREAMS[dev]
 
 
+class Layout:
+    """The buffers and CG step graphs of one system layout, kept across
+    solves and learns (see the module's docstring).  ``key`` is its owner's
+    description of everything a capture bakes in; ``buffers`` is the
+    owner's object holding the tensors the captured launches read (``None``
+    until the owner sets it); ``graphs`` maps a solve's loop (the A·v's
+    name and tier, the system's size and dtype, ``minv`` present, the dot,
+    the stagnation exit) to its step graphs."""
+
+    def __init__(self, key):
+        self.key = key
+        self.buffers = None
+        self.graphs: dict = {}
+
+
+#: per device, the layout last asked for (:func:`layout`)
+_LAYOUTS: dict = {}
+
+
+def layout(key, device) -> Layout:
+    """The kept :class:`Layout` of ``key`` on ``device``, or a new empty one
+    that replaces the device's kept layout (which is freed, with its
+    graphs, once nothing else holds it)."""
+    device = torch.device(device)
+    kept = _LAYOUTS.get(device)
+    if kept is None or kept.key != key:
+        kept = _LAYOUTS[device] = Layout(key)
+    return kept
+
+
+def clear_graphs() -> None:
+    """Free every kept layout and every A·v's step graphs: the next solve
+    of any operator warms up and captures anew."""
+    _LAYOUTS.clear()
+    _GRAPHS.clear()
+
+
 class _StepGraphs:
     """One operator's CG step as two CUDA graphs (plain, refresh), each
     captured at its first use on a static :class:`_Carry`, sharing one
@@ -320,18 +377,28 @@ class _StepGraphs:
         each later one replays its kind's graph, captured at its first use
         (a solve of under 50 iterations never captures the refresh step)."""
         if not self.warm:
-            with self._side_stream():
+            with self._timed(), self._side_stream():
                 _step(self.carry, matvec, dot, refresh)
             self.warm = True
             return
         if refresh not in self.graphs:
-            with self._side_stream():
-                torch.cuda.synchronize(self.carry.b.device)
+            with self._timed(), self._side_stream():
                 self.graphs[refresh] = self._capture(matvec, dot, refresh)
         graph, added = self.graphs[refresh]
         graph.replay()
         gm.add_counts(added)
         counts["replays"] += 1
+
+    @contextlib.contextmanager
+    def _timed(self):
+        """Add the block's milliseconds to ``spent["capture_ms"]``, the
+        device synchronised before and after (a capture needs the first)."""
+        dev = self.carry.b.device
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize(dev)
+        spent["capture_ms"] += (time.perf_counter() - t0) * 1e3
 
     @contextlib.contextmanager
     def _side_stream(self):
@@ -369,8 +436,24 @@ class _StepGraphs:
         return graph, added
 
 
-#: per A·v callable, its step graphs keyed by the system's layout
+#: per A·v callable without a layout, its step graphs
 _GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _graph_store(matvec, b, minv, dot, stagnation: bool) -> tuple[dict, tuple]:
+    """Where a solve's step graphs are kept, and their key there: the
+    A·v's :class:`Layout` (``matvec.layout``, a weak reference) under the
+    loop's description, else (no layout, or one already freed) a dict of
+    the callable's own, for its life."""
+    key = (_name(matvec), b.shape[0], b.dtype, minv is None, dot, stagnation)
+    ref = getattr(matvec, "layout", None)
+    kept = None if ref is None else ref()
+    if kept is not None:
+        return kept.graphs, key
+    try:
+        return _GRAPHS.setdefault(matvec, {}), key
+    except TypeError:  # not weakly referenceable: graphs for this run only
+        return {}, key
 
 
 def _graphs_for(matvec, b, minv, dot, stagnation: bool) -> _StepGraphs | None:
@@ -378,14 +461,10 @@ def _graphs_for(matvec, b, minv, dot, stagnation: bool) -> _StepGraphs | None:
     (the eager loop)."""
     if _mode["eager"] or not b.is_cuda or isinstance(matvec, _AcrossDevices):
         return None
-    key = (b.shape[0], b.dtype, b.device, minv is None, dot, stagnation)
-    try:
-        per_op = _GRAPHS.setdefault(matvec, {})
-    except TypeError:  # not weakly referenceable: graphs for this run only
-        per_op = {}
-    if key not in per_op:
-        per_op[key] = _StepGraphs(_name(matvec), b, minv, stagnation)
-    return per_op[key]
+    store, key = _graph_store(matvec, b, minv, dot, stagnation)
+    if key not in store:
+        store[key] = _StepGraphs(_name(matvec), b, minv, stagnation)
+    return store[key]
 
 
 def _derive_chunk(samples: list) -> int:

@@ -131,14 +131,37 @@ def slope_rate(run, lo: int, hi: int, trials: int = 5,
     return 1.0 / samples[len(samples) // 2]
 
 
+def span(sink, label: str, device=None):
+    """A :func:`scoped_timer` into ``sink`` that prints nothing, or nothing
+    at all (no synchronisation either) where ``sink`` is ``None``."""
+    if sink is None:
+        return contextlib.nullcontext()
+    return scoped_timer(label, print_info=False, sink=sink, device=device)
+
+
 class Timings:
-    """Accumulating sink: label -> [durations_ms] (observability hook)."""
+    """Accumulating sink: label -> [durations_ms] (observability hook).
+
+    A label ``"<span>/<part>"`` is a named part of the span ``<span>``, timed
+    inside it: it goes to :attr:`parts` (span -> part -> [durations_ms]),
+    not to :attr:`records`, so a span's parts add up to no more than the
+    span itself and the spans in :attr:`records` do not overlap."""
 
     def __init__(self) -> None:
         self.records: dict[str, list[float]] = {}
+        self.parts: dict[str, dict[str, list[float]]] = {}
 
     def __call__(self, label: str, elapsed_ms: float) -> None:
-        self.records.setdefault(label, []).append(elapsed_ms)
+        name, sep, part = label.partition("/")
+        if sep:
+            self.parts.setdefault(name, {}).setdefault(part, []).append(elapsed_ms)
+        else:
+            self.records.setdefault(label, []).append(elapsed_ms)
 
     def summary(self) -> dict[str, float]:
         return {k: sum(v) for k, v in self.records.items()}
+
+    def part_summary(self, name: str) -> dict[str, float]:
+        """The parts of span ``name``, each summed (empty where none was
+        timed)."""
+        return {k: sum(v) for k, v in self.parts.get(name, {}).items()}

@@ -5,8 +5,8 @@ than SMs, operands prepared by the caller), the one-pass bf16 split bit for
 bit against its plain version, determinism, launch counts, the scratch in
 strips (bitwise the one-strip result, the slab within its budget), the
 wrappers' checks, a small learn/predict on the ``cuda`` backend against the
-``torch`` backend, a streaming sparse learn through K3, and the adaptive
-two-tier learn.
+``torch`` backend, a streaming sparse learn through K3, the adaptive
+two-tier learn, and the step graphs kept across learns of one layout.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -607,6 +607,77 @@ def test_adaptive_learn_runs_both_tiers(dev, monkeypatch):
     info, launches = infos["2"]
     assert info["escalated"] and info["iterations"] > info["fast_iterations"]
     assert info["delta"] <= 1e-18 * info["delta0"] or info["iterations"] == 400
+
+
+@pytest.mark.parametrize("precision", ["", "highest"])
+def test_learns_of_one_layout_capture_once(dev, precision, monkeypatch):
+    """Step graphs kept per layout (``solver.cg.layout``): on fresh CSVMs, a
+    second learn of one layout captures no graph and is bitwise the first (a
+    fresh learn, after ``clear_graphs``); a learn at another ``cost`` or
+    ``eps`` captures only the loops its layout has not run yet (the plan's
+    escalation to bf16x3, the refresh step), none on a repeat, so no graph
+    is captured twice; another ``gamma`` captures its own graphs."""
+    from plssvm_sparse_fp22_tpu_torch.solver import cg as tcg
+
+    monkeypatch.setenv("PLSSVM_MATMUL_PRECISION", precision)
+    rng = np.random.default_rng(23)
+    n, f = 1025, 64
+    X = np.concatenate([rng.normal(0.5, 1.0, (n // 2, f)), rng.normal(-0.5, 1.0, (n - n // 2, f))])
+    y = np.concatenate([np.ones(n // 2), -np.ones(n - n // 2)])
+
+    def learn(**kw):
+        kw = {"gamma": 1.0 / f, "epsilon": 1e-6, **kw}
+        p = Parameter(kernel=KernelType.rbf, max_iter=400, dtype=np.float32,
+                      backend=BackendType.cuda, print_info=False, sparse_threshold=0.0,
+                      devices=1, **kw)
+        p.data = ParsedData(csr=sp.csr_matrix(X), values=y, _dense=X)
+        p.values = y
+        svm = make_csvm(p)
+        before = tcg.counts["captures"]
+        kept = _graphs()
+        svm.learn()
+        assert svm.last_cg_loop["graph"]
+        captured = tcg.counts["captures"] - before
+        if kw["gamma"] == 1.0 / f and kept:
+            assert captured == _graphs() - kept  # new loops only, none captured twice
+        return svm, captured
+
+    def _graphs():
+        kept = tcg._LAYOUTS.get(torch.device("cuda", torch.cuda.current_device()))
+        return 0 if kept is None else sum(len(g.graphs) for g in kept.graphs.values())
+
+    tcg.clear_graphs()
+    first, captured = learn()
+    assert captured > 0
+    second, captured = learn()
+    assert captured == 0
+    np.testing.assert_array_equal(second.alphas, first.alphas)
+    assert second.bias_ == first.bias_
+    assert second.last_cg_info == first.last_cg_info
+    for kw in ({"cost": 2.0}, {"epsilon": 1e-8}):
+        learn(**kw)
+        assert learn(**kw)[1] == 0
+    assert learn(gamma=2.0 / f)[1] > 0
+
+
+def test_learns_of_one_data_set_follow_the_pinned_tier(dev, monkeypatch):
+    """``PLSSVM_MATMUL_PRECISION`` is read at each learn: a learn on
+    ``high`` after one on ``highest`` (one data set, one padded size) runs
+    K1 at bf16x3, not the kept layout's exact operator."""
+    rng = np.random.default_rng(29)
+    X = rng.normal(size=(600, 32))
+    y = np.where(X[:, 0] > 0, 1.0, -1.0)
+    for precision, tier in (("highest", "exact"), ("high", "bf16x3"), ("highest", "exact")):
+        monkeypatch.setenv("PLSSVM_MATMUL_PRECISION", precision)
+        p = Parameter(kernel=KernelType.rbf, gamma=1.0 / 32, epsilon=1e-6, max_iter=200,
+                      dtype=np.float32, backend=BackendType.cuda, print_info=False,
+                      sparse_threshold=0.0, devices=1)
+        p.data = ParsedData(csr=sp.csr_matrix(X), values=y, _dense=X)
+        p.values = y
+        gm.reset_launches()
+        make_csvm(p).learn()
+        assert {k for k, v in gm.launches.items() if v} == {f"gram_matvec_sym/{tier}"} | (
+            {"split_bf16"} if tier == "bf16x3" else set())
 
 
 # the scratch in strips: a launch's slab bounded by ``scratch_bytes``

@@ -150,18 +150,24 @@ Phases, one line or more each, any failure exits non-zero:
     (``F64_REFERENCE_TOL``); (e) the default float32 ``linear`` learn
     through the CLIs on the exact tier (no bf16 operand prepared), at the
     direct float64 solve's training accuracy less one point;
-23. the CG loop on the device (``solver/cg.py``) at rbf 4096 x 256 and
-    32768 x 256, each tier: CG it/s by the two-cap slope with the step
-    replayed as a CUDA graph and in the eager masked loop, the idle share
-    of a pinned solve under ``torch.profiler``, its host reads and chunk
-    size ``c``, and the graph solve bit for bit the eager loop's (``x``,
-    ``delta``, iterations), pinned across the refresh at 49 and to eps
-    1e-6; (b) ``learn()`` on fresh ``CSVM``s of one layout (rbf 4096 x
-    256, the default plan and ``highest``): after
-    ``solver.cg.clear_graphs()`` the first learn captures, a second of the
-    same data nothing, bit for bit the first, one at another ``cost`` or
-    ``eps`` only loops not run before (a repeat nothing), one at another
-    ``gamma`` its own; each learn's wall ms.
+23. the CG loop on the device (``solver/cg.py``: chunk graphs, a WHILE
+    node over IF-node slots, the host's read one chunk behind) at rbf 4096 x 256 and 32768 x
+    256, each tier, after the torch, CUDA and driver versions: CG it/s by
+    the two-cap slope on the chunk graphs and in the eager masked loop, the
+    idle share of a pinned solve under ``torch.profiler``, the device µs of
+    a chunk launched after the stop (one skipped slot), and per solve the
+    host reads, slots issued and steps
+    executed; the chunk-graph solve bit for bit the eager loop's (``x``,
+    ``delta``, ``k``) pinned across the refresh at 49, to eps 1e-6 and
+    resumed from ``k0`` = 37, with K1 counted once per step executed, once
+    for the initial residual and once per refresh, at most ``ceil(n / c) +
+    2`` host reads for ``n`` iterations, and one capture for the loop; (b)
+    ``learn()`` on fresh ``CSVM``s of one layout (rbf 4096 x 256, the
+    default plan and ``highest``): after ``solver.cg.clear_graphs()`` the
+    first learn captures, a second of the same data nothing, bit for bit
+    the first, one at another ``cost`` or ``eps`` only loops not run before
+    (on ``highest`` none; a repeat nothing), one graph per loop, one at
+    another ``gamma`` its own; each learn's wall ms.
 
 ``--sharded`` runs phases 1, 2, 17, 18 and 19 only (the phases that differ
 on a machine with several cards); ``--distributed`` phases 1, 2 and 19;
@@ -201,6 +207,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -621,14 +628,15 @@ def parts_text(timings, name: str) -> str:
 def learn_split(svm, log: str) -> str:
     """A CLI learn's wall split from its ``Timings`` sink (set-up and CG
     ms, each with its parts, the rest of the CLI's own learn time) and its
-    device loop: steps issued beside the iterations, host reads, chunk
-    size, CUDA graphs."""
+    device loop: steps issued and executed beside the iterations, host
+    reads, chunk size, CUDA graphs."""
     spans, loop = svm.timings.summary(), svm.last_cg_loop
     rest = cg_ms(log) - spans["setup"] - spans["cg"]
     return (f"learn split: set-up {spans['setup']:.1f} ms ({parts_text(svm.timings, 'setup')}), "
             f"CG {spans['cg']:.1f} ms ({parts_text(svm.timings, 'cg')}), rest "
-            f"{rest:.1f} ms of {cg_ms(log)} ms; {loop['steps']} steps issued for "
-            f"{svm.last_cg_info['iterations']} iterations, {loop['host_reads']} host reads, "
+            f"{rest:.1f} ms of {cg_ms(log)} ms; {loop['steps']} steps issued, "
+            f"{loop['executed']} executed for {svm.last_cg_info['iterations']} iterations, "
+            f"{loop['host_reads']} host reads, "
             f"chunk {loop['chunk']}, CUDA graphs {loop['graph']}")
 
 
@@ -3246,11 +3254,13 @@ LOOP_CAPS = (20, 120)
 def phase_cg_loop(dev):
     """23. The CG loop on the device at rbf 4096 x 256 and 32768 x 256
     (``scripts/profile_cg.system``), each tier: CG it/s by the two-cap
-    slope with the step replayed as a CUDA graph and in the eager masked
-    loop, the idle share of a pinned solve under ``torch.profiler``
-    (``profile_cg.idle_share``), its host reads and chunk size ``c``, and
-    the graph solve's ``x``, ``delta`` and ``k`` bit for bit the eager
-    loop's, pinned across the refresh at 49 and to eps 1e-6."""
+    slope on the chunk graphs and in the eager masked loop, the idle share
+    of a pinned solve under ``torch.profiler`` (``profile_cg.idle_share``)
+    with its host reads, slots issued and steps executed, the device µs of
+    a chunk launched after the stop (``profile_cg.stopped_chunk_us``: one
+    skipped slot), and the chunk-graph
+    solve's ``x``, ``delta`` and ``k`` bit for bit the eager loop's,
+    pinned across the refresh at 49, to eps 1e-6 and resumed from 37."""
     import torch
 
     from plssvm_sparse_fp22_tpu_torch.ops import gram_matvec as gm
@@ -3259,68 +3269,104 @@ def phase_cg_loop(dev):
     from plssvm_sparse_fp22_tpu_torch.solver import cg as cg_loop
     from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType
 
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    driver = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    c = cg_loop.CHUNK
+    print(f"[23 cg loop] torch {torch.__version__}, CUDA {torch.version.cuda}, driver {driver}; "
+          f"chunk graphs of c = {c} slots", flush=True)
     out = {}
     for D, f in LOOP_SHAPES:
         X, q, mask, QA, ci = system(dev, D, f)
         b = torch.tensor(np.random.default_rng(D).normal(size=D), dtype=torch.float32,
                          device=dev)
         for tier in TIERS_ALL:
+            tag = f"[{D} x {f} {tier}]"
+            k1_name = f"gram_matvec_sym/{tier}"
             op = build_operator(KernelType.rbf, X, q, mask, QA, ci, gamma=1.0 / f,
                                 mode="implicit", backend=BackendType.cuda, precision=tier)
             # a solve to eps 1e-6 on the fresh operator (its first step eager,
-            # the plain step's capture), again on its graphs, and eagerly
+            # the loop's one capture), again on its chunk graph, and eagerly
+            cg_loop.reset_counts()
             first_ms = 1e3 * timed_solve(op, b, mask)
+            check(cg_loop.counts["captures"] == 1,
+                  f"{tag} the first solve captured {cg_loop.counts['captures']} graphs, not 1")
             again_ms = 1e3 * timed_solve(op, b, mask)
             with cg_loop.eager_loop():
                 eager_ms = 1e3 * timed_solve(op, b, mask)
+            start = cg_loop.cg_init(op.matvec, b, mask)
+            with cg_loop.eager_loop():
+                at37 = cg_loop.cg_run(op.matvec, b, mask, 0.0, 37, start)
             solves = {}
-            for eps, imax in ((0.0, 60), (1e-6, 500)):
+            for label, eps, imax, state in (("pinned 60", 0.0, 60, None),
+                                            ("eps 1e-6", 1e-6, 500, None),
+                                            ("from 37", 0.0, 120, at37)):
+                k0 = 0 if state is None else state.k
+
+                def solve():
+                    if state is None:
+                        res = cg_loop.cg_solve(op.matvec, b, mask, eps, imax)
+                        return res.iterations, res.x, res.delta
+                    res = cg_loop.cg_run(op.matvec, b, mask, eps, imax, state)
+                    return res.k, res.x, res.delta
+
                 cg_loop.reset_counts()
                 gm.reset_launches()
-                graph = cg_loop.cg_solve(op.matvec, b, mask, eps, imax)
-                steps, reads = cg_loop.counts["steps"], cg_loop.counts["host_reads"]
-                k1 = gm.launches[f"gram_matvec_sym/{tier}"]
-                check(cg_loop.last_run["graph"] and cg_loop.counts["replays"] > 0,
-                      f"[{D} x {f} {tier}] the one-device solve replayed no CUDA graph")
-                # one K1 per step issued, one for the initial residual, one
-                # more per refresh step (the capture itself launches none)
-                check(k1 == steps + 1 + steps // 50,
-                      f"[{D} x {f} {tier}] K1 counted {k1} for {steps} steps issued")
+                k, x, delta = solve()
+                counts, k1 = dict(cg_loop.counts), gm.launches[k1_name]
+                check(cg_loop.last_run["graph"] and counts["replays"] > 0
+                      and counts["captures"] == 0,
+                      f"{tag} {label}: replays {counts['replays']}, captures "
+                      f"{counts['captures']} (want replays of the loop's one graph)")
+                ran = counts["executed"]
+                refreshes = k // 50 - k0 // 50
+                check(ran == k - k0, f"{tag} {label}: {ran} steps executed for k {k0} -> {k}")
+                # one K1 per step executed, one for the initial residual, one
+                # more per refresh (a capture launches none, a skipped slot none)
+                check(k1 == ran + (state is None) + refreshes,
+                      f"{tag} {label}: K1 counted {k1} for {ran} steps executed and "
+                      f"{refreshes} refreshes")
+                check(counts["host_reads"] <= math.ceil(ran / c) + 2,
+                      f"{tag} {label}: {counts['host_reads']} host reads for {ran} steps, "
+                      f"c = {c}")
+                gm.reset_launches()
                 with cg_loop.eager_loop():
-                    gm.reset_launches()
-                    eager = cg_loop.cg_solve(op.matvec, b, mask, eps, imax)
-                check(gm.launches[f"gram_matvec_sym/{tier}"] == k1,
-                      f"[{D} x {f} {tier}] the eager loop launched K1 "
-                      f"{gm.launches[f'gram_matvec_sym/{tier}']} times, the graphs {k1}")
-                check(graph.iterations == eager.iterations and torch.equal(graph.x, eager.x)
-                      and torch.equal(graph.delta, eager.delta),
-                      f"[{D} x {f} {tier}] eps {eps}: the graph solve ({graph.iterations} "
-                      f"iterations) is not bitwise the eager loop's ({eager.iterations})")
-                solves[eps] = (graph.iterations, steps, reads, cg_loop.last_run["chunk"])
+                    k_e, x_e, delta_e = solve()
+                check(gm.launches[k1_name] == k1,
+                      f"{tag} {label}: the eager loop launched K1 {gm.launches[k1_name]} "
+                      f"times, the chunk graphs {k1}")
+                check(k == k_e and torch.equal(x, x_e) and torch.equal(delta, delta_e),
+                      f"{tag} {label}: the chunk-graph solve (k {k}) is not bitwise the eager "
+                      f"loop's (k {k_e})")
+                solves[label] = {"iterations": k - k0, "host_reads": counts["host_reads"],
+                                 "slots_issued": counts["steps"], "steps_executed": ran}
             rate = pinned_cg_rate(op, b, mask, LOOP_CAPS)
             with cg_loop.eager_loop():
                 eager_rate = pinned_cg_rate(op, b, mask, LOOP_CAPS)
             prof = idle_share(dev, op.matvec, mask, D, LOOP_CAPS[1])
-            idle = prof["idle_share"]
+            idle, stopped = prof["idle_share"], prof["stopped_chunk_us"]
             # the profiled solve's device time per iteration against the
             # slope's iteration, which leaves out the set-up and the tracing
             busy = None if idle is None else prof["device_busy_ms"] / LOOP_CAPS[1]
-            iters, steps, reads, chunk = solves[1e-6]
-            out[f"{D}x{f}/{tier}"] = {"it_per_s": rate, "eager_it_per_s": eager_rate,
-                                     **prof, "eps_1e-6": solves[1e-6],
+            out[f"{D}x{f}/{tier}"] = {"it_per_s": rate, "eager_it_per_s": eager_rate, **prof,
+                                     "solves": solves,
                                      "solve_ms": (first_ms, again_ms, eager_ms)}
-            print(f"[23 cg loop] rbf {D} x {f} {tier:8s}: {rate:.1f} CG it/s with CUDA graphs, "
-                  f"{eager_rate:.1f} in the eager loop (slope {LOOP_CAPS[0]} -> {LOOP_CAPS[1]}); "
-                  f"idle share {'n/a' if idle is None else f'{idle:.3f}'} over a pinned "
-                  f"{LOOP_CAPS[1]}-iteration solve ({prof['cg_wall_ms']:.2f} ms wall), device "
-                  f"busy {'n/a' if busy is None else f'{busy:.4f}'} ms per iteration, "
-                  f"{'n/a' if busy is None else f'{busy * rate / 1e3:.3f}'} of the slope's, "
-                  f"{prof['host_reads_per_iteration'] * LOOP_CAPS[1]:.0f} host reads in it, "
-                  f"chunk c = {prof['chunk']}; eps 1e-6: {iters} iterations, {steps} steps "
-                  f"issued, {reads} host reads, c = {chunk}, solve {first_ms:.2f} ms on the "
-                  f"fresh operator (warm-up and capture), {again_ms:.2f} ms on its graphs, "
-                  f"{eager_ms:.2f} ms eager; graph solve bitwise the eager loop's, pinned 60 "
-                  f"and to eps 1e-6", flush=True)
+            per_solve = "; ".join(f"{label}: {v['iterations']} iterations, {v['host_reads']} "
+                                  f"host reads, {v['slots_issued']} slots issued, "
+                                  f"{v['steps_executed']} steps executed"
+                                  for label, v in solves.items())
+            print(f"[23 cg loop] rbf {D} x {f} {tier:8s}: {rate:.1f} CG it/s on the chunk "
+                  f"graphs, {eager_rate:.1f} in the eager loop (slope {LOOP_CAPS[0]} -> "
+                  f"{LOOP_CAPS[1]}); idle share {'n/a' if idle is None else f'{idle:.3f}'} over "
+                  f"a pinned {LOOP_CAPS[1]}-iteration solve ({prof['cg_wall_ms']:.2f} ms wall, "
+                  f"{prof['host_reads']} host reads, {prof['slots_issued']} slots issued), "
+                  f"device busy {'n/a' if busy is None else f'{busy:.4f}'} ms per iteration, "
+                  f"{'n/a' if busy is None else f'{busy * rate / 1e3:.3f}'} of the slope's; "
+                  f"a chunk after the stop (one skipped slot) "
+                  f"{'n/a' if stopped is None else f'{stopped:.3f}'} us; "
+                  f"{per_solve}; solve to 1e-6 {first_ms:.2f} ms on the fresh operator "
+                  f"(warm-up and capture), {again_ms:.2f} ms on its chunk graph, "
+                  f"{eager_ms:.2f} ms eager; bitwise the eager loop's in all three", flush=True)
     return out
 
 
@@ -3336,10 +3382,10 @@ def second_learns():
     first learn captures its step graphs; a second learn of the same data
     captures none and is bit for bit the first (alphas, bias, iterations);
     one at another ``cost`` and one at eps 1e-8 capture only loops the
-    layout has not run (the plan's escalation, the refresh step), their
-    repeats none, and no learn of the layout captures a graph twice; one at
-    another ``gamma`` captures its own.  Prints each learn's wall ms and
-    captures."""
+    layout has not run (the plan's escalation; on ``highest`` none: the
+    chunk holds the refresh step), their repeats none, and no learn of the
+    layout captures a graph twice; one at another ``gamma`` captures its
+    own.  Prints each learn's wall ms and captures."""
     import scipy.sparse as sp
     import torch
 
@@ -3354,8 +3400,9 @@ def second_learns():
     csr = sp.csr_matrix(X)
 
     def kept_graphs() -> int:
+        """Chunk graphs of the kept layout; one per loop it has run."""
         kept = cg_loop._LAYOUTS.get(torch.device("cuda", 0))
-        return 0 if kept is None else sum(len(g.graphs) for g in kept.graphs.values())
+        return 0 if kept is None else sum(g.handles is not None for g in kept.graphs.values())
 
     def learn(gamma=1.0 / f, cost=1.0, eps=1e-6):
         p = Parameter(kernel=KernelType.rbf, gamma=gamma, cost=cost, epsilon=eps,
@@ -3387,7 +3434,8 @@ def second_learns():
         first, second = runs["first"][0], runs["second"][0]
         check(runs["first"][2] > 0, f"(b) {name}: the first learn of the layout captured no "
               "graph")
-        for what in ("second", "cost 2 again", "eps 1e-8 again"):
+        again = ("second", "cost 2 again", "eps 1e-8 again")
+        for what in again + (("cost 2", "eps 1e-8") if precision else ()):
             check(runs[what][2] == 0, f"(b) {name}: the {what} learn of one layout captured "
                   f"{runs[what][2]} graphs")
         check(runs["gamma 2/f"][2] > 0, f"(b) {name}: a learn at another gamma captured none")

@@ -345,11 +345,12 @@ class CSVM:
             "escalated": int(iters) > k_fast,
         }
         # the device loop of solver/cg.py (no counterpart in the JAX
-        # package's last_cg_info): steps issued (masked no-ops after the stop
-        # included), host reads, the last run's chunk size, and whether the
-        # steps replayed CUDA graphs
+        # package's last_cg_info): steps issued (eager steps and chunk slots,
+        # masked no-ops after the stop included), steps executed, host reads,
+        # the last run's chunk size, and whether the loop replayed CUDA graphs
         self.last_cg_loop = {
             "steps": cg_loop.counts["steps"] - loop_before["steps"],
+            "executed": cg_loop.counts["executed"] - loop_before["executed"],
             "host_reads": cg_loop.counts["host_reads"] - loop_before["host_reads"],
             "chunk": cg_loop.last_run["chunk"],
             "graph": cg_loop.counts["replays"] > loop_before["replays"],

@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` (K1/K2 in ``gram_matvec.cu``, K3 in
 ``pair_contrib.cu``, both including ``gram_tile.cuh`` and
-``gram_tile_wgmma.cuh``; the bf16x3 split in ``split_bf16.cu``) into an
+``gram_tile_wgmma.cuh``; the bf16x3 split in ``split_bf16.cu``; the CG
+loop's chunk graph in ``cg_chunk.cu``) into an
 object, one ``nvcc`` per source, all started together, and links them into
 one shared library with a plain C interface, loaded with ``ctypes``;
 nothing links against PyTorch, so a build takes well under a minute.  Nothing links against ``libcuda``
@@ -146,6 +147,15 @@ def load() -> ctypes.CDLL:
         lib.gram_pair_contrib.restype = I
         lib.split_bf16_rows.argtypes = [P, P, P, ctypes.c_longlong, I, I, P]
         lib.split_bf16_rows.restype = I
+        lib.cg_chunk_build.argtypes = [P, P, P, P, P, ctypes.c_longlong, ctypes.c_longlong,
+                                       ctypes.POINTER(P), ctypes.POINTER(P)]
+        lib.cg_chunk_build.restype = I
+        lib.cg_chunk_launch.argtypes = [P, P]
+        lib.cg_chunk_launch.restype = I
+        lib.cg_chunk_destroy.argtypes = [P, P]
+        lib.cg_chunk_destroy.restype = I
+        lib.cg_error_name.argtypes = [I]
+        lib.cg_error_name.restype = ctypes.c_char_p
         lib.gram_matvec_tile.argtypes = []
         lib.gram_matvec_tile.restype = I
         if lib.gram_matvec_tile() != CUDA_TILE:

@@ -11,11 +11,13 @@ float32) and each precision tier it times:
    of the eps = 0 solve between two iteration caps, so set-up cancels;
 4. the CG skeleton with a trivial matvec (a fixed diagonal of condition
    1e6, so that CG at eps = 0 does not converge within the caps): the
-   floor of ``solver/cg.py``'s loop itself, its masked step (replayed as a
-   CUDA graph on the card) and one host read per chunk of steps;
+   floor of ``solver/cg.py``'s loop itself, its masked step (the chunk
+   graph's slots on the card) and the host reads one chunk behind;
 5. the device's idle share over one pinned solve under ``torch.profiler``:
    1 - (device time of every kernel) / (the solve's wall time), and the
-   loop's host reads per iteration and chunk size ``c`` in that solve;
+   loop's chunk size ``c``, host reads, slots issued and steps executed in
+   that solve; on the card also the device µs of a chunk launched after
+   the loop's stop (one skipped slot; CUDA events);
 6. the time to a trained model: the median wall ms of ``learn()`` to
    eps 1e-6 on two blobs of ``D + 1`` points (``--learns`` runs after a
    warm-up), each tier pinned and with the default plan.
@@ -119,14 +121,51 @@ def loop_counts() -> dict | None:
 
 
 def loop_stats(before: dict | None, iters: int) -> dict:
-    """The loop's host reads per iteration since ``before`` (of
-    :func:`loop_counts`) over ``iters`` iterations, its chunk size and
-    whether it replayed CUDA graphs; null where the solver keeps no counts."""
+    """Since ``before`` (of :func:`loop_counts`), over ``iters`` iterations:
+    the loop's host reads (also per iteration), slots issued and steps
+    executed, its chunk size and whether it replayed CUDA graphs; null
+    where the solver keeps no counts (an older checkout)."""
+    keys = ("host_reads_per_iteration", "host_reads", "slots_issued", "steps_executed",
+            "chunk", "graph")
     if before is None:
-        return {"host_reads_per_iteration": None, "chunk": None, "graph": None}
-    reads = cg_loop.counts["host_reads"] - before["host_reads"]
-    return {"host_reads_per_iteration": reads / iters, "chunk": cg_loop.last_run["chunk"],
-            "graph": cg_loop.last_run["graph"]}
+        return dict.fromkeys(keys)
+    now = cg_loop.counts
+    reads = now["host_reads"] - before["host_reads"]
+    executed = now["executed"] - before["executed"] if "executed" in before else None
+    return dict(zip(keys, (reads / iters, reads, now["steps"] - before["steps"], executed,
+                           cg_loop.last_run["chunk"], cg_loop.last_run["graph"])))
+
+
+#: GPU clock cycles ``torch.cuda._sleep`` holds the stream for (about 25 ms
+#: on an H100) while the host queues the replays to be timed behind it
+_HOLD_CYCLES = 50_000_000
+
+
+def stopped_chunk_us(dev, matvec, reps: int = 20) -> float | None:
+    """Device µs of one chunk launched after the loop's stop, what a solve
+    wastes behind its last read: the chunk graph of ``matvec``'s last loop
+    (``solver.cg``) replayed ``reps`` times with ``active`` false (each
+    replay zeroes its counter and runs one skipped slot: the slot kernel
+    and two empty IF nodes), queued behind a device-side sleep so that the
+    CUDA events time the device, not the host's launches; null on the CPU
+    or where the solver builds no chunk graphs."""
+    store = getattr(cg_loop, "_store_of", None)
+    if dev.type != "cuda" or store is None:
+        return None
+    chunks = list(store(matvec).values())
+    if not chunks:
+        return None
+    chunk = chunks[-1]
+    chunk.carry.active.zero_()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    chunk.replay()  # warm
+    torch.cuda._sleep(_HOLD_CYCLES)
+    start.record()
+    for _ in range(reps):
+        chunk.replay()
+    end.record()
+    _common.sync(dev)
+    return start.elapsed_time(end) * 1e3 / reps
 
 
 def learn_ms(dev, D: int, f: int, precision: str, learns: int) -> dict:
@@ -150,7 +189,7 @@ def idle_share(dev, matvec, mask, D: int, iters: int) -> dict:
     """One eps = 0 solve of ``iters`` iterations under ``torch.profiler``:
     its wall ms, the device ms of every kernel it ran, the idle share
     ``1 - device / wall`` (null where the profiler saw no device time), and
-    the loop's :func:`loop_stats`."""
+    the loop's :func:`loop_stats`, then :func:`stopped_chunk_us`."""
     from torch.profiler import ProfilerActivity, profile
 
     b = torch.ones(D, device=dev)
@@ -169,7 +208,8 @@ def idle_share(dev, matvec, mask, D: int, iters: int) -> dict:
     wall_ms = secs * 1e3
     busy_ms = busy_us / 1e3
     return {"cg_wall_ms": wall_ms, "device_busy_ms": busy_ms if busy_us else None,
-            "idle_share": 1.0 - busy_ms / wall_ms if busy_us else None, **stats}
+            "idle_share": 1.0 - busy_ms / wall_ms if busy_us else None, **stats,
+            "stopped_chunk_us": stopped_chunk_us(dev, matvec)}
 
 
 def _num(x, spec: str) -> str:
@@ -211,8 +251,10 @@ def profile_shape(dev, D: int, f: int, reps: int, lo: int, hi: int, trials: int,
               f"{rec['k1_linear_ms']:.4f} / poly {rec['k1_polynomial_ms']:.4f} ms, operator "
               f"{rec['operator_ms']:.4f} ms, CG iteration {rec['cg_iteration_ms']:.4f} ms "
               f"({rec['cg_it_per_s']:.1f} it/s), idle share "
-              f"{_num(idle, '.3f')}, {_num(rec['host_reads_per_iteration'], '.3f')} host "
-              f"reads per iteration, chunk {rec['chunk']}, graph {rec['graph']}; learn() to "
+              f"{_num(idle, '.3f')}; pinned {hi}-iteration solve: chunk {rec['chunk']}, "
+              f"{rec['host_reads']} host reads, {rec['slots_issued']} slots issued, "
+              f"{rec['steps_executed']} steps executed, graph {rec['graph']}, a chunk "
+              f"after the stop {_num(rec['stopped_chunk_us'], '.3f')} us; learn() to "
               f"1e-6 {rec['learn_ms']:.2f} ms ({rec['learn_iterations']} iterations)",
               flush=True)
     plan = learn_ms(dev, D, f, "", learns)

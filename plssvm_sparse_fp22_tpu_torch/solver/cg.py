@@ -21,59 +21,70 @@ stagnation detector's ``best`` and ``since``, and an ``active`` flag (the
 loop's condition: ``k < imax``, ``delta > target``, and not ``armed and
 since >= patience``) are device tensors.  A step applies its update through
 ``torch.where(active, new, old)`` and adds ``active`` to ``k``, so a step
-issued after the loop has stopped is an exact no-op.  The host chooses the
-residual refresh from the issued step's index (while the loop is active,
-``k`` is the start ``k`` plus the steps issued, so the refresh falls where
-the reference's does, after a resume from any ``k`` too), issues steps in
-chunks of ``c`` and reads ``(active, k)`` once per chunk: one small
-device-to-host copy per chunk, not one per iteration.  Results and
-iteration counts do not depend on ``c``; ``k`` is read once more when a
-run ends and returned as a Python int.
+issued after the loop has stopped is an exact no-op.
 
-On the card a one-device solve replays its step as a CUDA graph: two
-one-step graphs per operator and loop (the plain step and the refresh
-step; :func:`cg_run`'s loop, or the stagnation loop's, which also carries
-``best`` and ``since``), captured on static buffers in a private memory pool, each at its first
-use once the operator's first step has run eagerly (the warm-up capture
-needs).  An A·v that carries a :class:`Layout` (``matvec.layout``, a weak
-reference, as the learns' operators do: the layout holds the operators, so
-a strong one would make a cycle that only the garbage collector frees, at
-any moment, a capture's included) keeps its graphs in that layout, so every solve of
-the layout, in later learns too, replays them: the counterpart of the JAX
-package's compiled-program cache (``_learn_jit``).  The layout holds the
-buffers the captured launches read, and its owner writes each learn's
-values into them; its key holds everything a capture bakes in (the shape,
-the kernel and its constants ``gamma``, ``coef0`` and ``degree``, the
-tiers), so another ``gamma`` captures anew, while ``cost`` and ``eps``
-reach the step as device tensors and capture nothing again (a solve that
-reaches a loop the layout has not run yet, the adaptive escalation or the
-refresh step past iteration 49, captures that loop once).  One layout is kept
-per device, the last one asked for (:func:`layout`), the one it replaces
-freed with its graphs; :func:`clear_graphs` frees them all.  Any other A·v
-keeps its graphs for its own life (a chunked learn's chunks reuse them).
-A graph's replay
-adds the kernel launches its capture counted to
-``ops/gram_matvec.launches``.  A failed capture raises
-:class:`~..exceptions.PLSSVMError` naming the operator; nothing falls back.
-There ``c = 1 + floor(t_turn / t_step)``, at most 16: ``t_step`` is one
-replay's device time (CUDA events) and ``t_turn`` the host's turnaround
-for one read and relaunch, each the least of two single-step chunks
-measured once per operator.  The masked steps issued after convergence
-then cost at most about one turnaround.
+On the card a one-device solve runs as replays of one chunk graph per loop
+(:func:`cg_run`'s, or the stagnation loop's, which also carries ``best``
+and ``since``): a WHILE node that runs up to :data:`CHUNK` slots while the
+loop is active, each slot one iteration with the residual refresh chosen
+on the device, as the reference's ``lax.cond`` chooses it (``cg.py:161-162,
+247-248``).  A slot is a one-thread kernel that reads ``active``, ``k`` and
+the chunk's slot counter and sets three conditional handles (go: ``active``
+and fewer than ``c`` slots run; plain: go and ``k % R != R - 1``; refresh:
+go and ``k % R == R - 1``, with ``R`` the refresh interval, 50), then an
+IF node on each of the last two, whose bodies are the plain and the
+refresh step captured by PyTorch (``csrc/cg_chunk.cu``; conditional nodes
+need CUDA 12.4).  A chunk launched after the stop runs one skipped slot
+and changes nothing, so the host's read can trail the launches: the host
+replays chunk j + 1 before it waits on chunk j's ``(active, k)`` (copied
+into one of two page-locked buffers, used in turn), and stops at the first
+read that shows the loop inactive, once the chunk queued behind it has
+ended.  A run of ``n`` iterations on the chunks reads the host ``max(1,
+ceil(n / c))`` times.
+
+The chunk graph is built once per operator and loop, once the operator's
+first step has run eagerly (the warm-up capture needs), on static buffers
+in a private memory pool.  An A·v that carries a :class:`Layout`
+(``matvec.layout``, a weak reference, as the learns' operators do: the
+layout holds the operators, so a strong one would make a cycle that only
+the garbage collector frees, at any moment, a capture's included) keeps
+its graphs in that layout, so every solve of the layout, in later learns
+too, replays them: the counterpart of the JAX package's compiled-program
+cache (``_learn_jit``).  The layout holds the buffers the captured launches
+read, and its owner writes each learn's values into them; its key holds
+everything a capture bakes in (the shape, the kernel and its constants
+``gamma``, ``coef0`` and ``degree``, the tiers), so another ``gamma``
+captures anew, while ``cost`` and ``eps`` reach the step as device tensors
+and capture nothing again (a solve that reaches a loop the layout has not
+run yet, the adaptive escalation, captures that loop once).  One layout is
+kept per device, the last one asked for (:func:`layout`), the one it
+replaces freed with its graphs; :func:`clear_graphs` frees them all.  Any
+other A·v keeps its graphs for its own life (a chunked learn's chunks reuse
+them).  A replay counts the kernel launches of the steps that ran (read
+from ``k``: the plain step's per iteration, the refresh step's per refresh
+index) into ``ops/gram_matvec.launches``.  A failed capture or chunk build
+raises :class:`~..exceptions.PLSSVMError` naming the operator; nothing
+falls back.
 
 The same masked step runs eagerly, one read per step (``c = 1``), on the
 CPU, for an A·v marked :func:`across_devices` (the sharded learns: their
 hops copy between devices and processes, so every rank issues the same
-steps), and everywhere under :func:`eager_loop`, the plain version the
-graphs are held against.  :data:`counts` counts the steps issued, the host
-reads, the captures and the replays.
+steps), and everywhere under :func:`eager_loop`: the plain version the
+graphs are held against, which chooses the refresh from the issued step's
+index (while the loop is active, ``k`` is the start ``k`` plus the steps
+issued).  Under :func:`_fixed_chunk` the CPU runs the chunk's slots with
+the host standing in for the WHILE and IF nodes, and the same lagged reads
+(tests).  :data:`counts` counts the slots issued (``c`` per chunk launched,
+one per eager step), the steps that ran, the host reads, the captures and
+the replays.
 """
 
 from __future__ import annotations
 
 import contextlib
-import math
+import ctypes
 import os
+import sys
 import time
 import weakref
 from typing import Callable, NamedTuple
@@ -82,6 +93,7 @@ import torch
 
 from ..constants import RESIDUAL_REFRESH_INTERVAL
 from ..exceptions import PLSSVMError
+from ..ops import _build
 from ..ops import gram_matvec as gm
 from ..utils.assertions import plssvm_assert
 
@@ -116,10 +128,10 @@ class AdaptiveCGResult(NamedTuple):
     fast_iterations: int
 
 
-#: since the last :func:`reset_counts`: CG steps issued (masked no-ops
-#: included), host reads of the device's state, CUDA-graph captures and
-#: replays
-counts = {"steps": 0, "host_reads": 0, "captures": 0, "replays": 0}
+#: since the last :func:`reset_counts`: CG steps issued (slots of the
+#: chunks and eager steps, masked no-ops included), steps that ran, host
+#: reads of the device's state, chunk graphs captured and replays
+counts = {"steps": 0, "executed": 0, "host_reads": 0, "captures": 0, "replays": 0}
 #: the last run's chunk size ``c`` and whether it replayed graphs
 last_run = {"chunk": 1, "graph": False}
 #: since the last :func:`reset_counts`: host milliseconds of the graph
@@ -127,8 +139,14 @@ last_run = {"chunk": 1, "graph": False}
 #: each (a learn reports them as the ``cg/capture`` part of its ``cg`` span)
 spent = {"capture_ms": 0.0}
 
-#: the largest chunk the graph path derives
-MAX_CHUNK = 16
+#: iterations one chunk graph runs at most, between two host reads.  A
+#: chunk launched after the stop costs one skipped slot whatever ``c`` is:
+#: 15.8-18.8 us of device time on an NVIDIA H100 80GB HBM3 at 700 W
+#: (``chip_smoke.py`` phase 23, ``scripts/profile_cg.stopped_chunk_us``),
+#: 2 % of a 10-iteration solve at rbf 4096 x 256 on bf16cast (0.080 ms per
+#: iteration there), so ``c`` only sets the reads: one for a solve of up
+#: to 64 iterations
+CHUNK = 64
 #: ``eager``: :func:`eager_loop` is on; ``chunk``: a fixed ``c`` for tests
 _mode = {"eager": False, "chunk": None}
 
@@ -153,8 +171,9 @@ def eager_loop():
 
 @contextlib.contextmanager
 def _fixed_chunk(c: int):
-    """Issue ``c`` steps per host read on every path (tests: results do
-    not depend on ``c``)."""
+    """Chunks of ``c`` slots: the card's chunk graphs, and on the CPU the
+    same slots with the host standing in for the IF nodes, read one chunk
+    behind as on the card (tests: results do not depend on ``c``)."""
     old = _mode["chunk"]
     _mode["chunk"] = int(c)
     try:
@@ -321,13 +340,12 @@ def _side_stream(dev: torch.device):
 
 
 class Layout:
-    """The buffers and CG step graphs of one system layout, kept across
+    """The buffers and CG chunk graphs of one system layout, kept across
     solves and learns (see the module's docstring).  ``key`` is its owner's
     description of everything a capture bakes in; ``buffers`` is the
     owner's object holding the tensors the captured launches read (``None``
-    until the owner sets it); ``graphs`` maps a solve's loop (the A·v's
-    name and tier, the system's size and dtype, ``minv`` present, the dot,
-    the stagnation exit) to its step graphs."""
+    until the owner sets it); ``graphs`` maps a solve's loop (the key of
+    :func:`_graphs_for`) to its chunk graph."""
 
     def __init__(self, key):
         self.key = key
@@ -351,43 +369,138 @@ def layout(key, device) -> Layout:
 
 
 def clear_graphs() -> None:
-    """Free every kept layout and every A·v's step graphs: the next solve
+    """Free every kept layout and every A·v's chunk graphs: the next solve
     of any operator warms up and captures anew."""
     _LAYOUTS.clear()
     _GRAPHS.clear()
 
 
-class _StepGraphs:
-    """One operator's CG step as two CUDA graphs (plain, refresh), each
-    captured at its first use on a static :class:`_Carry`, sharing one
-    private memory pool, with the chunk size measured for it."""
+class _Lag:
+    """Two host copies of a run's ``status``, used in turn: chunk j's copy
+    goes to ``bufs[j % 2]`` (page-locked on the card, with an event), so
+    the copy of chunk j + 1 never overwrites the one the host reads."""
+
+    def __init__(self, dev: torch.device):
+        on_card = dev.type == "cuda"
+        self.bufs = [torch.zeros(2, dtype=torch.int64, pin_memory=on_card) for _ in range(2)]
+        self.events = [torch.cuda.Event() if on_card else None for _ in range(2)]
+
+    def post(self, j: int, status: torch.Tensor) -> None:
+        self.bufs[j % 2].copy_(status, non_blocking=True)
+        if self.events[j % 2] is not None:
+            self.events[j % 2].record()
+
+    def wait(self, j: int) -> None:
+        if self.events[j % 2] is not None:
+            self.events[j % 2].synchronize()
+
+    def read(self, j: int) -> list:
+        self.wait(j)
+        return _read(self.bufs[j % 2])
+
+
+def _lagged(status: torch.Tensor, replay: Callable, lag: _Lag, c: int, k0: int,
+            account: Callable) -> int:
+    """Replay chunks of ``c`` slots until a read shows the loop inactive,
+    reading chunk j's ``status`` only once chunk j + 1 is queued; the last
+    chunk (launched after the stop) has ended when this returns.  ``account(k
+    before, k after)`` sees each chunk that was read.  Returns the final
+    ``k``."""
+    k_prev, j = k0, 0
+    while True:
+        replay()
+        counts["steps"] += c
+        lag.post(j, status)
+        if j > 0:
+            active, k = lag.read(j - 1)
+            account(k_prev, k)
+            k_prev = k
+            if not active:
+                lag.wait(j)
+                return k
+        j += 1
+
+
+def _slot_predicates(c: _Carry, interval: int) -> tuple[bool, bool]:
+    """The slot kernel of ``csrc/cg_chunk.cu`` on the host: whether the
+    slot about to run takes the plain step and whether the refresh step."""
+    active, k = bool(c.active), int(c.k)
+    due = k % interval == interval - 1
+    return active and not due, active and due
+
+
+def _host_chunk(c: _Carry, matvec: Callable, dot: Callable, slots: int, interval: int) -> None:
+    """One chunk graph run on the host (the CPU's stand-in for its WHILE
+    and IF nodes, under :func:`_fixed_chunk`): up to ``slots`` slots, each
+    reading both predicates before either step, as the slot kernel sets
+    both handles, until the first slot that runs no step."""
+    for _ in range(slots):
+        plain, refresh = _slot_predicates(c, interval)
+        if not (plain or refresh):
+            break
+        if plain:
+            _step(c, matvec, dot, False)
+        if refresh:
+            _step(c, matvec, dot, True)
+
+
+def _refreshes(k_from: int, k_to: int, interval: int) -> int:
+    """Refresh indices ``k % interval == interval - 1`` in ``[k_from, k_to)``."""
+    return k_to // interval - k_from // interval
+
+
+class _ChunkGraph:
+    """One operator's loop as a chunk graph (see the module's docstring):
+    its static :class:`_Carry`, the plain and the refresh step captured in
+    one private memory pool (kept: the pool holds their temporaries), the
+    chunk built over them, and the two host buffers of the lagged reads."""
 
     def __init__(self, name: str, b: torch.Tensor, minv: torch.Tensor | None,
-                 stagnation: bool):
+                 stagnation: bool, slots: int, interval: int):
         self.name = name
         self.carry = _Carry(b, minv, stagnation)
+        self.slots, self.interval = slots, interval
         self.pool = torch.cuda.graph_pool_handle()
-        self.graphs: dict = {}  # refresh -> (CUDAGraph, counter increments per replay)
         self.warm = False
-        self.chunk: int | None = None
+        self.steps: dict = {}  # refresh -> (CUDAGraph, counter increments per step)
+        self.handles = None  # (cudaGraph_t, cudaGraphExec_t) of the chunk
+        self.lag = _Lag(b.device)
+        self.slot = torch.zeros((), dtype=torch.int64, device=b.device)  # slots run
 
-    def issue(self, matvec: Callable, dot: Callable, refresh: bool) -> None:
-        """One step: the operator's first runs eagerly (the warm-up: the
-        libraries loaded and their workspaces allocated outside the graphs),
-        each later one replays its kind's graph, captured at its first use
-        (a solve of under 50 iterations never captures the refresh step)."""
-        if not self.warm:
-            with self._timed(), self._side_stream():
-                _step(self.carry, matvec, dot, refresh)
-            self.warm = True
-            return
-        if refresh not in self.graphs:
-            with self._timed(), self._side_stream():
-                self.graphs[refresh] = self._capture(matvec, dot, refresh)
-        graph, added = self.graphs[refresh]
-        graph.replay()
-        gm.add_counts(added)
+    def __del__(self):
+        handles = getattr(self, "handles", None)
+        if handles is not None and not sys.is_finalizing():  # an exiting process frees all
+            _build.load().cg_chunk_destroy(*handles)
+
+    def warm_up(self, matvec: Callable, dot: Callable, refresh: bool) -> None:
+        """The operator's first step, eagerly: the libraries loaded and
+        their workspaces allocated outside the captures."""
+        with self._timed(), self._side_stream():
+            _step(self.carry, matvec, dot, refresh)
+        self.warm = True
+
+    def capture(self, matvec: Callable, dot: Callable) -> None:
+        with self._timed(), self._side_stream():
+            for refresh in (False, True):
+                self.steps[refresh] = self._capture_step(matvec, dot, refresh)
+            self._build_chunk()
+        counts["captures"] += 1
+
+    def replay(self) -> None:
+        dev = self.carry.b.device
+        with torch.cuda.device(dev):
+            rc = _build.load().cg_chunk_launch(self.handles[1],
+                                               torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise PLSSVMError(f"replaying the CG chunk graph of operator '{self.name}' failed: "
+                              f"{_cuda_error(rc)}")
         counts["replays"] += 1
+
+    def account(self, k_from: int, k_to: int) -> None:
+        """Count the launches of the steps ``[k_from, k_to)`` ran."""
+        refreshes = _refreshes(k_from, k_to, self.interval)
+        gm.add_counts(self.steps[False][1], k_to - k_from - refreshes)
+        gm.add_counts(self.steps[True][1], refreshes)
 
     @contextlib.contextmanager
     def _timed(self):
@@ -411,8 +524,18 @@ class _StepGraphs:
             yield
         cur.wait_stream(side)
 
-    def _capture(self, matvec, dot, refresh: bool):
-        graph = torch.cuda.CUDAGraph()
+    def _fail(self, what: str, failure) -> PLSSVMError:
+        return PLSSVMError(
+            f"capturing {what} of operator '{self.name}' (D = {self.carry.b.shape[0]}, "
+            f"{self.carry.b.dtype}) as a CUDA graph failed: {failure}")
+
+    def _capture_step(self, matvec, dot, refresh: bool):
+        what = f"the {'refresh' if refresh else 'plain'} CG step"
+        try:
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+        except TypeError as err:  # a PyTorch that cannot hand the graph over
+            raise self._fail(what, f"torch {torch.__version__} keeps no captured "
+                                   f"cudaGraph_t ({err})") from err
         before = gm.counts_snapshot()
         failure = None
         graph.capture_begin(pool=self.pool)
@@ -425,106 +548,118 @@ class _StepGraphs:
         except RuntimeError as err:
             failure = failure or err
         added = gm.counts_since(before)
-        gm.add_counts(added, -1)  # a capture launches nothing; each replay counts it
+        gm.add_counts(added, -1)  # a capture launches nothing; the replays count
         if failure is not None:
-            kind = "refresh" if refresh else "plain"
-            raise PLSSVMError(
-                f"capturing the {kind} CG step of operator '{self.name}' (D = "
-                f"{self.carry.b.shape[0]}, {self.carry.b.dtype}) as a CUDA graph failed: "
-                f"{failure}") from failure
-        counts["captures"] += 1
+            raise self._fail(what, failure) from failure
         return graph, added
 
+    def _build_chunk(self) -> None:
+        lib = _build.load()
+        graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
+        with torch.cuda.device(self.carry.b.device):
+            rc = lib.cg_chunk_build(self.steps[False][0].raw_cuda_graph(),
+                                    self.steps[True][0].raw_cuda_graph(),
+                                    self.carry.active.data_ptr(), self.carry.k.data_ptr(),
+                                    self.slot.data_ptr(), self.interval, self.slots,
+                                    ctypes.byref(graph), ctypes.byref(exe))
+        if rc != 0:
+            raise self._fail(f"the CG chunk graph ({self.slots} slots of IF nodes)",
+                             _cuda_error(rc))
+        self.handles = (graph, exe)
 
-#: per A·v callable without a layout, its step graphs
+
+def _cuda_error(rc: int) -> str:
+    name = _build.load().cg_error_name(rc)
+    return f"CUDA error {rc} ({name.decode() if name else 'unknown'})"
+
+
+#: per A·v callable without a layout, its chunk graphs
 _GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _graph_store(matvec, b, minv, dot, stagnation: bool) -> tuple[dict, tuple]:
-    """Where a solve's step graphs are kept, and their key there: the
-    A·v's :class:`Layout` (``matvec.layout``, a weak reference) under the
-    loop's description, else (no layout, or one already freed) a dict of
-    the callable's own, for its life."""
-    key = (_name(matvec), b.shape[0], b.dtype, minv is None, dot, stagnation)
+def _store_of(matvec) -> dict:
+    """Where the chunk graphs of ``matvec``'s solves are kept: its
+    :class:`Layout` (``matvec.layout``, a weak reference), else (no layout,
+    or one already freed) a dict of the callable's own, for its life."""
     ref = getattr(matvec, "layout", None)
     kept = None if ref is None else ref()
     if kept is not None:
-        return kept.graphs, key
+        return kept.graphs
     try:
-        return _GRAPHS.setdefault(matvec, {}), key
+        return _GRAPHS.setdefault(matvec, {})
     except TypeError:  # not weakly referenceable: graphs for this run only
-        return {}, key
+        return {}
 
 
-def _graphs_for(matvec, b, minv, dot, stagnation: bool) -> _StepGraphs | None:
-    """The step graphs of a one-device solve on the card, else ``None``
-    (the eager loop)."""
-    if _mode["eager"] or not b.is_cuda or isinstance(matvec, _AcrossDevices):
-        return None
-    store, key = _graph_store(matvec, b, minv, dot, stagnation)
+def _graph_store(matvec, b, minv, dot, stagnation: bool, slots: int = CHUNK,
+                 interval: int = RESIDUAL_REFRESH_INTERVAL) -> tuple[dict, tuple]:
+    """:func:`_store_of` ``matvec`` and the key of a solve's loop there:
+    the A·v's name and tier, the system's size and dtype, ``minv`` present,
+    the dot, the stagnation exit, the slots and the refresh interval."""
+    key = (_name(matvec), b.shape[0], b.dtype, minv is None, dot, stagnation, slots, interval)
+    return _store_of(matvec), key
+
+
+def _graphs_for(matvec, b, minv, dot, stagnation: bool, slots: int,
+                interval: int) -> _ChunkGraph:
+    """The chunk graph of a one-device solve's loop on the card."""
+    store, key = _graph_store(matvec, b, minv, dot, stagnation, slots, interval)
     if key not in store:
-        store[key] = _StepGraphs(_name(matvec), b, minv, stagnation)
+        store[key] = _ChunkGraph(_name(matvec), b, minv, stagnation, slots, interval)
     return store[key]
 
 
-def _derive_chunk(samples: list) -> int:
-    """``1 + floor(t_turn / t_step)``, at most :data:`MAX_CHUNK`, from
-    ``(host ms, device ms)`` of single-step chunks."""
-    t_step = min(dev_ms for _, dev_ms in samples)
-    t_turn = min(max(0.0, host_ms - dev_ms) for host_ms, dev_ms in samples)
-    if t_step <= 0.0:
-        return MAX_CHUNK
-    return max(1, min(MAX_CHUNK, 1 + math.floor(t_turn / t_step)))
-
-
 def _run(matvec, b, minv, dot, state: CGState, target, imax, patience,
-         refresh_interval: int) -> CGState:
+         interval: int) -> CGState:
     """Continue CG from ``state`` to ``imax`` total iterations (or the
-    stopping rule), in chunks of steps between host reads."""
+    stopping rule): eagerly with a read per step, or in chunks read one
+    behind (the card's chunk graphs, the CPU's stand-in under
+    :func:`_fixed_chunk`)."""
     imax, k0 = int(imax), int(state.k)
     if k0 >= imax:
         return CGState(k=k0, x=state.x, r=state.r, d=state.d, delta=state.delta,
                        delta0=state.delta0)
     stagnation = patience is not None
-    graphs = _graphs_for(matvec, b, minv, dot, stagnation)
-    carry = _Carry(b, minv, stagnation) if graphs is None else graphs.carry
-    carry.load(b, minv, state, target, imax, patience)
-    if graphs is None:
-        def issue(refresh):
-            _step(carry, matvec, dot, refresh)
-    else:
-        def issue(refresh):
-            graphs.issue(matvec, dot, refresh)
-
-    # a set chunk (tests), else the operator's measured one, else 1; the
-    # graph path measures c on its operator's chunks 2 and 3 (chunk 1 warms
-    # up), one step each, and the least of the two leaves out a capture
-    measure = graphs is not None and graphs.chunk is None and not _mode["chunk"]
-    c = _mode["chunk"] or (graphs.chunk if graphs is not None and graphs.chunk else 1)
-    samples, k_host, chunk_no = [], k0, 0
-    while True:
-        n = min(c, imax - k_host)
-        timed = measure and chunk_no > 0
-        if timed:
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            t0 = time.perf_counter()
-            events[0].record()
-        for _ in range(n):
-            issue(k_host % refresh_interval == refresh_interval - 1)
+    eager = _mode["eager"] or isinstance(matvec, _AcrossDevices) or (
+        not b.is_cuda and _mode["chunk"] is None)
+    graphs = None
+    if eager:
+        c, carry = 1, _Carry(b, minv, stagnation)
+        carry.load(b, minv, state, target, imax, patience)
+        k_host = k0
+        while True:
+            _step(carry, matvec, dot, k_host % interval == interval - 1)
             k_host += 1
-        if timed:
-            events[1].record()
-        counts["steps"] += n
-        active, k = _read(carry.status)
-        if timed:
-            samples.append(((time.perf_counter() - t0) * 1e3,
-                            events[0].elapsed_time(events[1])))
-            if len(samples) == 2:
-                c = graphs.chunk = _derive_chunk(samples)
-                measure = False
-        chunk_no += 1
-        if not active:
-            break
+            counts["steps"] += 1
+            active, k = _read(carry.status)
+            if not active:
+                break
+    elif not b.is_cuda:
+        c, carry = _mode["chunk"], _Carry(b, minv, stagnation)
+        carry.load(b, minv, state, target, imax, patience)
+        k = _lagged(carry.status, lambda: _host_chunk(carry, matvec, dot, c, interval),
+                    _Lag(b.device), c, k0, lambda k_from, k_to: None)
+    else:
+        c = _mode["chunk"] or CHUNK
+        graphs = _graphs_for(matvec, b, minv, dot, stagnation, c, interval)
+        carry = graphs.carry
+        carry.load(b, minv, state, target, imax, patience)
+        warm_step = not graphs.warm
+        if warm_step:  # the solve's first step, eagerly; its launches count themselves
+            graphs.warm_up(matvec, dot, k0 % interval == interval - 1)
+            counts["steps"] += 1
+        if graphs.handles is None:
+            graphs.capture(matvec, dot)
+
+        def account(k_from, k_to):
+            nonlocal warm_step
+            if warm_step and k_to > k_from:
+                k_from += 1
+            warm_step = False
+            graphs.account(k_from, k_to)
+
+        k = _lagged(carry.status, graphs.replay, graphs.lag, c, k0, account)
+    counts["executed"] += k - k0
     last_run.update(chunk=c, graph=graphs is not None)
     x, r, d, delta = carry.x, carry.r, carry.d, carry.delta
     if graphs is not None:  # the static buffers serve the operator's next run

@@ -1,14 +1,21 @@
 """CG's loop state on the device (``solver/cg.py``), on the CPU.
 
 The port's loop keeps ``k``, ``delta``, the stagnation counters and an
-``active`` flag on the device, masks every update with ``active``, and reads
-the host once per chunk of ``c`` steps.  Results must not depend on ``c``:
-for every ``c`` the solvers return bitwise the ``c = 1`` result, through
-convergence, an exhausted ``imax``, the stagnation exit, an escalation,
+``active`` flag on the device, masks every update with ``active``, and on
+the card replays chunk graphs of up to ``c`` slots (a WHILE node), each an
+iteration behind IF nodes that the device sets from ``active`` and ``k``
+(the refresh chosen there), the host's read one chunk behind.  Here the
+same slots run with the host standing in for the WHILE and IF nodes
+(``_fixed_chunk``).  Results must not
+depend on ``c``: for every ``c`` the solvers return bitwise the eager
+loop's result (one read per step), through convergence, an exhausted
+``imax`` (mid-chunk), the stagnation exit, both legs of an escalation,
 ``eps = 0``, Jacobi ``minv``, a residual that reaches exactly 0 (the steps
-issued after it compute ``0/0``), and a ``cg_run`` resumed at a ``k`` that
-is no multiple of ``c`` across the refreshes at 49 and 99.  The host reads
-fall from one per iteration to one per chunk.  Against the JAX package's
+issued after it compute ``0/0``), and a ``cg_run`` resumed at 37 and at 48,
+so that a chunk straddles the refreshes at 49 and 99.  A run of ``n``
+iterations on the chunks reads the host ``max(1, ceil(n / c))`` times; the
+slots after the stop change nothing; a replay counts the launches of the
+steps that ran and of the refreshes among them.  Against the JAX package's
 solvers (x64, as ``tests/test_torch_cg.py`` and
 ``tests/test_torch_adaptive.py`` run them): equal iteration counts, ``x``
 within those files' tolerances (1e-10 relative on the linspace-spectrum
@@ -16,8 +23,9 @@ system, 1e-8 of the scale on the noisy ones; the stagnation exit, as
 there, by its count alone).  The learns' ``setup`` /
 ``cg`` spans feed a ``Timings`` sink.
 
-The ``cuda`` tests (skipped without a card) hold the CUDA-graph solve bit
-for bit to the eager masked loop at rbf 4096 x 256 on each tier, and a
+The ``cuda`` tests (skipped without a card) hold the chunk-graph solve bit
+for bit to the eager masked loop at rbf 4096 x 256 on each tier (pinned,
+to eps 1e-6, and resumed at 37), with one capture for the loop, and a
 failed capture to a raised ``PLSSVMError``:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cg_device_loop.py
@@ -102,8 +110,9 @@ def _case(name, pkg):
     else:
         cg, arr = tcg, torch.from_numpy
     fast = None
-    if name in ("converge", "exhaust", "jacobi", "resume"):
-        A, b, mask = _spd(seed={"converge": 1, "exhaust": 2, "jacobi": 3, "resume": 4}[name])
+    if name in ("converge", "exhaust", "jacobi", "resume", "resume48"):
+        A, b, mask = _spd(seed={"converge": 1, "exhaust": 2, "jacobi": 3, "resume": 4,
+                                "resume48": 8}[name])
         mv, _ = _matvecs(pkg, A, mask)
         bt, mt = arr(b), arr(mask)
         if name == "converge":
@@ -113,8 +122,9 @@ def _case(name, pkg):
         elif name == "jacobi":
             minv = mask / np.where(mask > 0, np.diag(A), 1.0)
             res = cg.cg_solve(mv, bt, mt, 1e-8, 500, minv=arr(minv))
-        else:  # stop at 37 (no multiple of any c > 1), resume across 49 and 99
-            state = cg.cg_run(mv, bt, mt, 0.0, 37, cg.cg_init(mv, bt, mt))
+        else:  # stop at 37 (no multiple of any c > 1) or 48, resume across 49 and 99
+            stop = 37 if name == "resume" else 48
+            state = cg.cg_run(mv, bt, mt, 0.0, stop, cg.cg_init(mv, bt, mt))
             state = cg.cg_run(mv, bt, mt, 0.0, 120, state)
             return np.asarray(state.x), float(state.delta), int(state.k), None
     elif name == "zero_residual":  # A = 2 I: r = 0 exactly after one step
@@ -137,10 +147,13 @@ def _case(name, pkg):
 
 
 CASES = ["converge", "exhaust", "stagnation", "escalation", "pinned", "jacobi", "resume",
-         "zero_residual"]
+         "resume48", "zero_residual"]
 
 
 def _torch_case(name, c):
+    """The torch case on chunks of ``c`` slots, or eagerly for ``None``."""
+    if c is None:
+        return _case(name, "torch")
     with tcg._fixed_chunk(c):
         return _case(name, "torch")
 
@@ -149,9 +162,9 @@ def _torch_case(name, c):
 @pytest.mark.parametrize("name", CASES)
 def test_results_do_not_depend_on_the_chunk(name, c):
     """Bitwise ``x`` and ``delta``, equal ``iterations`` (and
-    ``fast_iterations``) for every chunk size."""
+    ``fast_iterations``) for every chunk size against the eager loop."""
     x, delta, iters, fast = _torch_case(name, c)
-    x1, delta1, iters1, fast1 = _torch_case(name, 1)
+    x1, delta1, iters1, fast1 = _torch_case(name, None)
     np.testing.assert_array_equal(x, x1)
     assert delta == delta1 and iters == iters1 and fast == fast1
     assert np.all(np.isfinite(x))
@@ -167,7 +180,7 @@ def test_the_cases_reach_their_exits():
     _, _, iters, fast = _torch_case("escalation", 1)
     assert iters > fast > 0
     assert _torch_case("pinned", 1)[2:] == (120, 120)
-    assert _torch_case("resume", 1)[2] == 120
+    assert _torch_case("resume", 1)[2] == _torch_case("resume48", 1)[2] == 120
     x, delta, iters, _ = _torch_case("zero_residual", 1)
     assert (iters, delta) == (1, 0.0)
 
@@ -203,49 +216,122 @@ def _pinned_120(adaptive: bool):
 @pytest.mark.parametrize("adaptive", [False, True])
 @pytest.mark.parametrize("c", CHUNKS)
 def test_host_reads_once_per_chunk(c, adaptive):
-    """A 120-iteration pinned solve reads the host at most ``ceil(steps /
-    c) + 3`` times; at c = 1 once per step, as every iteration did before."""
+    """A 120-iteration pinned solve on chunks of ``c`` reads the host
+    ``ceil(120 / c)`` times (the adaptive solve once more, for ``armed``),
+    one chunk behind: it issues one chunk more than it reads, so the slots
+    issued are ``c (ceil(120 / c) + 1)``, of which 120 ran."""
     tcg.reset_counts()
     with tcg._fixed_chunk(c):
         assert _pinned_120(adaptive) == 120
-    steps, reads = tcg.counts["steps"], tcg.counts["host_reads"]
-    assert steps == 120  # the cap bounds the last chunk: nothing issued past imax
-    assert reads <= math.ceil(steps / c) + 3
-    if c == 1:
-        assert reads == 120 + adaptive  # + the adaptive solve's one read of ``armed``
-    else:
-        assert reads < 120
+    chunks = math.ceil(120 / c)
+    assert tcg.counts["host_reads"] == chunks + adaptive
+    assert tcg.counts["steps"] == c * (chunks + 1)
+    assert tcg.counts["executed"] == 120
+    assert tcg.last_run == {"chunk": c, "graph": False}
 
 
 def test_cpu_solves_read_once_per_step():
     """Without a chunk set, the CPU's loop reads once per step (c = 1)."""
     tcg.reset_counts()
     assert _pinned_120(False) == 120
-    assert tcg.counts["host_reads"] == 120 and tcg.last_run == {"chunk": 1, "graph": False}
+    assert tcg.counts["host_reads"] == tcg.counts["steps"] == tcg.counts["executed"] == 120
+    assert tcg.last_run == {"chunk": 1, "graph": False}
 
 
 def test_masked_steps_after_the_stop_are_no_ops():
-    """With c = 64 a converged solve issues masked steps past its
-    iteration count; the state is the c = 1 state, bit for bit."""
+    """With c = 64 a converged solve issues slots past its iteration count,
+    in its last chunk and the chunk queued behind it (which runs one
+    skipped slot); the state is the eager loop's, bit for bit."""
     tcg.reset_counts()
     x, delta, iters, _ = _torch_case("converge", 64)
-    assert tcg.counts["steps"] == 64 * math.ceil(iters / 64) > iters
-    assert tcg.counts["host_reads"] == math.ceil(iters / 64)
-    np.testing.assert_array_equal(x, _torch_case("converge", 1)[0])
+    chunks = math.ceil(iters / 64)
+    assert tcg.counts["steps"] == 64 * (chunks + 1) > iters + 64
+    assert tcg.counts["host_reads"] == chunks and tcg.counts["executed"] == iters
+    x1, delta1, iters1, _ = _torch_case("converge", None)
+    np.testing.assert_array_equal(x, x1)
+    assert (delta, iters) == (delta1, iters1)
 
 
-def test_derive_chunk():
-    """c = 1 + floor(t_turn / t_step), at most 16, from the least of the
-    samples' ``(host ms, device ms)``."""
-    assert tcg._derive_chunk([(0.15, 0.1), (0.2, 0.1)]) == 1
-    assert tcg._derive_chunk([(1.0, 0.05), (0.5, 0.05)]) == 10
-    assert tcg._derive_chunk([(9.0, 0.01), (8.0, 0.01)]) == tcg.MAX_CHUNK
-    assert tcg._derive_chunk([(8.1, 8.0), (8.05, 8.02)]) == 1
+@pytest.mark.parametrize("stagnation", [False, True])
+@pytest.mark.parametrize("refresh", [False, True])
+@pytest.mark.parametrize("stop", ["imax", "zero_residual"])
+def test_a_step_after_the_stop_changes_nothing(stop, refresh, stagnation):
+    """The masked step that a slot behind a stopped loop would run (the IF
+    nodes skip it; the eager loop and the warm-up may issue it) leaves the
+    carry bitwise as it was, also where its ``0/0`` is NaN."""
+    D = 64
+    b = torch.from_numpy(np.random.default_rng(5).normal(size=D))
+    M = 2.0 * torch.eye(D, dtype=torch.float64)
+    state = tcg.cg_init(lambda v: M @ v, b, torch.ones(D))
+    if stop == "zero_residual":  # A = 2 I: r = 0 exactly after one step
+        state = tcg.cg_run(lambda v: M @ v, b, torch.ones(D), 0.0, 50, state)
+        assert float(state.delta) == 0.0
+    carry = tcg._Carry(b, None, stagnation)
+    carry.load(b, None, state, torch.tensor(0.0, dtype=torch.float64),
+               state.k if stop == "imax" else 50, 8 if stagnation else None)
+    assert not bool(carry.active)
+    names = ["x", "r", "d", "delta", "best", "since", "status"]
+    before = {n: getattr(carry, n).clone() for n in names}
+    tcg._step(carry, lambda v: M @ v, tcg._dot, refresh)
+    for n in names:
+        assert torch.equal(getattr(carry, n), before[n]), n
+
+
+@pytest.mark.parametrize("c", [1, 3, 16, 64])
+@pytest.mark.parametrize("name", ["converge", "exhaust", "stagnation", "escalation", "jacobi",
+                                  "zero_residual"])
+def test_lagged_reads_follow_the_rule(name, c, monkeypatch):
+    """Every run on the chunks reads ``max(1, ceil(n / c))`` times for its
+    ``n`` iterations and issues one chunk more than it reads; the adaptive
+    solve adds one read for ``armed`` and, where armed and short of
+    ``imax``, one for the escalation."""
+    runs = []
+    real_run = tcg._run
+
+    def counting_run(*args, **kw):
+        before = dict(tcg.counts)
+        out = real_run(*args, **kw)
+        runs.append({k: tcg.counts[k] - before[k] for k in before})
+        return out
+
+    monkeypatch.setattr(tcg, "_run", counting_run)
+    tcg.reset_counts()
+    _, _, iters, fast = _torch_case(name, c)
+    for run in runs:
+        assert run["host_reads"] == max(1, math.ceil(run["executed"] / c))
+        assert run["steps"] == c * (run["host_reads"] + 1)
+    assert sum(run["executed"] for run in runs) == iters
+    extra = 0 if name != "escalation" else 1 + (fast < 200)
+    assert tcg.counts["host_reads"] == sum(run["host_reads"] for run in runs) + extra
+
+
+@pytest.mark.parametrize("k,active,want", [
+    (0, True, (True, False)), (48, True, (True, False)), (49, True, (False, True)),
+    (50, True, (True, False)), (99, True, (False, True)), (49, False, (False, False)),
+    (7, False, (False, False))])
+def test_slot_predicates(k, active, want):
+    """The slot kernel's predicates: the plain step where active and
+    ``k % 50 != 49``, the refresh step where active and ``k % 50 == 49``."""
+    carry = tcg._Carry(torch.zeros(4), None, False)
+    carry.k.fill_(k)
+    carry.active.fill_(active)
+    assert tcg._slot_predicates(carry, 50) == want
+
+
+@pytest.mark.parametrize("k_from,k_to,interval,want", [
+    (0, 0, 50, 0), (0, 49, 50, 0), (0, 50, 50, 1), (49, 50, 50, 1), (50, 99, 50, 0),
+    (37, 101, 50, 2), (48, 120, 50, 2), (0, 7, 1, 7), (3, 3, 1, 0)])
+def test_refreshes_in_a_range(k_from, k_to, interval, want):
+    """Refresh indices ``k % R == R - 1`` in ``[k_from, k_to)``, by count."""
+    assert tcg._refreshes(k_from, k_to, interval) == want
+    assert want == sum(k % interval == interval - 1 for k in range(k_from, k_to))
 
 
 def test_replays_add_the_captured_counts():
-    """The launch accounting a replay uses: what a capture counted, added
-    once per replay (and taken back after a failed capture)."""
+    """The launch accounting of a replay: what each step's capture counted
+    (and took back: a capture launches nothing), added once per plain step
+    and once per refresh step that ran, read from ``k`` before and after
+    the chunk: K1 once per step, once more per refresh."""
     gm.reset_launches()
     gm.reset_preparations()
     before = gm.counts_snapshot()
@@ -253,10 +339,42 @@ def test_replays_add_the_captured_counts():
     gm.preparations["bf16cast"] += 1
     added = gm.counts_since(before)
     assert added == ({"gram_matvec_sym/exact": 2}, {"bf16cast": 1})
-    gm.add_counts(added, 3)
-    assert gm.launches["gram_matvec_sym/exact"] == 8 and gm.preparations["bf16cast"] == 4
-    gm.add_counts(added, -4)
+    gm.add_counts(added, -1)
     assert gm.counts_since(before) == ({}, {})
+    chunk = object.__new__(tcg._ChunkGraph)  # its accounting alone: no card here
+    chunk.interval = 50
+    chunk.steps = {False: (None, ({"gram_matvec_sym/exact": 1}, {})),
+                   True: (None, ({"gram_matvec_sym/exact": 2}, {"bf16cast": 1}))}
+    chunk.account(37, 101)  # 64 steps, the refreshes at 49 and 99
+    assert gm.launches["gram_matvec_sym/exact"] == 64 + 2
+    assert gm.preparations["bf16cast"] == 2
+    chunk.account(101, 101)  # a chunk of skipped slots
+    assert gm.launches["gram_matvec_sym/exact"] == 66
+
+
+@pytest.mark.parametrize("c", [1, 3, 16, 64])
+def test_accounting_matches_the_calls_the_eager_loop_makes(c):
+    """Counted from ``k`` as a replay counts (one A·v per step, one more
+    per refresh), a resumed run's A·v are the calls the eager loop makes
+    for the same run, across the refreshes at 49 and 99; the chunked run
+    is bitwise the eager one."""
+    A, b, mask = _spd(seed=4)
+    M, m = torch.from_numpy(A), torch.from_numpy(mask)
+    calls = [0]
+
+    def mv(v):
+        calls[0] += 1
+        return (M @ v) * m
+
+    bt = torch.from_numpy(b)
+    state = tcg.cg_run(mv, bt, m, 0.0, 37, tcg.cg_init(mv, bt, m))
+    calls[0] = 0
+    eager = tcg.cg_run(mv, bt, m, 0.0, 120, state)
+    assert calls[0] == (eager.k - 37) + tcg._refreshes(37, eager.k, 50) == 83 + 2
+    with tcg._fixed_chunk(c):
+        chunked = tcg.cg_run(mv, bt, m, 0.0, 120, state)
+    assert chunked.k == eager.k == 120
+    torch.testing.assert_close(chunked.x, eager.x, rtol=0, atol=0)
 
 
 def test_across_devices_marks_and_still_solves():
@@ -318,7 +436,7 @@ def test_one_shot_learns_split_setup_and_cg(route, kernel, env, mode, monkeypatc
     assert set(spans) == {"setup", "cg"} and len(spans["cg"]) == 1
     assert all(ms >= 0.0 for v in spans.values() for ms in v)
     loop = svm.last_cg_loop
-    assert loop["steps"] >= svm.last_cg_info["iterations"] > 0
+    assert loop["steps"] >= loop["executed"] == svm.last_cg_info["iterations"] > 0
     assert loop["host_reads"] >= loop["steps"] and loop["chunk"] == 1 and not loop["graph"]
 
 
@@ -352,31 +470,52 @@ def _rbf_operator(dev, tier, D=4096, f=256):
 @pytest.mark.cuda
 @pytest.mark.parametrize("tier", ["exact", "bf16x3", "bf16cast"])
 def test_graph_solve_is_bitwise_the_eager_loop(cuda_dev, tier):
-    """rbf 4096 x 256 on the card: the CUDA-graph solve (pinned across the
-    refresh at 49, and to eps 1e-6) against the eager masked loop."""
+    """rbf 4096 x 256 on the card: the chunk-graph solve (pinned across the
+    refresh at 49, to eps 1e-6, and resumed at 37 to 120) against the eager
+    masked loop, bit for bit; K1 counted once per step that ran, once for
+    the initial residual and once per refresh; one capture for the loop;
+    reads one chunk behind."""
     op, b, mask = _rbf_operator(cuda_dev, tier)
     name = f"gram_matvec_sym/{tier}"
-    for eps, imax in ((0.0, 60), (1e-6, 500)):
-        tcg.reset_counts()
+    start = tcg.cg_init(op.matvec, b, mask)
+    with tcg.eager_loop():
+        at37 = tcg.cg_run(op.matvec, b, mask, 0.0, 37, start)
+    tcg.reset_counts()
+    for eps, imax, state in ((0.0, 60, None), (1e-6, 500, None), (0.0, 120, at37)):
+        k0 = 0 if state is None else state.k
+        before = dict(tcg.counts)
         gm.reset_launches()
-        graph = tcg.cg_solve(op.matvec, b, mask, eps, imax)
-        assert tcg.counts["replays"] > 0 and tcg.last_run["graph"]
-        # the replays count K1's launches, the captures none: one per step
-        # issued, the initial residual, and the refresh at 49
-        steps, k1 = tcg.counts["steps"], gm.launches[name]
-        assert k1 == steps + 1 + steps // 50
+        if state is None:
+            graph = tcg.cg_solve(op.matvec, b, mask, eps, imax)
+        else:
+            graph = tcg.cg_run(op.matvec, b, mask, eps, imax, state)
+        assert tcg.last_run["graph"] and tcg.counts["replays"] > before["replays"]
+        ran = tcg.counts["executed"] - before["executed"]
+        reads = tcg.counts["host_reads"] - before["host_reads"]
+        k = graph.iterations if state is None else graph.k
+        assert ran == k - k0 and reads <= math.ceil(ran / tcg.last_run["chunk"]) + 2
+        assert gm.launches[name] == ran + (state is None) + tcg._refreshes(k0, k, 50)
+        k1 = gm.launches[name]
         gm.reset_launches()
         with tcg.eager_loop():
-            eager = tcg.cg_solve(op.matvec, b, mask, eps, imax)
+            if state is None:
+                eager = tcg.cg_solve(op.matvec, b, mask, eps, imax)
+            else:
+                eager = tcg.cg_run(op.matvec, b, mask, eps, imax, state)
         assert not tcg.last_run["graph"] and gm.launches[name] == k1
-        assert graph.iterations == eager.iterations
+        if state is None:
+            assert graph.iterations == eager.iterations
+        else:
+            assert graph.k == eager.k == imax
         assert torch.equal(graph.x, eager.x) and torch.equal(graph.delta, eager.delta)
+    assert tcg.counts["captures"] == 1  # cg_run's loop, one chunk graph
 
 
 @pytest.mark.cuda
 def test_failed_capture_raises(cuda_dev):
-    """A host read inside the A·v breaks the capture: the solve raises
-    ``PLSSVMError`` naming the operator, it does not run eagerly."""
+    """A host read inside the A·v breaks the capture of the chunk's plain
+    step: the solve raises ``PLSSVMError`` naming the operator, it does not
+    run eagerly, and no chunk graph is kept."""
     w = torch.linspace(1.0, 2.0, 256, device=cuda_dev)
 
     def reads_the_host(v):
@@ -385,5 +524,7 @@ def test_failed_capture_raises(cuda_dev):
     # a diagonal of distinct entries: the loop runs past its eager first
     # step to the capture
     b = torch.ones(256, device=cuda_dev)
-    with pytest.raises(PLSSVMError, match="reads_the_host"):
+    tcg.reset_counts()
+    with pytest.raises(PLSSVMError, match="plain CG step of operator .*reads_the_host"):
         tcg.cg_solve(reads_the_host, b, torch.ones_like(b), 0.0, 10)
+    assert tcg.counts["captures"] == tcg.counts["replays"] == 0

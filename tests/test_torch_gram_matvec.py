@@ -122,8 +122,8 @@ def test_build_covers_every_source_and_header(tmp_path, monkeypatch):
 
     from plssvm_sparse_fp22_tpu_torch.ops import _build
 
-    assert [os.path.basename(p) for p in _build.sources()] == ["gram_matvec.cu", "pair_contrib.cu",
-                                                               "split_bf16.cu"]
+    assert [os.path.basename(p) for p in _build.sources()] == ["cg_chunk.cu", "gram_matvec.cu",
+                                                               "pair_contrib.cu", "split_bf16.cu"]
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
@@ -132,8 +132,9 @@ def test_build_covers_every_source_and_header(tmp_path, monkeypatch):
         fh.write("// touched\n")
     assert _build._source_hash() != before
     (csrc / "extra.cu").write_text("// another kernel source\n")
-    assert [os.path.basename(p) for p in _build.sources()] == ["extra.cu", "gram_matvec.cu",
-                                                               "pair_contrib.cu", "split_bf16.cu"]
+    assert [os.path.basename(p) for p in _build.sources()] == ["cg_chunk.cu", "extra.cu",
+                                                               "gram_matvec.cu", "pair_contrib.cu",
+                                                               "split_bf16.cu"]
 
 
 #: a process that builds into the directory ``argv[1]`` and prints what came of it

@@ -411,8 +411,13 @@ def test_graph_store_is_the_layout_and_its_key_the_loop():
             tcg._graph_store(_fake("op[bf16cast]", kept), b, None, tcg._dot, False)[1],
             tcg._graph_store(_fake("op[bf16cast]", kept), torch.zeros(16), None, tcg._dot,
                              True)[1],
-            tcg._graph_store(_fake("op[bf16cast]", kept), b.double(), None, tcg._dot, True)[1]}
-    assert len(keys) == 6  # the tier, minv, the stagnation loop, D and dtype each count
+            tcg._graph_store(_fake("op[bf16cast]", kept), b.double(), None, tcg._dot, True)[1],
+            tcg._graph_store(_fake("op[bf16cast]", kept), b, None, tcg._dot, True, 16)[1],
+            tcg._graph_store(_fake("op[bf16cast]", kept), b, None, tcg._dot, True,
+                             tcg.CHUNK, 1)[1]}
+    # the tier, minv, the stagnation loop, D, dtype, the chunk's slots and
+    # the refresh interval each count
+    assert len(keys) == 8
     plain = _fake("op[bf16cast]")
     own, _ = tcg._graph_store(plain, b, None, tcg._dot, True)
     assert own is tcg._GRAPHS[plain] and own is not store

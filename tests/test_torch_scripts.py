@@ -99,10 +99,15 @@ def test_profile_cg_returns_its_keys(capsys):
     assert set(shape["tiers"]) == {"exact", "bf16x3", "bf16cast"}
     for rec in shape["tiers"].values():
         assert {"k1_rbf_ms", "k1_linear_ms", "k1_polynomial_ms", "operator_ms", "cg_it_per_s",
-                "cg_iteration_ms", "cg_wall_ms", "device_busy_ms", "idle_share"} <= set(rec)
+                "cg_iteration_ms", "cg_wall_ms", "device_busy_ms", "idle_share", "chunk",
+                "host_reads", "slots_issued", "steps_executed", "stopped_chunk_us"} <= set(rec)
         assert rec["cg_it_per_s"] > 0 and rec["operator_ms"] > 0
-        # no device on the CPU: no idle share is claimed
+        # no device on the CPU: no idle share and no slot time is claimed
         assert rec["idle_share"] is None and rec["device_busy_ms"] is None
+        assert rec["stopped_chunk_us"] is None
+        # the profiled pinned solve of 6 iterations, eagerly: a read per step
+        assert (rec["chunk"], rec["steps_executed"]) == (1, 6)
+        assert rec["host_reads"] == rec["slots_issued"] == 6
 
 
 N, F = 256, 16

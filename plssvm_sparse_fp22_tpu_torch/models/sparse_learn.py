@@ -24,8 +24,6 @@ its device set-up runs in a ``setup`` span, its solve in a ``cg`` span.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from ..ops.kernel_functions import integer_pow
@@ -45,15 +43,12 @@ from ..ops.sparse import (
 )
 from ..solver.cg import cg_solve, cg_solve_adaptive
 from ..types import KernelType
+from ..utils.timing import no_span
 
 
 def _cost_inv(cost, like: torch.Tensor) -> torch.Tensor:
     one = torch.tensor(1.0, dtype=like.dtype, device=like.device)
     return one / torch.tensor(cost, dtype=like.dtype, device=like.device)
-
-
-def _no_span(label: str):
-    return contextlib.nullcontext()
 
 
 def _finish(res, q):
@@ -64,7 +59,7 @@ def _finish(res, q):
 
 def learn_sparse_linear(vals, cols, coo_rows, coo_cols, coo_vals, x_last_dense, b_pad, mask,
                         cost, eps, imax, *, f, xt: HybridSparse, precond: str = "none",
-                        span=_no_span):
+                        span=no_span):
     """Linear-kernel learn over the ELL+COO hybrid packing: O(nnz) per CG
     iteration, robust to skewed row fills.  ``xt`` is the same packing of
     X^T (one row per feature), built once on the host: X^T v then
@@ -96,7 +91,7 @@ def learn_sparse_panel(tvals, tlcols, x_last_dense, b_pad, mask, gamma, coef0, c
                        precond: str = "none", use_cuda: bool = False, heavy=None,
                        heavy_rows: tuple = (), heavy_sq_vec=None, heavy_g_vec=None,
                        mxu_plan: tuple | None = None, sweep: str | None = None,
-                       span=_no_span):
+                       span=no_span):
     """Streaming poly/rbf learn, ``panel`` strategy: CG over the kernel
     matrix recomputed every iteration from the tiled-ELL packing through
     transient dense panels, the diagonal panel pairs on K1 and the others on
@@ -165,7 +160,7 @@ def learn_sparse_panel(tvals, tlcols, x_last_dense, b_pad, mask, gamma, coef0, c
 
 def learn_sparse_implicit(vals, cols, coo_rows, coo_cols, coo_vals, x_last_dense, b_pad,
                           mask, gamma, coef0, cost, eps, imax, *, kernel, degree, f,
-                          precond: str = "none", bm=None, bn=None, span=_no_span):
+                          precond: str = "none", bm=None, bn=None, span=no_span):
     """Streaming poly/rbf learn, ``gather`` strategy: CG over the kernel
     matrix recomputed block by block from the ELL+COO packing every
     iteration with the nnz-proportional gather contraction: O(n·L) memory,
@@ -199,7 +194,7 @@ def _transform_gram(kernel: KernelType, G, sq, degree, gamma, coef0):
 
 
 def learn_from_gram(G_pad, sq, q_lin, qa_lin, b_pad, mask, gamma, coef0, cost, eps, imax, *,
-                    kernel, degree, precond: str = "none", span=_no_span):
+                    kernel, degree, precond: str = "none", span=no_span):
     """Cached-mode learn from an assembled linear Gram matrix.
 
     ``G_pad`` is (D, D) with ``G[i, j] = <x_i, x_j>`` over the first dept

@@ -97,6 +97,7 @@ from ..ops.sparse import (TILE, ELLMatrix, HybridSparse, _heavy_by_panel, densif
                           make_streaming_cross_contrib, sparse_q_qa_kii, tiled_matvec)
 from ..solver.cg import CGState, across_devices, cg_init, cg_run, cg_solve, cg_solve_adaptive
 from ..types import BackendType, KernelType
+from ..utils.timing import no_span
 from . import distributed
 from .mesh import local_shards, place_local, spans_processes
 
@@ -463,7 +464,7 @@ def _prepare_local(kernel, mesh, Xs, x_last, mask, gamma, coef0, cost, degree, m
 
 def make_sharded_learn(mesh, kernel: KernelType, degree: int, mode: str,
                        backend: BackendType = BackendType.torch, precond: str = "none",
-                       mxu_plan: tuple | None = None):
+                       mxu_plan: tuple | None = None, span=no_span):
     """Build the multi-device learn step for a mesh and configuration.
 
     Returns ``fn(Xs, x_last, b, mask, gamma, coef0, cost, eps, imax) -> (x,
@@ -474,7 +475,9 @@ def make_sharded_learn(mesh, kernel: KernelType, degree: int, mode: str,
     ``backend='cuda'`` runs every hop of the ``implicit`` ring through
     kernel K2; ``precond='jacobi'`` enables the diagonal preconditioner and
     ``mxu_plan`` the adaptive two-tier CG: the same feature set as the
-    single-device CG, and the same ``solver/cg.py`` under it."""
+    single-device CG, and the same ``solver/cg.py`` under it.  ``span(label)``
+    (``CSVM._span``) takes the operator's set-up as a ``setup`` span and the
+    solve as a ``cg`` span."""
     p = len(mesh)
     dot = partial(_psum_dot, num=p)
 
@@ -483,17 +486,21 @@ def make_sharded_learn(mesh, kernel: KernelType, degree: int, mode: str,
         args = (kernel, mesh, Xs, x_last, mask, gamma, coef0, cost, degree, mode, backend,
                 precond)
         if mxu_plan is None:
-            q, QA_cost, _ci, matvec, minv = _prepare_local(*args)
-            res = cg_solve(across_devices(matvec), b, mask, eps, imax, minv=minv, dot=dot)
+            with span("setup"):
+                q, QA_cost, _ci, matvec, minv = _prepare_local(*args)
+            with span("cg"):
+                res = cg_solve(across_devices(matvec), b, mask, eps, imax, minv=minv, dot=dot)
             extra = ()
         else:
-            q, QA_cost, cost_inv, mv_fast, minv = _prepare_local(
-                *args, precision=tier_precision(mxu_plan[0]))
-            mv_acc = _build_local_matvec(kernel, mesh, Xs, q, mask, QA_cost, cost_inv, degree,
-                                         gamma, coef0, mode, backend=backend,
-                                         precision=tier_precision(mxu_plan[1]))
-            res = cg_solve_adaptive(across_devices(mv_fast), across_devices(mv_acc), b, mask,
-                                    eps, imax, minv=minv, dot=dot)
+            with span("setup"):
+                q, QA_cost, cost_inv, mv_fast, minv = _prepare_local(
+                    *args, precision=tier_precision(mxu_plan[0]))
+                mv_acc = _build_local_matvec(kernel, mesh, Xs, q, mask, QA_cost, cost_inv,
+                                             degree, gamma, coef0, mode, backend=backend,
+                                             precision=tier_precision(mxu_plan[1]))
+            with span("cg"):
+                res = cg_solve_adaptive(across_devices(mv_fast), across_devices(mv_acc), b,
+                                        mask, eps, imax, minv=minv, dot=dot)
             extra = (res.fast_iterations,)
         s = _psum([c.sum() for c in res.x.chunk(p)])
         t = dot(q, res.x)
@@ -706,7 +713,8 @@ def _prepare_feature_local(kernel, mesh, Xs, x_lasts, mask, gamma, coef0, cost, 
     return q, QA_cost, cost_inv, matvec, minv
 
 
-def make_feature_sharded_learn(mesh, kernel: KernelType, degree: int, precond: str = "none"):
+def make_feature_sharded_learn(mesh, kernel: KernelType, degree: int, precond: str = "none",
+                               span=no_span):
     """Multi-device learn with the **feature axis** sharded
     (``sharded.py:279-328`` of the JAX package): the reference's own
     multi-GPU split (``feature_ranges_``, ``gpu_csvm.cpp:130-157``), linear
@@ -717,12 +725,16 @@ def make_feature_sharded_learn(mesh, kernel: KernelType, degree: int, precond: s
     Returns ``fn(Xs, x_lasts, b, mask, gamma, coef0, cost, eps, imax) -> (x,
     s, t, QA_cost, iterations, delta, delta0)`` with the arguments from
     :func:`shard_system_feature`.  Across processes every rank gets the
-    whole result, the one-process learn's bits."""
+    whole result, the one-process learn's bits.  ``span`` as for
+    :func:`make_sharded_learn`."""
 
     def run(Xs, x_lasts, b, mask, gamma, coef0, cost, eps, imax):
-        q, QA_cost, _ci, matvec, minv = _prepare_feature_local(
-            kernel, mesh, Xs, x_lasts, mask, float(gamma), float(coef0), cost, degree, precond)
-        res = cg_solve(across_devices(matvec), b, mask, eps, int(imax), minv=minv)
+        with span("setup"):
+            q, QA_cost, _ci, matvec, minv = _prepare_feature_local(
+                kernel, mesh, Xs, x_lasts, mask, float(gamma), float(coef0), cost, degree,
+                precond)
+        with span("cg"):
+            res = cg_solve(across_devices(matvec), b, mask, eps, int(imax), minv=minv)
         return (res.x, torch.sum(res.x), torch.dot(q, res.x), QA_cost, res.iterations,
                 res.delta, res.delta0)
 

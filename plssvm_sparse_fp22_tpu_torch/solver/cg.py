@@ -95,6 +95,7 @@ from ..constants import RESIDUAL_REFRESH_INTERVAL
 from ..exceptions import PLSSVMError
 from ..ops import _build
 from ..ops import gram_matvec as gm
+from ..utils import timing
 from ..utils.assertions import plssvm_assert
 
 
@@ -485,6 +486,7 @@ class _ChunkGraph:
                 self.steps[refresh] = self._capture_step(matvec, dot, refresh)
             self._build_chunk()
         counts["captures"] += 1
+        timing.count("cg_captures")
 
     def replay(self) -> None:
         dev = self.carry.b.device
@@ -505,12 +507,15 @@ class _ChunkGraph:
     @contextlib.contextmanager
     def _timed(self):
         """Add the block's milliseconds to ``spent["capture_ms"]``, the
-        device synchronised before and after (a capture needs the first)."""
+        device synchronised before and after (a capture needs the first);
+        while a profiler records, the block is its range
+        ``plssvm::cg/capture`` (the learn's ``cg`` span records the time)."""
         dev = self.carry.b.device
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        yield
-        torch.cuda.synchronize(dev)
+        with timing.annotate("cg/capture"):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize(dev)
         spent["capture_ms"] += (time.perf_counter() - t0) * 1e3
 
     @contextlib.contextmanager

@@ -4,20 +4,27 @@ Equivalent of the reference's inline ``std::chrono`` spans (SURVEY.md §5:
 parse time ``parameter.cpp:168-175``, setup ``csvm.cpp:247-250``,
 per-CG-iteration ``gpu_csvm.cpp:234-241``, predict ``gpu_csvm.cpp:121-124``,
 model write ``csvm.cpp:197-203``) and of the JAX package's
-``utils/timing.py``, plus a ``torch.profiler`` trace capture.
+``utils/timing.py``.
 
 CUDA launches are asynchronous: a span that only reads the host's clock
 times the enqueue.  :func:`scoped_timer` therefore takes the device whose
 work it spans and synchronises it before each reading of the clock.
+
+The program's spans (:func:`span`) and counters (:func:`count`) are off
+unless a sink is given or a ``torch.profiler`` records.  While one
+records, each span is also a ``plssvm::<label>`` range on the profiler's
+clock, and spans and counters add up in :data:`TRACED`: a profiled call
+(``with torch.profiler.profile(): svm.learn()``) leaves its breakdown
+there.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
 
 
 def _synchronize(device) -> None:
@@ -50,32 +57,6 @@ def scoped_timer(label: str, print_info: bool = True, sink=None, device=None):
         sink(label, elapsed_ms)
     if print_info:
         print(f"{label} in {elapsed_ms:.0f}ms.")
-
-
-@contextlib.contextmanager
-def profiler_trace(log_dir: str | None):
-    """Capture a ``torch.profiler`` trace of the block (host and, where a
-    CUDA device is visible, device activity) and write it as a Chrome trace
-    ``trace.json`` into ``log_dir`` (open in ``chrome://tracing`` or
-    Perfetto); no-op when ``log_dir`` is ``None``."""
-    if log_dir is None:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    prof = profile(activities=activities)
-    prof.start()
-    try:
-        yield
-    finally:
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        prof.stop()
-        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def slope_rate(run, lo: int, hi: int, trials: int = 5,
@@ -131,12 +112,64 @@ def slope_rate(run, lo: int, hi: int, trials: int = 5,
     return 1.0 / samples[len(samples) // 2]
 
 
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` records (one attribute read)."""
+    return _profiler._is_profiler_enabled
+
+
+def annotate(label: str):
+    """The profiler range ``plssvm::<label>`` while a profiler records,
+    else nothing.  The range is a host operation, as an ATen call is: the
+    profiler mirrors a ``record_function`` annotation onto the device's
+    timeline as if it were device work (an NVIDIA H100 trace showed it),
+    and this range, PyTorch's own fast one, it does not."""
+    if _profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast(f"plssvm::{label}")
+    return contextlib.nullcontext()
+
+
 def span(sink, label: str, device=None):
-    """A :func:`scoped_timer` into ``sink`` that prints nothing, or nothing
-    at all (no synchronisation either) where ``sink`` is ``None``."""
-    if sink is None:
+    """A timed span, on where ``sink`` is given or a profiler records, else
+    nothing at all (no synchronisation, no profiler call).  On, it is the
+    profiler range ``plssvm::<label>`` (:func:`annotate`), synchronises
+    ``device`` on entry and on exit, as :func:`scoped_timer` does, and
+    records its milliseconds into ``sink`` where given and into
+    :data:`TRACED` where the profiler recorded at its entry."""
+    traced = _profiler._is_profiler_enabled
+    if sink is None and not traced:
         return contextlib.nullcontext()
-    return scoped_timer(label, print_info=False, sink=sink, device=device)
+    return _on_span(sink, label, device, traced)
+
+
+def no_span(label: str):
+    """The ``span`` of a learn given none: nothing."""
+    return contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _on_span(sink, label: str, device, traced: bool):
+    with annotate(label):
+        _synchronize(device)
+        start = time.perf_counter()
+        yield
+        _synchronize(device)
+    record(sink, label, (time.perf_counter() - start) * 1000.0, traced)
+
+
+def record(sink, label: str, elapsed_ms: float, traced: bool) -> None:
+    """``elapsed_ms`` of ``label`` into ``sink`` where given, and into
+    :data:`TRACED` where ``traced``."""
+    if sink is not None:
+        sink(label, elapsed_ms)
+    if traced:
+        TRACED(label, elapsed_ms)
+
+
+def count(label: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``label`` of :data:`TRACED` while a profiler
+    records; else nothing beyond one attribute read."""
+    if _profiler._is_profiler_enabled:
+        TRACED.count(label, n)
 
 
 class Timings:
@@ -145,11 +178,15 @@ class Timings:
     A label ``"<span>/<part>"`` is a named part of the span ``<span>``, timed
     inside it: it goes to :attr:`parts` (span -> part -> [durations_ms]),
     not to :attr:`records`, so a span's parts add up to no more than the
-    span itself and the spans in :attr:`records` do not overlap."""
+    span itself.  A learn's sink (``CSVM.timings``) gets its ``setup`` and
+    ``cg`` spans, which do not overlap; :data:`TRACED` also gets the root
+    spans ``learn`` and ``predict``, which contain them.  :attr:`counters`
+    holds the counters (label -> total, :meth:`count`)."""
 
     def __init__(self) -> None:
         self.records: dict[str, list[float]] = {}
         self.parts: dict[str, dict[str, list[float]]] = {}
+        self.counters: dict[str, int] = {}
 
     def __call__(self, label: str, elapsed_ms: float) -> None:
         name, sep, part = label.partition("/")
@@ -158,6 +195,12 @@ class Timings:
         else:
             self.records.setdefault(label, []).append(elapsed_ms)
 
+    def count(self, label: str, n: int = 1) -> None:
+        self.counters[label] = self.counters.get(label, 0) + n
+
+    def clear(self) -> None:
+        self.__init__()
+
     def summary(self) -> dict[str, float]:
         return {k: sum(v) for k, v in self.records.items()}
 
@@ -165,3 +208,8 @@ class Timings:
         """The parts of span ``name``, each summed (empty where none was
         timed)."""
         return {k: sum(v) for k, v in self.parts.get(name, {}).items()}
+
+
+#: the spans and counters of every call made while a ``torch.profiler``
+#: recorded, since the process started or the last ``TRACED.clear()``
+TRACED = Timings()

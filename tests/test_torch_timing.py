@@ -1,7 +1,6 @@
 """utils/timing.py of the port: the slope estimator, the sink and the
 scoped timer's line."""
 
-import json
 import re
 import time
 
@@ -11,8 +10,7 @@ torch = pytest.importorskip("torch")
 
 from plssvm_sparse_fp22_tpu.utils import timing as jtiming
 from plssvm_sparse_fp22_tpu_torch.utils import timing
-from plssvm_sparse_fp22_tpu_torch.utils.timing import (Timings, profiler_trace, scoped_timer,
-                                                       slope_rate)
+from plssvm_sparse_fp22_tpu_torch.utils.timing import Timings, scoped_timer, slope_rate
 
 
 def test_slope_rate_recovers_a_known_slope():
@@ -111,14 +109,3 @@ def test_scoped_timer_synchronises_the_device_it_is_given(monkeypatch):
         pass
     assert len(waited) == 2
 
-
-def test_profiler_trace_writes_a_chrome_trace_or_does_nothing(tmp_path):
-    with profiler_trace(None):
-        torch.ones(4).sum()
-    assert list(tmp_path.iterdir()) == []
-    log_dir = tmp_path / "trace"
-    with profiler_trace(str(log_dir)):
-        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
-    with open(log_dir / "trace.json") as fh:
-        trace = json.load(fh)
-    assert trace["traceEvents"]

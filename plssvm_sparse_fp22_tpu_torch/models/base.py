@@ -76,6 +76,33 @@ def _torch_dtype(dtype) -> torch.dtype:
         raise PLSSVMError(f"Unsupported real type '{dtype}' (float32 or float64)!") from None
 
 
+def _load_csr_rows(X: torch.Tensor, dept: int, staged: tuple,
+                   copies=contextlib.nullcontext, fill=contextlib.nullcontext) -> None:
+    """Write the CSR rows ``staged`` (:meth:`CSVM._stage_csr_rows`) into the
+    first ``dept`` rows of ``X`` (D, f) and zero the rest: the row counts,
+    column indices and values are copied to ``X``'s device inside
+    ``copies()``, then, inside ``fill()``, scattered at ``row * f + col``
+    into the zeroed ``X`` (counter ``densify_on_device``, one a call); rows
+    staged dense are copied in.  The bytes copied go to ``h2d_bytes``."""
+    f = X.shape[1]
+    dev = X.device
+    timing.count("h2d_bytes", sum(t.nbytes for t in staged))
+    if len(staged) == 1:
+        with copies():
+            X[:dept].copy_(staged[0], non_blocking=True)
+        with fill():
+            X[dept:].zero_()
+        return
+    with copies():
+        counts, cols, vals = (t.to(dev, non_blocking=True) for t in staged)
+    with fill():
+        X.zero_()
+        rows = torch.repeat_interleave(torch.arange(dept, device=dev), counts,
+                                       output_size=vals.shape[0])
+        X.view(-1).index_copy_(0, rows * f + cols, vals)
+    timing.count("densify_on_device")
+
+
 class _DenseSystem:
     """The device tensors of a dense learn's padded system: ``X`` (D, f),
     zero beyond the data rows, ``mask``, ``q``, ``QA_cost``, ``cost_inv``,
@@ -96,21 +123,17 @@ class _DenseSystem:
 
     def load(self, dept: int, staged, b_host: torch.Tensor, x_last: torch.Tensor):
         """Copy a learn's rows into ``X`` (``staged``: the dense rows, or a
-        CSR's row counts, column indices and values, scattered on the device,
-        where no entry repeats), zero the rest, set ``mask``; returns the
+        CSR's rows as :meth:`CSVM._stage_csr_rows` stages them, written by
+        :func:`_load_csr_rows`), zero the rest, set ``mask``; returns the
         zero-padded ``b`` and ``x_last`` on the device."""
         X = self.X
-        D, f = X.shape
+        D = X.shape[0]
         dev = X.device
-        host = staged if isinstance(staged, tuple) else (staged,)
-        timing.count("h2d_bytes", sum(t.nbytes for t in (*host, b_host, x_last)))
+        timing.count("h2d_bytes", b_host.nbytes + x_last.nbytes)
         if isinstance(staged, tuple):
-            counts, cols, vals = (t.to(dev, non_blocking=True) for t in staged)
-            X.zero_()
-            rows = torch.repeat_interleave(torch.arange(dept, device=dev), counts,
-                                           output_size=vals.shape[0])
-            X.view(-1).index_copy_(0, rows * f + cols, vals)
+            _load_csr_rows(X, dept, staged)
         else:
+            timing.count("h2d_bytes", staged.nbytes)
             X[:dept].copy_(staged, non_blocking=True)
             X[dept:].zero_()
         self.mask.zero_()
@@ -431,6 +454,23 @@ class CSVM:
         t = torch.empty(a.shape, dtype=dtype, pin_memory=self.device.type == "cuda")
         return t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
 
+    def _stage_csr_rows(self, dept: int) -> tuple:
+        """The first ``dept`` rows of the data's CSR in host tensors
+        (:meth:`_host`) for :func:`_load_csr_rows`: their row counts and
+        column indices (int64) and values (the learn's dtype), views cut at
+        ``indptr[dept]`` (``csr[:dept]`` would copy them).  Rows not in
+        canonical form come as ``(dense rows,)`` instead, whose repeated
+        entries add up in float64 before the cast, as ``toarray()`` adds
+        them."""
+        csr = self.data.csr
+        end = int(csr.indptr[dept])
+        indptr, cols, vals = csr.indptr[:dept + 1], csr.indices[:end], csr.data[:end]
+        rows = sp.csr_matrix((vals, cols, indptr), shape=(dept, csr.shape[1]), copy=False)
+        if not rows.has_canonical_format:
+            return (self._host(rows.toarray(), self.dtype),)
+        return (self._host(np.diff(indptr), torch.int64), self._host(cols, torch.int64),
+                self._host(vals, self.dtype))
+
     def _dense_system(self, D, dept, f, y, mode, tiers):
         """The padded system of a dense learn on the device: ``(b, m, q,
         QA_cost, minv, ops)`` with ``ops`` the A·v operators at ``tiers``
@@ -455,13 +495,7 @@ class CSVM:
         with self._span("setup/pad"):
             if self._use_sparse():
                 x_last = self.data.csr[-1].toarray().ravel()
-                sub = self.data.csr[:dept]
-                if sub.has_canonical_format:
-                    staged = tuple(self._host(a, dt) for a, dt in (
-                        (np.diff(sub.indptr), torch.int64), (sub.indices, torch.int64),
-                        (sub.data, self.dtype)))
-                else:  # repeated entries add up, as csr.toarray() adds them
-                    staged = self._host(sub.toarray(), self.dtype)
+                staged = self._stage_csr_rows(dept)
             else:
                 rows = self.data.stored_rows()
                 rows = self.data.dense if rows is None else rows
@@ -933,18 +967,21 @@ class CSVM:
                                         precond=precond, span=self._span)
             return "sparse_implicit", out
 
-        # gram tier: densify on the host (a budget-gated transient) and one
-        # device product, or the host SpGEMM for very wide data; the parts of
-        # its ``setup`` span: ``densify`` (the rows into the padded host
-        # array), ``h2d``, ``gram`` (the product and the row norms, or the
-        # host SpGEMM) and ``q`` (the host products with the last point)
+        # gram tier: X densified on the device from the CSR rows (a
+        # budget-gated transient) and one device product, or the host SpGEMM
+        # for very wide data; the parts of its ``setup`` span: ``densify``
+        # (the rows staged on the host, then zeroed X and the scatter into
+        # it), ``h2d`` (the staged rows' copies, or the Gram's), ``gram``
+        # (the product and the row norms, or the host SpGEMM) and ``q`` (the
+        # host products with the last point)
         with self._span("setup"):
             if f <= device_gram_max_features() and dense_x_fits:
                 with self._span("setup/densify"):
-                    X_pad = np.zeros((D, f), dtype=np_dtype)
-                    X_pad[:dept] = csr[:dept].toarray()
-                with self._span("setup/h2d"):
-                    Xd = self._to_device(X_pad)
+                    staged = self._stage_csr_rows(dept)
+                    Xd = torch.empty((D, f), dtype=self.dtype, device=dev)
+                _load_csr_rows(Xd, dept, staged,
+                               copies=functools.partial(self._span, "setup/h2d"),
+                               fill=functools.partial(self._span, "setup/densify"))
                 with self._span("setup/gram"):
                     G = Xd @ Xd.T
                     sq = torch.sum(Xd * Xd, dim=1)

@@ -4,6 +4,7 @@ tile, K2 in its row-only mode: ragged rows and features, more tile pairs
 than SMs, operands prepared by the caller), the one-pass bf16 split bit for
 bit against its plain version, determinism, launch counts, the scratch in
 strips (bitwise the one-strip result, the slab within its budget), the
+sparse tiers' X scattered from CSR rows bit for bit the host pad, the
 wrappers' checks, a small learn/predict on the ``cuda`` backend against the
 ``torch`` backend, a streaming sparse learn through K3, the adaptive
 two-tier learn, and the step graphs kept across learns of one layout.
@@ -163,6 +164,42 @@ def test_sparse_implicit_learn_runs_k3(dev, monkeypatch):
     assert not any(launches_t.values())
     assert abs(info_c["iterations"] - info_t["iterations"]) <= 1
     np.testing.assert_allclose(alphas_c, alphas_t, rtol=0, atol=1e-2 * np.abs(alphas_t).max())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_csr_rows_load_on_the_card_bitwise_the_host_pad(dev, dtype):
+    """X of the gram and sparse ``dense`` tiers on the card: the CSR rows
+    staged page-locked, copied and scattered (``_load_csr_rows``) are bit
+    for bit ``np.zeros((D, f))[:dept] = csr[:dept].toarray()`` in the
+    learn's dtype, an empty row and the padding rows zero, the last point
+    left out."""
+    from plssvm_sparse_fp22_tpu_torch.models.base import _load_csr_rows
+
+    rng = np.random.default_rng(12)
+    n, f = 1200, 3001
+    csr = sp.random(n, f, density=0.01, format="lil", random_state=rng,
+                    data_rvs=lambda k: rng.normal(size=k))
+    csr[5, :] = 0.0
+    csr[n - 1, 7] = 0.5
+    csr = csr.tocsr()
+    csr.eliminate_zeros()
+    y = np.where(np.arange(n) % 2 == 0, 1.0, -1.0)
+    p = Parameter(kernel=KernelType.rbf, gamma=0.1, dtype=dtype, print_info=False,
+                  sparse_threshold=1.0)
+    p.data = ParsedData(csr=csr, values=y)
+    p.values = y
+    svm = make_csvm(p)
+    assert svm.device.type == "cuda"
+    dept, D = n - 1, n + 80
+    staged = svm._stage_csr_rows(dept)
+    assert len(staged) == 3 and all(t.is_pinned() for t in staged)
+    X = torch.full((D, f), float("nan"), dtype=svm.dtype, device=dev)
+    _load_csr_rows(X, dept, staged)
+    want = np.zeros((D, f), dtype=dtype)
+    want[:dept] = csr[:dept].toarray()
+    uint = np.uint32 if dtype == np.float32 else np.uint64
+    assert np.array_equal(X.cpu().numpy().view(uint), want.view(uint))
+    assert csr.indptr[5] == csr.indptr[6] and csr[-1].nnz > 0
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -6,7 +6,8 @@
 - Under ``torch.profiler`` every span is a ``plssvm::<label>`` range and
   adds up in ``timing.TRACED``: the root spans ``learn`` and ``predict``,
   the gram tier's ``setup`` parts, the predict's parts, and the counters
-  ``h2d_bytes``, ``cg_captures`` and ``alloc_segments``.
+  ``h2d_bytes``, ``densify_on_device``, ``cg_captures`` and
+  ``alloc_segments``.
 - A sink without a profiler gets what it got before: the disjoint
   ``setup`` / ``cg`` spans, no root span; the gram tier's parts add up to
   no more than its ``setup``.
@@ -232,7 +233,8 @@ def test_h2d_bytes_count_the_arrays_copied(case, monkeypatch):
     if case == "dense":
         want = (dept * f + dept + f) * F32      # rows, b, x_last
     elif case == "sparse gram":
-        want = (2 * D + f + D * f + D) * F32    # b and mask, x_last, padded rows, q
+        nnz = int(sp.csr_matrix(X).indptr[dept])  # the staged rows: counts, columns, values
+        want = dept * 8 + nnz * (8 + F32) + (2 * D + f + D) * F32  # ..., b and mask, x_last, q
     else:
         want = (2 * D + f + D * D + D + D) * F32  # ..., padded Gram and its diagonal, q
     assert timing.TRACED.counters["h2d_bytes"] == want
@@ -241,6 +243,29 @@ def test_h2d_bytes_count_the_arrays_copied(case, monkeypatch):
     if case == "dense":
         _profiled(lambda: svm.predict(X[:40]))
         assert timing.TRACED.counters["h2d_bytes"] == (n + 40 * f + n * f) * F32
+
+
+def _repeated(csr):
+    """``csr`` with every stored value as two entries of one column, which
+    ``toarray()`` adds back up: not in canonical form."""
+    halves = csr.data * 0.5
+    return sp.csr_matrix((np.repeat(halves, 2), np.repeat(csr.indices, 2), 2 * csr.indptr),
+                         shape=csr.shape)
+
+
+@pytest.mark.parametrize("form", ["canonical", "repeated entries"])
+def test_densify_on_device_counts_the_gram_learns_that_scatter(form):
+    X, y = _sparse()
+    svm = _svm(X, y)
+    if form == "repeated entries":
+        svm.data.csr = _repeated(svm.data.csr)
+        assert not svm.data.csr.has_canonical_format
+    _profiled(svm.learn)
+    _profiled(svm.learn)
+    assert svm.last_cg_info["mode"] == "sparse_gram"
+    assert len(timing.TRACED.records["learn"]) == 2
+    assert len(timing.TRACED.parts["setup"]["densify"]) >= 2
+    assert timing.TRACED.counters.get("densify_on_device", 0) == (2 if form == "canonical" else 0)
 
 
 class _StubGraph:

@@ -244,6 +244,59 @@ def test_sparse_refusals():
     assert out[7] == out[4] > 0
 
 
+def _csr_form(form, n=41, f=30, seed=71):
+    """A CSR of ``n`` x ``f`` whose last row holds values: ``canonical``;
+    ``empty row`` (rows 0 and 17 store nothing); ``repeated entries`` (each
+    value stored as two parts of one column, split in float64, which
+    ``toarray()`` adds back up in float64: not in canonical form)."""
+    csr, _ = _random_sparse(n, f, density=0.2, seed=seed)
+    if form == "empty row":
+        lil = csr.tolil()
+        lil[0, :] = 0.0
+        lil[17, :] = 0.0
+        csr = lil.tocsr()
+        csr.eliminate_zeros()
+        assert csr.indptr[1] == 0 and csr.indptr[17] == csr.indptr[18]
+    if form == "repeated entries":
+        rng = np.random.default_rng(seed)
+        part = csr.data * rng.uniform(0.1, 0.9, csr.nnz)
+        data = np.stack([part, csr.data - part], axis=1).ravel()
+        csr = sp.csr_matrix((data, np.repeat(csr.indices, 2), 2 * csr.indptr), shape=csr.shape)
+        assert not csr.has_canonical_format
+    assert csr[-1].nnz > 0
+    return csr
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("form", ["canonical", "empty row", "repeated entries"])
+def test_csr_rows_load_bitwise_the_host_pad(form, dtype):
+    """The rows staged from the CSR and written into X on the device
+    (``_load_csr_rows``, shared by the gram and sparse ``dense`` tiers) are
+    bit for bit the host pad ``np.zeros((D, f))[:dept] = csr[:dept].toarray()``
+    in the learn's dtype: padding rows zero, the last point left out.
+    Canonical rows are staged as counts, columns and values (a scatter);
+    repeated entries as the dense rows, their sums ``toarray()``'s."""
+    from plssvm_sparse_fp22_tpu_torch.models.base import _load_csr_rows
+
+    csr = _csr_form(form)
+    y = np.where(np.arange(csr.shape[0]) % 2 == 0, 1.0, -1.0)
+    svm = tp.make_csvm(_params("torch", csr, y, KT.rbf, dtype=dtype))
+    (n, f), tdt = csr.shape, svm.dtype
+    dept, D = n - 1, n + 7
+    staged = svm._stage_csr_rows(dept)
+    assert len(staged) == (1 if form == "repeated entries" else 3)
+    if len(staged) == 3:
+        assert [t.dtype for t in staged] == [torch.int64, torch.int64, tdt]
+        assert staged[0].tolist() == np.diff(csr.indptr[:n]).tolist()
+    X = torch.full((D, f), float("nan"), dtype=tdt)
+    _load_csr_rows(X, dept, staged)
+    want = np.zeros((D, f), dtype=dtype)
+    want[:dept] = csr[:dept].toarray()
+    uint = np.uint32 if dtype == np.float32 else np.uint64
+    assert np.array_equal(X.numpy().view(uint), want.view(uint))
+    assert not X[dept:].any() and csr[-1].toarray().any()
+
+
 # --- predict ------------------------------------------------------------------
 
 

@@ -318,16 +318,29 @@ class CSVM:
         # profiled: the root span ``learn`` (into ``utils.timing.TRACED``
         # alone, so :attr:`timings` keeps disjoint spans) and the counter
         # ``alloc_segments``, the segments the caching allocator took from
-        # CUDA (its ``cudaMalloc`` calls) inside it, 0 on the CPU
-        before = self._allocated_segments()
+        # CUDA (its ``cudaMalloc`` calls) inside it on every card the learn
+        # may span, 0 on the CPU
+        cards = self._cards()
+        before = self._allocated_segments(cards)
         with span(None, "learn", self.device):
             self._learn()
-        timing.count("alloc_segments", self._allocated_segments() - before)
+        timing.count("alloc_segments", self._allocated_segments(cards) - before)
 
-    def _allocated_segments(self) -> int:
+    def _cards(self) -> list:
+        """The CUDA devices a learn may span: the CSVM's device alone, or
+        the distinct devices of the mesh of :meth:`_num_devices` shards;
+        none on the CPU."""
         if self.device.type != "cuda":
-            return 0
-        return int(torch.cuda.memory_stats(self.device).get("segment.all.allocated", 0))
+            return []
+        ndev = self._num_devices()
+        return [self.device] if ndev == 1 else list(dict.fromkeys(self._mesh(ndev)))
+
+    @staticmethod
+    def _allocated_segments(cards) -> int:
+        """``segment.all.allocated`` of the caching allocator, summed over
+        ``cards``."""
+        return sum(int(torch.cuda.memory_stats(d).get("segment.all.allocated", 0))
+                   for d in cards)
 
     def _learn(self) -> None:
         y = np.asarray(self.values, np.float64)
@@ -669,7 +682,7 @@ class CSVM:
         mesh = self._mesh(ndev)
         with self._span("setup", mesh):
             Xs, b, m = shard_system(mesh, X_pad, b_pad, mask)
-            x_last = torch.from_numpy(np.ascontiguousarray(X[-1], dtype=self._np_dtype))
+            x_last = self._to_device(X[-1], mesh[0])
         precond = str(self.params.precond)
         mode_name = f"sharded_{mode}[{ndev}]"
 

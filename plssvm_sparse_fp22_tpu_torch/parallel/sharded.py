@@ -97,6 +97,7 @@ from ..ops.sparse import (TILE, ELLMatrix, HybridSparse, _heavy_by_panel, densif
                           make_streaming_cross_contrib, sparse_q_qa_kii, tiled_matvec)
 from ..solver.cg import CGState, across_devices, cg_init, cg_run, cg_solve, cg_solve_adaptive
 from ..types import BackendType, KernelType
+from ..utils import timing
 from ..utils.timing import no_span
 from . import distributed
 from .mesh import local_shards, place_local, spans_processes
@@ -171,16 +172,28 @@ def _reduce(mesh, parts) -> torch.Tensor:
     return _psum(mine)
 
 
+def _nbytes(block) -> int:
+    return sum(t.numel() * t.element_size() for t in block)
+
+
 class _Ring:
     """The row blocks of a ring operator and their way around the mesh: what
     a hop reads of block ``j`` as shard ``i`` sees it.  A block is a tuple of
     tensors, of any dtypes, equal in shape from block to block: a dense
     block's tier operands and row norms, a sparse shard's packing and row
     norms.  ``blocks[j]`` is None where another process holds shard ``j``;
-    such a block arrives through :class:`_Exchange`."""
+    such a block arrives through :class:`_Exchange`.
+
+    While a profiler records, each ring step is the host range
+    ``plssvm::ring/step``, and two counters of ``utils.timing.TRACED`` add
+    up: ``ring_hops``, the hops :meth:`hops` yields, and ``ring_bytes``, the
+    bytes of the block tensors :meth:`fetch` copies from one device to
+    another and :class:`_Exchange` sends to other processes (0 where every
+    shard lies on one device).  Off, each costs one attribute read."""
 
     def __init__(self, mesh, blocks):
         self.mesh, self.blocks = mesh, blocks
+        self.block_bytes = _nbytes(next(b for b in blocks if b is not None))
         p = len(mesh)
         self.recv = [None] * p   # one receive buffer per shard, made at first use
         self.free = [None] * p   # event: the last hop that read the buffer is done
@@ -197,12 +210,14 @@ class _Ring:
         ``s`` shard ``i`` reads block ``(i - s) mod p``.  Across processes
         each step begins with its transfers, which every rank posts at the
         same point."""
-        p = len(self.mesh)
+        p, mine = len(self.mesh), local_shards(self.mesh)
         for s in range(p):
-            if self.exchange is not None:
-                self.exchange.begin(s)
-            for i in local_shards(self.mesh):
-                yield i, (i - s) % p
+            with timing.annotate("ring/step"):
+                if self.exchange is not None:
+                    self.exchange.begin(s)
+                timing.count("ring_hops", len(mine))
+                for i in mine:
+                    yield i, (i - s) % p
 
     def fetch(self, i: int, j: int):
         """Block ``j`` for shard ``i``: the owner's tensors where both lie
@@ -220,6 +235,7 @@ class _Ring:
                 # compute stream still reads
                 self.side[dst].wait_stream(torch.cuda.current_stream(dst))
         buf = self.recv[i]
+        timing.count("ring_bytes", self.block_bytes)
         pairs = list(zip(buf, self.blocks[j]))
         if dst not in self.side or src not in self.side:
             for t_dst, t_src in pairs:
@@ -295,6 +311,8 @@ class _Exchange:
                            if self.ranks[(i - s) % p] != self.rank)
         recvs = [(t, self.ranks[j], tag(j, k)) for j, i in recv_from
                  for k, t in enumerate(self._buffers(i, parity)) if t.numel()]
+        if timing.profiling():
+            timing.count("ring_bytes", _nbytes(t for t, _, _ in sends))
         self.works = distributed.post(sends, recvs)
         self.arrived = {i: self._buffers(i, parity) for _, i in recv_from}
 
@@ -596,23 +614,37 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
 
 
+def _count_h2d(a: torch.Tensor, placed) -> None:
+    """The bytes of ``placed`` (tensors made from ``a``) to the counter
+    ``h2d_bytes`` where ``a`` lies in host memory."""
+    if a.device.type == "cpu":
+        timing.count("h2d_bytes", _nbytes(t for t in placed if t is not None))
+
+
 def shard_rows(mesh, a, dtype: torch.dtype | None = None) -> list:
     """The ``len(mesh)`` equal row blocks of ``a`` (numpy or torch, rows a
     multiple of the mesh size), block ``i`` contiguous on ``mesh[i]``; on a
     mesh that spans processes, this process's blocks only (None for the
-    others)."""
+    others).  Host rows add the bytes of the blocks placed to the counter
+    ``h2d_bytes``."""
     a = _tensor(a)
     p = len(mesh)
     if a.shape[0] % p:
         raise ValueError(f"{a.shape[0]} rows do not divide evenly over the {p}-shard mesh; "
                          f"pad the system to a multiple of {p} rows first")
     blocks = a.chunk(p)
-    return place_local(mesh, [blocks[i] for i in local_shards(mesh)], dtype)
+    placed = place_local(mesh, [blocks[i] for i in local_shards(mesh)], dtype)
+    _count_h2d(a, placed)
+    return placed
 
 
 def _whole(mesh, a, dtype: torch.dtype | None = None) -> torch.Tensor:
-    """``a`` whole on the home device."""
-    return _tensor(a).to(device=_home(mesh), dtype=dtype)
+    """``a`` whole on the home device (its bytes to ``h2d_bytes`` where it
+    lies in host memory)."""
+    a = _tensor(a)
+    placed = a.to(device=_home(mesh), dtype=dtype)
+    _count_h2d(a, (placed,))
+    return placed
 
 
 def shard_system(mesh, X_pad, b_pad, mask, dtype: torch.dtype | None = None):

@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path once on an NVIDIA GPU.
 
     python3 chip_smoke.py [--profile | --probe | --sharded | --distributed | --strips | --tools
-                           | --float64 | --cg | --cli]
+                           | --float64 | --cg | --gram | --cli]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 the repository around this script; it imports nothing of JAX.  Phases 3-10
@@ -167,12 +167,27 @@ Phases, one line or more each, any failure exits non-zero:
     first learn captures, a second of the same data nothing, bit for bit
     the first, one at another ``cost`` or ``eps`` only loops not run before
     (on ``highest`` none; a repeat nothing), one graph per loop, one at
-    another ``gamma`` its own; each learn's wall ms.
+    another ``gamma`` its own; each learn's wall ms;
+24. the sparse gram tier's Gram from the CSR rows (``ops/sparse_gram.py``,
+    the pair kernel ``csrc/sparse_gram.cu``) at rcv1's shape (the
+    benchmark's generator, ``lssvm_bench/data/sparse_docs.py``, 20241 x
+    47236): the split at ``split_threshold`` (T, heavy columns, light
+    pairs), the kernel path twice bit for bit, bitwise its plain version on
+    the same slab product, 512 sampled rows within 1e-5 of the float64 Gram
+    beside ``Xd @ Xd.T``'s error, ``sq`` G's diagonal, the padding zero; ms
+    of the split, the slab's product, the pair kernel and the whole Gram
+    beside its bound (the larger of the Gram's write and sum of count²
+    multiply-adds at the float32 peak), the plain version and ``Xd @ Xd.T``
+    (``library_ms``); the split's two rates measured as slopes
+    (``constants.SPARSE_GRAM_*``) and the modelled ms beside the measured
+    ones at several thresholds; two learns of the gram tier, each one pair
+    kernel, counted from zero before it.
 
 ``--sharded`` runs phases 1, 2, 17, 18 and 19 only (the phases that differ
 on a machine with several cards); ``--distributed`` phases 1, 2 and 19;
 ``--strips`` phases 1, 2 and 20; ``--tools`` phases 1, 2 and 21;
-``--float64`` phases 1, 2 and 22; ``--cg`` phases 1, 2 and 23; ``--cli``
+``--float64`` phases 1, 2 and 22; ``--cg`` phases 1, 2 and 23; ``--gram``
+phases 1, 2 and 24; ``--cli``
 phases 1, 2, 6 (its reference check first, on its own data, so that the
 CLIs' splits are those of a process that has used the card, as in the
 full run), 12, 22 (a) and 23 (b): the CLIs and learns with their splits.
@@ -184,9 +199,11 @@ with one launch each instead of a timing loop; it prints no result line.
 The line before the last is the kernels' JSON record: per kernel x tier
 its launches on a main path, its error against and time beside its plain
 version, and ``bound_ms``, the least time the card could take
-(:func:`bound_ms`).  ``library_ms`` is null for all ten: no single PyTorch
-call computes a Gram product, a kernel transform and the GEMVs in one, nor
-both parts of the split.  K2's bf16 records carry the kernel's time on
+(:func:`bound_ms`).  ``library_ms`` is null for the ten Gram-matvec and
+split records: no single PyTorch call computes a Gram product, a kernel
+transform and the GEMVs in one, nor both parts of the split.  The eleventh,
+``sparse_gram_pairs`` (phase 24), is the whole Gram from the rows, its
+``library_ms`` the dense float32 ``Xd @ Xd.T``.  K2's bf16 records carry the kernel's time on
 prepared operands as ``ms`` and the predict's, split or cast inside, as
 ``ms_with_preparation``; K1's exact record also carries its launches under
 the chunked CG loop (phase 15, ``launches_chunked_learn``) and K2's records
@@ -3452,6 +3469,201 @@ def second_learns():
     return out
 
 
+#: phase 24: the benchmark's rcv1 configuration, made by its generator at
+#: this seed on the card
+GRAM_CONFIG = "lssvm_bench/configs/rcv1-rbf.json"
+GRAM_SEED = 12345
+#: thresholds the modelled and measured Gram times are compared at
+GRAM_THRESHOLDS = (64, 256, 512, 1024, 2048, 4096, 1 << 40)
+#: the slab widths the product's rate is taken between
+GRAM_SLAB_WIDTHS = (64, 512)
+#: the thresholds the pair kernel's rate is taken between: the columns
+#: whose counts lie between them, where the split falls at rcv1's D
+GRAM_PAIR_THRESHOLDS = (1024, 4096)
+
+
+def phase_sparse_gram(dev):
+    """24. The sparse gram tier's Gram from the CSR rows
+    (``ops/sparse_gram.py``, the pair kernel ``csrc/sparse_gram.cu``) at
+    rcv1's shape: the split at ``split_threshold``, the kernel path twice
+    (the same bits), the plain version on the card (the same slab product,
+    so the same bits), sampled rows against the float64 Gram and the dense
+    float32 product ``Xd @ Xd.T``, ``sq`` against G's diagonal; ms of the
+    split, the slab's product, the pair kernel, the whole Gram, the plain
+    version and ``Xd @ Xd.T`` (``library_ms``), beside the bound (the
+    Gram's write, or the sum over all columns of count² multiply-adds at
+    the float32 peak, whichever is larger; the slab's own, its product's
+    flops or the write, beside it); the split's two rates measured (the
+    slab's product between two widths, the pairs between two thresholds)
+    and the modelled ms beside the measured ones at several thresholds;
+    then two learns of the gram tier, the launches counted from zero
+    before each: one.  Returns the kernel's record, its launches those of
+    the last learn."""
+    import torch
+
+    from lssvm_bench.data import sparse_docs
+    from plssvm_sparse_fp22_tpu_torch.constants import (SPARSE_GRAM_PAIR_RATE,
+                                                        SPARSE_GRAM_SLAB_RATE)
+    from plssvm_sparse_fp22_tpu_torch.io.libsvm import ParsedData
+    from plssvm_sparse_fp22_tpu_torch.models import make_csvm
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse_gram as sg
+    from plssvm_sparse_fp22_tpu_torch.params import Parameter
+    from plssvm_sparse_fp22_tpu_torch.types import BackendType, KernelType
+
+    with open(os.path.join(ROOT, GRAM_CONFIG)) as fh:
+        cfg = json.load(fh)
+    data = sparse_docs.make(cfg, GRAM_SEED, dev)
+    n, f = data.csr.shape
+    dept = n - 1
+    D = -(-dept // 256) * 256
+    rows = data.csr[:dept]
+    counts = torch.tensor(np.diff(rows.indptr), dtype=torch.int64, device=dev)
+    cols = torch.tensor(rows.indices, dtype=torch.int64, device=dev)
+    vals = torch.tensor(rows.data, dtype=torch.float32, device=dev)
+
+    def split(threshold=None):
+        return sg.split_rows(counts, cols, vals, D, f, threshold=threshold)
+
+    sp_ = split()
+    light_rows = int((sp_.rptr[1:] > sp_.rptr[:-1]).sum())
+    print(f"[24 sparse gram] rcv1 {dept} x {f} (seed {GRAM_SEED}), {rows.nnz} entries, D {D}: "
+          f"T {sp_.threshold}, {sp_.heavy} heavy columns (slab {tuple(sp_.slab.shape)}), "
+          f"{sp_.light_pairs} light pairs, {sp_.rcol.numel()} light entries in {light_rows} "
+          "rows", flush=True)
+    sg.reset_launches()
+    G, sq = sg.gram_from_rows(sp_)
+    torch.cuda.synchronize()
+    check(sg.launches["sparse_gram_pairs"] == 1, f"launches {sg.launches}")
+    G2, _ = sg.gram_from_rows(split())
+    check(torch.equal(G, G2), "two calls of the Gram from the rows differ")
+    del G2
+    check(torch.equal(sq, torch.diagonal(G)), "sq is not G's diagonal")
+    check(torch.equal(G, G.T), "G is not symmetric")
+    Gp = sp_.slab @ sp_.slab.T
+    sg.sparse_gram_pairs_plain(Gp, sp_.rptr, sp_.rcol, sp_.rval, sp_.cptr, sp_.crow, sp_.cval)
+    check(torch.equal(G, Gp), "the kernel's Gram is not bitwise the plain version's")
+    del Gp
+    check(not G[dept:].any() and not G[:, dept:].any(), "padding rows or columns not zero")
+    Xd = torch.zeros((D, f), dtype=torch.float32, device=dev)
+    rix = torch.repeat_interleave(torch.arange(dept, device=dev), counts)
+    Xd.view(-1).index_copy_(0, rix * f + cols, vals)
+    pick = torch.tensor(np.random.default_rng(GRAM_SEED).choice(dept, 512, replace=False),
+                        device=dev)
+    X64 = Xd[:dept].double()
+    want = X64[pick] @ X64.T
+    del X64
+    lib_rows = Xd[pick] @ Xd.T
+    scale = float(want.abs().max())
+    err = float((G[pick, :dept].double() - want).abs().max()) / scale
+    lib_err = float((lib_rows[:, :dept].double() - want).abs().max()) / scale
+    print(f"  512 sampled rows against the float64 Gram: max rel {err:.3e} (Xd @ Xd.T in float32: "
+          f"{lib_err:.3e})", flush=True)
+    check(err <= 1e-5, f"the Gram from the rows is {err} from the float64 Gram")
+
+    ms_split = timed_ms(split, 3)
+    ms_slab = timed_ms(lambda: sp_.slab @ sp_.slab.T, 5)
+    Gw = sp_.slab @ sp_.slab.T
+    ms_pairs = timed_ms(lambda: sg.sparse_gram_pairs(Gw, sp_.rptr, sp_.rcol, sp_.rval, sp_.cptr,
+                                                     sp_.crow, sp_.cval), 5)
+    del Gw
+    ms_gram = timed_ms(lambda: sg.gram_from_rows(sp_), 5)
+    ms_whole = timed_ms(lambda: sg.gram_from_rows(split()), 3)
+
+    def plain():
+        Gq = sp_.slab @ sp_.slab.T
+        sg.sparse_gram_pairs_plain(Gq, sp_.rptr, sp_.rcol, sp_.rval, sp_.cptr, sp_.crow,
+                                   sp_.cval)
+        return Gq
+
+    ms_plain = timed_ms(plain, 1)
+    ms_lib = timed_ms(lambda: Xd @ Xd.T, 3)
+    del Xd
+    hp = sp_.slab.shape[1]
+    col_counts = torch.bincount(cols, minlength=f).double()
+    bound = max(4.0 * D * D / PEAK_BYTES,
+                2.0 * float((col_counts * col_counts).sum()) / PEAK_F32) * 1e3
+    slab_bound = max(4.0 * D * D / PEAK_BYTES, 2.0 * D * D * hp / PEAK_F32) * 1e3
+    print(f"  ms: split {ms_split:.3f}, slab product {ms_slab:.3f}, pair kernel {ms_pairs:.3f}, "
+          f"Gram (product, pairs, sq) {ms_gram:.3f}, with the split {ms_whole:.3f}; bound "
+          f"{bound:.3f} (the Gram's write, or its sum of count^2 multiply-adds at the float32 "
+          f"peak), the slab product's {slab_bound:.3f}; plain {ms_plain:.1f}; Xd @ Xd.T "
+          f"{ms_lib:.3f}", flush=True)
+
+    # the split's two rates, each the slope between two sizes, so that what
+    # both share (the Gram's write, the touched rows' read and write, the
+    # short columns' entries) drops out: the slab's product between two
+    # widths, the pair kernel between two thresholds (the pairs of the
+    # columns whose counts lie between them)
+    slab_ms = {}
+    for w in GRAM_SLAB_WIDTHS:
+        S = torch.rand((D, w), dtype=torch.float32, device=dev)
+        slab_ms[w] = timed_ms(lambda: S @ S.T, 5)
+    del S
+    lo, hi = GRAM_SLAB_WIDTHS
+    slab_rate = D * D * (hi - lo) / ((slab_ms[hi] - slab_ms[lo]) / 1e3)
+    pair_ms = {}
+    for T in GRAM_PAIR_THRESHOLDS:
+        st = split(T)
+        Gt = st.slab @ st.slab.T
+        pair_ms[T] = (st.light_pairs,
+                      timed_ms(lambda: sg.sparse_gram_pairs(Gt, st.rptr, st.rcol, st.rval,
+                                                            st.cptr, st.crow, st.cval), 5))
+        del st, Gt
+    (p_lo, t_lo), (p_hi, t_hi) = (pair_ms[T] for T in GRAM_PAIR_THRESHOLDS)
+    pair_rate = (p_hi - p_lo) / ((t_hi - t_lo) / 1e3)
+    print(f"  rates: slab product {slab_rate:.4g} multiply-adds/s (widths {lo}: "
+          f"{slab_ms[lo]:.3f} ms, {hi}: {slab_ms[hi]:.3f} ms); pairs {pair_rate:.4g} /s "
+          f"(thresholds " + ", ".join(f"{T}: {p} pairs in {t:.3f} ms"
+                                       for T, (p, t) in pair_ms.items())
+          + f"; at the split: {sp_.light_pairs} pairs in {ms_pairs:.3f} ms, "
+          f"{light_rows} rows read and written)", flush=True)
+    sweep = []
+    for T in (*GRAM_THRESHOLDS, sp_.threshold):
+        st = split(T)
+        ms = timed_ms(lambda: sg.gram_from_rows(st), 2)
+        model = (D * D * st.slab.shape[1] / SPARSE_GRAM_SLAB_RATE
+                 + st.light_pairs / SPARSE_GRAM_PAIR_RATE) * 1e3
+        sweep.append((T, st.heavy, st.light_pairs, round(ms, 3), round(model, 3)))
+        del st
+    print("  threshold, heavy, light pairs, measured ms, modelled ms (the slab's product and "
+          "the pairs at the two rates): " + "; ".join(str(x) for x in sweep), flush=True)
+
+    # two learns of the gram tier on the main path, each one launch of the
+    # pair kernel counted from zero
+    y = data.y
+    p = Parameter(kernel=KernelType.rbf, gamma=1.0, cost=1.0, epsilon=1e-3, dtype=np.float32,
+                  backend=BackendType.cuda, devices=1, print_info=False)
+    p.data = ParsedData(csr=data.csr.astype(np.float32), values=y)
+    p.values = y
+    learn_ms = []
+    for _ in range(2):
+        svm = make_csvm(p)
+        sg.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svm.learn()
+        torch.cuda.synchronize()
+        learn_ms.append((time.perf_counter() - t0) * 1e3)
+        check(svm.last_cg_info["mode"] == "sparse_gram", f"mode {svm.last_cg_info['mode']}")
+        learn_launches = sg.launches["sparse_gram_pairs"]
+        check(learn_launches == 1, f"a learn launched the pair kernel {learn_launches} times")
+    print(f"  learns: {', '.join(f'{ms:.1f}' for ms in learn_ms)} ms, one pair kernel each",
+          flush=True)
+    return {"name": "sparse_gram_pairs", "route": "cuda",
+            "source": "plssvm_sparse_fp22_tpu_torch/csrc/sparse_gram.cu",
+            "replaces": "none: XLA's dense product (plssvm_sparse_fp22_tpu/models/base.py:944)",
+            "launches": learn_launches, "ms": round(ms_gram, 4), "plain_ms": round(ms_plain, 3),
+            "bound_ms": round(bound, 4),
+            "bound_by": ("bytes" if 4.0 * D * D / PEAK_BYTES * 1e3 >= bound
+                         else "float32 operations"),
+            "slab_bound_ms": round(slab_bound, 4),
+            "library_ms": round(ms_lib, 3), "error_vs_float64": err,
+            "shape": [dept, f, D], "threshold": sp_.threshold, "heavy": sp_.heavy,
+            "light_pairs": sp_.light_pairs, "pair_kernel_ms": round(ms_pairs, 4),
+            "slab_ms": round(ms_slab, 4), "split_ms": round(ms_split, 4),
+            "slab_rate": slab_rate, "pair_rate": pair_rate}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3480,6 +3692,9 @@ def main(argv=None) -> int:
                         help="build, then the CLIs with their splits: phases 6 and 12 (dense "
                              "rbf 32768 x 256, float32), 22 (a) (float64) and 23 (b) (learns "
                              "of one layout)")
+    parser.add_argument("--gram", action="store_true",
+                        help="build, then phase 24 only: the sparse gram tier's Gram from the "
+                             "CSR rows at rcv1's shape")
     parser.add_argument("--probe", action="store_true",
                         help="build, show the compiler's resource lines, check the split and "
                              "every bf16 kernel with one launch each, and stop")
@@ -3536,6 +3751,11 @@ def main(argv=None) -> int:
             second_learns()
             print("cg loop phase passed", flush=True)
             return 0
+        if args.gram:
+            os.environ["PLSSVM_DEVICES"] = "1"
+            print(json.dumps(phase_sparse_gram(dev)), flush=True)
+            print("sparse gram phase passed", flush=True)
+            return 0
         if args.cli:
             os.environ["PLSSVM_DEVICES"] = "1"
             with environ(PLSSVM_MATMUL_PRECISION="highest"):
@@ -3588,17 +3808,21 @@ def main(argv=None) -> int:
         phase_float64(dev)
         phase_cg_loop(dev)
         second_learns()
+        sparse_gram = phase_sparse_gram(dev)
         if args.profile:
             with environ(PLSSVM_MATMUL_PRECISION="highest"):
                 phase_profile(sparse)
-        print("library_ms is null for every kernel: no single PyTorch call computes K(X, Y) v "
-              "(a Gram product, a kernel transform and one or two GEMVs) or both parts of the bf16 "
-              "split; the plain versions are those calls in sequence", flush=True)
+        print("library_ms is null for every kernel but sparse_gram_pairs: no single PyTorch call "
+              "computes K(X, Y) v (a Gram product, a kernel transform and one or two GEMVs) or "
+              "both parts of the bf16 split; the plain versions are those calls in sequence. "
+              "sparse_gram_pairs's record is the whole Gram from the rows (slab product, pairs, "
+              "sq) beside Xd @ Xd.T", flush=True)
         kernels = [{"name": name, "route": "cuda", "source": source_of(name),
                     "replaces": REPLACES[name], "launches": launches[name], **rec,
                     **bound_ms(name, *RECORD_SHAPES[name.partition("/")[0]]),
                     "library_ms": None}
                    for name, rec in records.items()]
+        kernels.append(sparse_gram)
         # the later paths beside the earlier ones: K1 under the chunked CG loop
         # (phase 15), K2 and the split on the ring of 4 shards (phase 17), K2
         # on the sparse panel ring of 2 shards (phase 18), K2 and the split on
@@ -3617,7 +3841,7 @@ def main(argv=None) -> int:
                 k["launches_distributed_sparse_ring"] = dist_panel[k["name"]]
             if k["name"] in strips:
                 k["strips"] = strips[k["name"]]
-        check(len(kernels) == 10 and all(k["launches"] > 0 for k in kernels),
+        check(len(kernels) == 11 and all(k["launches"] > 0 for k in kernels),
               f"a kernel of the path never launched: {launches}")
         check(chunked["gram_matvec_sym/exact"] > 0
               and all(ring.get(f"gram_matvec_rect/{t}", 0) > 0 for t in TIERS_ALL)

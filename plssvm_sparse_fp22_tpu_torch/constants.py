@@ -43,3 +43,18 @@ CUDA_TILE: int = 128
 #: ``csrc/gram_tile_wgmma.cuh``), and a TMA row stride must be a multiple of
 #: 16 bytes.
 CUDA_FEATURE_PAD: int = 64
+
+#: The sparse gram tier's column split (``ops/sparse_gram.py``): a heavy
+#: column costs D² multiply-adds in the slab's float32 product, a light one
+#: count² pairs in ``csrc/sparse_gram.cu``, so a column is heavy from
+#: ``D sqrt(PAIR_RATE / SLAB_RATE)`` rows on.  Each rate is a slope between
+#: two sizes at rcv1's shape (``chip_smoke.py`` phase 24, D = 20480; NVIDIA
+#: H100 80GB HBM3, 700 W, torch 2.11.0+cu128), so that what both sizes share
+#: (the Gram's write, the touched rows' read and write) drops out; no other
+#: shape was timed.  Multiply-adds per second of the slab's product, between
+#: widths 64 and 512 (1.648 and 8.436 ms):
+SPARSE_GRAM_SLAB_RATE: float = 2.768e13
+#: pairs per second of the pair kernel, between thresholds 1024 and 4096
+#: (1.66e8 and 7.48e8 light pairs; the columns in between hold 1024 to 4095
+#: rows, long lists that fill a block, where the split falls):
+SPARSE_GRAM_PAIR_RATE: float = 5.4e11

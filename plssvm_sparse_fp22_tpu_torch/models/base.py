@@ -980,25 +980,33 @@ class CSVM:
                                         precond=precond, span=self._span)
             return "sparse_implicit", out
 
-        # gram tier: X densified on the device from the CSR rows (a
-        # budget-gated transient) and one device product, or the host SpGEMM
-        # for very wide data; the parts of its ``setup`` span: ``densify``
-        # (the rows staged on the host, then zeroed X and the scatter into
-        # it), ``h2d`` (the staged rows' copies, or the Gram's), ``gram``
-        # (the product and the row norms, or the host SpGEMM) and ``q`` (the
-        # host products with the last point)
+        # gram tier: the Gram from the CSR rows on the device (float32 on
+        # the CPU or the kernels' backend: a slab of the heavy columns and
+        # the light pairs, ops/sparse_gram.py; float64, the ``torch`` backend
+        # on a card, or rows not in canonical form: X densified, a
+        # budget-gated transient, and one product), or the host SpGEMM for
+        # very wide data; the parts of its ``setup`` span: ``densify`` (the
+        # rows staged on the host, then the column split, or zeroed X and the
+        # scatter into it), ``h2d`` (the staged rows' copies, or the Gram's),
+        # ``gram`` (the products and the row norms, or the host SpGEMM) and
+        # ``q`` (the host products with the last point)
         with self._span("setup"):
             if f <= device_gram_max_features() and dense_x_fits:
                 with self._span("setup/densify"):
                     staged = self._stage_csr_rows(dept)
-                    Xd = torch.empty((D, f), dtype=self.dtype, device=dev)
-                _load_csr_rows(Xd, dept, staged,
-                               copies=functools.partial(self._span, "setup/h2d"),
-                               fill=functools.partial(self._span, "setup/densify"))
-                with self._span("setup/gram"):
-                    G = Xd @ Xd.T
-                    sq = torch.sum(Xd * Xd, dim=1)
-                del Xd
+                if len(staged) == 3 and self.dtype == torch.float32 and (
+                        dev.type == "cpu" or uses_kernels(self.backend, self.dtype)):
+                    G, sq = self._gram_from_rows(D, f, staged)
+                else:
+                    with self._span("setup/densify"):
+                        Xd = torch.empty((D, f), dtype=self.dtype, device=dev)
+                    _load_csr_rows(Xd, dept, staged,
+                                   copies=functools.partial(self._span, "setup/h2d"),
+                                   fill=functools.partial(self._span, "setup/densify"))
+                    with self._span("setup/gram"):
+                        G = Xd @ Xd.T
+                        sq = torch.sum(Xd * Xd, dim=1)
+                    del Xd
             else:
                 with self._span("setup/gram"):
                     G_host = host_gram_from_csr(csr, dept)
@@ -1017,6 +1025,32 @@ class CSVM:
                               self.gamma, self.coef0, *common, kernel=self.kernel,
                               degree=self.degree, precond=precond, span=self._span)
         return "sparse_gram", out
+
+    def _gram_from_rows(self, D, f, staged):
+        """``(G, sq)`` of the float32 gram tier from the staged CSR rows
+        (:meth:`_stage_csr_rows`, canonical form), without a dense X: the
+        rows copied to the device (``setup/h2d``, their bytes to
+        ``h2d_bytes``), split by column counts into a slab of the heavy
+        columns and the light entries by row and by column
+        (``setup/densify``), then the slab's product and the light pairs
+        (``setup/gram``; :mod:`~..ops.sparse_gram`).  Counters:
+        ``densify_on_device`` and ``gram_from_rows`` (one a learn),
+        ``gram_heavy_cols`` (the split's heavy columns), ``gram_light_pairs``
+        (its light pairs)."""
+        from ..ops.sparse_gram import gram_from_rows, split_rows
+
+        timing.count("h2d_bytes", sum(t.nbytes for t in staged))
+        with self._span("setup/h2d"):
+            counts, cols, vals = (t.to(self.device, non_blocking=True) for t in staged)
+        with self._span("setup/densify"):
+            split = split_rows(counts, cols, vals, D, f)
+        timing.count("densify_on_device")
+        with self._span("setup/gram"):
+            G, sq = gram_from_rows(split)
+        timing.count("gram_from_rows")
+        timing.count("gram_heavy_cols", split.heavy)
+        timing.count("gram_light_pairs", split.light_pairs)
+        return G, sq
 
     # ---------------------------------------------------------------- predict
 

@@ -41,6 +41,7 @@ MODULES = [
     f"{PKG}.ops.kernel_functions",
     f"{PKG}.ops.gram_matvec",
     f"{PKG}.ops.sparse",
+    f"{PKG}.ops.sparse_gram",
     f"{PKG}.parallel.mesh",
     f"{PKG}.parallel.sharded",
     f"{PKG}.parallel.distributed",

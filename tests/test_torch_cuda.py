@@ -5,6 +5,8 @@ than SMs, operands prepared by the caller), the one-pass bf16 split bit for
 bit against its plain version, determinism, launch counts, the scratch in
 strips (bitwise the one-strip result, the slab within its budget), the
 sparse tiers' X scattered from CSR rows bit for bit the host pad, the
+sparse gram tier's Gram from the CSR rows (the pair kernel against its
+plain version and the float64 Gram, its launches and counters), the
 wrappers' checks, a small learn/predict on the ``cuda`` backend against the
 ``torch`` backend, a streaming sparse learn through K3, the adaptive
 two-tier learn, and the step graphs kept across learns of one layout.
@@ -797,3 +799,122 @@ def test_k1_slab_stays_within_its_budget(dev):
     want = gm._launch_sym(KernelType.rbf, "bf16cast", ops, v, sq, 3, 1 / 64, 1.0,
                           scratch_bytes=512 * 1024**2)
     assert torch.equal(got, want)
+
+
+# --- the sparse gram tier's Gram from the CSR rows (csrc/sparse_gram.cu) ---------------
+
+
+def _gram_rows(csr, dev):
+    """The first n - 1 rows of ``csr`` as the gram tier stages them, on
+    ``dev``, with the padded D."""
+    dept = csr.shape[0] - 1
+    rows = csr[:dept]
+    staged = (torch.tensor(np.diff(rows.indptr), dtype=torch.int64, device=dev),
+              torch.tensor(rows.indices, dtype=torch.int64, device=dev),
+              torch.tensor(rows.data, dtype=torch.float32, device=dev))
+    return staged, dept, -(-dept // 256) * 256
+
+
+def _uniform_csr(n, f, density, seed):
+    rng = np.random.default_rng(seed)
+    return sp.random(n, f, density=density, format="csr", random_state=rng,
+                     data_rvs=lambda k: rng.normal(size=k))
+
+
+@pytest.mark.parametrize("profile,threshold", [("zipf", None), ("zipf", 1 << 40),
+                                               ("uniform 25 %", None),
+                                               ("uniform 25 %", 1 << 40)],
+                         ids=["zipf", "zipf-all-light", "uniform", "uniform-all-light"])
+def test_sparse_gram_pairs_match_plain_and_float64(dev, profile, threshold):
+    """The Gram from the rows on the card at a Zipf shape like rcv1's (4096
+    x 8192) and a uniform 25 %-dense one, at the split's threshold and all
+    light: the same bits on two calls, bitwise the plain version on the
+    same slab product, within float32 rounding of the float64 Gram, the
+    padding zero, ``sq`` G's diagonal; one launch where a light pair is
+    left."""
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse_gram as sg
+    from utils import zipf_csr
+
+    csr = (zipf_csr(4096, 8192, seed=5) if profile == "zipf"
+           else _uniform_csr(1024, 512, 0.25, seed=5))
+    (counts, cols, vals), dept, D = _gram_rows(csr, dev)
+    f = csr.shape[1]
+    split = sg.split_rows(counts, cols, vals, D, f, threshold=threshold)
+    if profile == "zipf" and threshold is None:
+        assert 0 < split.heavy < 8192 and split.light_pairs > 0
+    if profile != "zipf" and threshold is None:
+        assert split.light_pairs == 0  # dense columns: the slab's product alone
+    sg.reset_launches()
+    G, sq = sg.gram_from_rows(split)
+    G2, _ = sg.gram_from_rows(sg.split_rows(counts, cols, vals, D, f, threshold=threshold))
+    assert sg.launches["sparse_gram_pairs"] == (2 if split.light_pairs else 0)
+    assert torch.equal(G, G2) and torch.equal(sq, torch.diagonal(G))
+    plain = split.slab @ split.slab.T
+    sg.sparse_gram_pairs_plain(plain, split.rptr, split.rcol, split.rval, split.cptr,
+                               split.crow, split.cval)
+    assert torch.equal(G, plain)
+    want = (csr[:dept] @ csr[:dept].T).toarray()
+    got = G.double().cpu().numpy()
+    assert not got[dept:].any() and not got[:, dept:].any()
+    assert np.abs(got[:dept, :dept] - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("max_chunk", [256, 250, 1000])
+def test_sparse_gram_pairs_chunked_rows_match_one_chunk(dev, max_chunk):
+    """The kernel's chunked walk (a row cut into chunks, each list narrowed
+    to the chunk by binary search), which a D above what shared memory
+    holds takes, forced at 4096 by a cap on the chunk: 16 chunks of 256
+    floats, chunks of 250 (the one-float copies) and of 1000 (a last chunk
+    of 96): bitwise the one-chunk kernel and the plain version, the
+    padding zero."""
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse_gram as sg
+    from utils import zipf_csr
+
+    csr = zipf_csr(4096, 8192, seed=7)
+    (counts, cols, vals), dept, D = _gram_rows(csr, dev)
+    split = sg.split_rows(counts, cols, vals, D, csr.shape[1])
+    assert split.light_pairs > 0 and D > max_chunk
+    args = (split.rptr, split.rcol, split.rval, split.cptr, split.crow, split.cval)
+    one = sg.sparse_gram_pairs(split.slab @ split.slab.T, *args)
+    chunked = sg.sparse_gram_pairs(split.slab @ split.slab.T, *args, max_chunk=max_chunk)
+    plain = sg.sparse_gram_pairs_plain(split.slab @ split.slab.T, *args)
+    assert torch.equal(chunked, one) and torch.equal(chunked, plain)
+    assert not chunked[dept:].any() and not chunked[:, dept:].any()
+
+
+def test_gram_tier_learns_count_the_pair_kernel_and_the_path(dev):
+    """Each float32 gram-tier learn launches the pair kernel once and counts
+    ``gram_from_rows`` once (with its split's heavy columns and light
+    pairs); the float64 learn keeps the dense product: no launch, no
+    count."""
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse_gram as sg
+    from plssvm_sparse_fp22_tpu_torch.utils import timing
+    from plssvm_sparse_fp22_tpu_torch.utils.timing import Timings
+    from utils import zipf_csr
+
+    csr = zipf_csr(2048, 8192, seed=9)
+    y = np.where(np.arange(csr.shape[0]) % 3 == 0, 1.0, -1.0)
+    old = timing.TRACED
+    try:
+        for dtype, launches in ((np.float32, 1), (np.float64, 0)):
+            timing.TRACED = Timings()
+            p = Parameter(kernel=KernelType.rbf, gamma=1.0, dtype=dtype, print_info=False,
+                          devices=1, epsilon=1e-3)
+            p.data = ParsedData(csr=csr, values=y)
+            p.values = y
+            sg.reset_launches()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                for k in range(2):
+                    svm = make_csvm(p)
+                    svm.learn()
+                    assert svm.last_cg_info["mode"] == "sparse_gram"
+                    assert sg.launches["sparse_gram_pairs"] == launches * (k + 1)
+            counters = timing.TRACED.counters
+            assert counters.get("gram_from_rows", 0) == 2 * launches
+            assert counters["densify_on_device"] == 2
+            if launches:
+                assert counters["gram_heavy_cols"] % 2 == 0 < counters["gram_light_pairs"]
+            else:
+                assert "gram_heavy_cols" not in counters
+    finally:
+        timing.TRACED = old

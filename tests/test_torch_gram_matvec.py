@@ -123,7 +123,8 @@ def test_build_covers_every_source_and_header(tmp_path, monkeypatch):
     from plssvm_sparse_fp22_tpu_torch.ops import _build
 
     assert [os.path.basename(p) for p in _build.sources()] == ["cg_chunk.cu", "gram_matvec.cu",
-                                                               "pair_contrib.cu", "split_bf16.cu"]
+                                                               "pair_contrib.cu", "sparse_gram.cu",
+                                                               "split_bf16.cu"]
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
@@ -134,7 +135,7 @@ def test_build_covers_every_source_and_header(tmp_path, monkeypatch):
     (csrc / "extra.cu").write_text("// another kernel source\n")
     assert [os.path.basename(p) for p in _build.sources()] == ["cg_chunk.cu", "extra.cu",
                                                                "gram_matvec.cu", "pair_contrib.cu",
-                                                               "split_bf16.cu"]
+                                                               "sparse_gram.cu", "split_bf16.cu"]
 
 
 #: a process that builds into the directory ``argv[1]`` and prints what came of it

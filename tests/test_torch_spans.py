@@ -6,7 +6,8 @@
 - Under ``torch.profiler`` every span is a ``plssvm::<label>`` range and
   adds up in ``timing.TRACED``: the root spans ``learn`` and ``predict``,
   the gram tier's ``setup`` parts, the predict's parts, and the counters
-  ``h2d_bytes``, ``densify_on_device``, ``cg_captures`` and
+  ``h2d_bytes``, ``densify_on_device``, ``gram_from_rows``,
+  ``gram_heavy_cols``, ``gram_light_pairs``, ``cg_captures`` and
   ``alloc_segments``.
 - A sink without a profiler gets what it got before: the disjoint
   ``setup`` / ``cg`` spans, no root span; the gram tier's parts add up to
@@ -233,6 +234,8 @@ def test_h2d_bytes_count_the_arrays_copied(case, monkeypatch):
     if case == "dense":
         want = (dept * f + dept + f) * F32      # rows, b, x_last
     elif case == "sparse gram":
+        # the Gram from the rows copies what the dense scatter copied
+        assert timing.TRACED.counters["gram_from_rows"] == 1
         nnz = int(sp.csr_matrix(X).indptr[dept])  # the staged rows: counts, columns, values
         want = dept * 8 + nnz * (8 + F32) + (2 * D + f + D) * F32  # ..., b and mask, x_last, q
     else:
@@ -266,6 +269,51 @@ def test_densify_on_device_counts_the_gram_learns_that_scatter(form):
     assert len(timing.TRACED.records["learn"]) == 2
     assert len(timing.TRACED.parts["setup"]["densify"]) >= 2
     assert timing.TRACED.counters.get("densify_on_device", 0) == (2 if form == "canonical" else 0)
+
+
+def test_gram_from_rows_counters_on_a_small_csr():
+    """Each float32 gram-tier learn counts ``gram_from_rows`` once, the
+    split's heavy columns under ``gram_heavy_cols`` and its light pairs
+    under ``gram_light_pairs``: the staged rows' column counts split at
+    :func:`~plssvm_sparse_fp22_tpu_torch.ops.sparse_gram.split_threshold`."""
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse_gram as sg
+    from utils import zipf_csr
+
+    X = zipf_csr(300, 2000, nnz_per_row=20, seed=2).toarray()
+    y = np.where(np.arange(300) % 3 == 0, 1.0, -1.0)
+    svm = _svm(X, y)
+    _profiled(svm.learn)
+    _profiled(svm.learn)
+    assert svm.last_cg_info["mode"] == "sparse_gram"
+    counts = np.bincount(sp.csr_matrix(X)[:-1].indices, minlength=X.shape[1]).astype(np.int64)
+    T = sg.split_threshold(svm.last_cg_info["padded"])
+    h, P = int((counts >= T).sum()), int((counts[counts < T] ** 2).sum())
+    assert 0 < h < X.shape[1] and P > 0
+    counters = timing.TRACED.counters
+    assert counters["gram_from_rows"] == 2 and counters["densify_on_device"] == 2
+    assert counters["gram_heavy_cols"] == 2 * h and counters["gram_light_pairs"] == 2 * P
+
+
+def test_gram_tier_densify_and_gram_ranges_fall_within_setup():
+    """Under the profiler every ``setup/densify``, ``setup/h2d`` and
+    ``setup/gram`` range of a gram-tier learn lies inside a ``setup``
+    range."""
+    X, y = _sparse()
+    svm = _svm(X, y)
+    prof = trace.profiler()
+    prof.start()
+    try:
+        svm.learn()
+    finally:
+        prof.stop()
+    ranges = [(e[0][len("plssvm::"):], e[4], e[5]) for e in trace._events(prof)
+              if e[0].startswith("plssvm::")]
+    setups = [(a, b) for name, a, b in ranges if name == "setup"]
+    parts = [(name, a, b) for name, a, b in ranges
+             if name in ("setup/densify", "setup/h2d", "setup/gram")]
+    assert {name for name, _, _ in parts} == {"setup/densify", "setup/h2d", "setup/gram"}
+    for name, a, b in parts:
+        assert any(s0 <= a and b <= s1 for s0, s1 in setups), name
 
 
 class _StubGraph:

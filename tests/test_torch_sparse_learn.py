@@ -297,6 +297,184 @@ def test_csr_rows_load_bitwise_the_host_pad(form, dtype):
     assert not X[dept:].any() and csr[-1].toarray().any()
 
 
+
+# --- the float32 gram tier's Gram from the CSR rows (ops/sparse_gram.py) --------
+
+
+def _gram_case(case, n=60, f=80, seed=29):
+    """``(csr, dept, D, threshold)`` of one case of the Gram from the rows:
+    a CSR of ``n`` x ``f`` at 10 % density, the rows the Gram takes, its
+    padded size and the split's threshold (``None``: ``split_threshold``'s)."""
+    rng = np.random.default_rng(seed)
+    lil = sp.random(n, f, density=0.1, format="lil", random_state=rng,
+                    data_rvs=lambda k: rng.normal(size=k))
+    dept, D, threshold = n - 1, 128, None
+    if case == "all light":
+        threshold = 1 << 40
+    elif case == "all heavy":
+        threshold = 1
+    elif case == "a column in every row":
+        lil[:, 3] = rng.normal(size=(n, 1))
+    elif case == "empty rows":
+        for i in (0, 7, 30):
+            lil[i, :] = 0.0
+        threshold = 7
+    elif case == "rows only in heavy columns":
+        lil[:, 0] = rng.normal(size=(n, 1))
+        lil[:, 1] = rng.normal(size=(n, 1))
+        for i in (3, 11):
+            lil[i, 2:] = 0.0
+        threshold = 20  # columns 0 and 1 (n rows each) heavy, the others (about 6) light
+    elif case == "dept < n":
+        dept, D, threshold = n - 12, 64, 6
+    csr = lil.tocsr()
+    csr.eliminate_zeros()
+    return csr, dept, D, threshold
+
+
+GRAM_CASES = ["all light", "all heavy", "a column in every row", "empty rows",
+              "rows only in heavy columns", "dept < n"]
+
+
+def _split(csr, dept, D, threshold=None):
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse_gram as sg
+
+    rows = csr[:dept]
+    return sg.split_rows(torch.tensor(np.diff(rows.indptr)), torch.tensor(rows.indices).long(),
+                         torch.tensor(rows.data, dtype=torch.float32), D, csr.shape[1],
+                         threshold=threshold)
+
+
+@pytest.mark.parametrize("case", GRAM_CASES)
+def test_gram_from_rows_plain_matches_the_float64_gram(case):
+    """The CPU path (the slab's product and the plain pairs) equals the
+    float64 ``csr @ csr.T`` of the first dept rows within float32 rounding
+    (about ten terms an entry: 1e-6 of the largest), padding rows and
+    columns zero, whatever the split leaves on each side."""
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse_gram as sg
+
+    csr, dept, D, threshold = _gram_case(case)
+    split = _split(csr, dept, D, threshold)
+    counts = np.bincount(csr[:dept].indices, minlength=csr.shape[1])
+    if case == "all light":
+        assert split.heavy == 0 and split.slab.shape == (D, 0)
+    if case == "all heavy":
+        assert split.light_pairs == 0 and split.heavy == np.count_nonzero(counts)
+    if case == "rows only in heavy columns":
+        assert split.heavy == 2 and split.light_pairs > 0
+        assert split.rptr[4] == split.rptr[3] and split.rptr[12] == split.rptr[11]
+    if case == "empty rows":
+        assert 0 < split.heavy and split.light_pairs > 0
+    assert split.slab.shape[1] % sg.SLAB_PAD == 0
+    G, _ = sg.gram_from_rows(split)
+    assert G.shape == (D, D) and G.dtype == torch.float32
+    want = (csr[:dept] @ csr[:dept].T).toarray()
+    got = G.double().numpy()
+    assert not got[dept:].any() and not got[:, dept:].any()
+    assert np.abs(got[:dept, :dept] - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("case", ["model's split", "all light", "all heavy"])
+def test_gram_from_rows_sq_is_the_diagonal_bitwise(case):
+    """``sq`` is G's diagonal bit for bit, so the rbf distance of a point
+    to itself is exactly 0 before the clamp."""
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse_gram as sg
+
+    csr, dept, D, _ = _gram_case("a column in every row")
+    threshold = {"model's split": None, "all light": 1 << 40, "all heavy": 1}[case]
+    G, sq = sg.gram_from_rows(_split(csr, dept, D, threshold))
+    assert torch.equal(sq, torch.diagonal(G))
+    assert not torch.any(sq + sq - 2.0 * torch.diagonal(G))
+
+
+def _count_profile(profile):
+    from utils import zipf_csr
+
+    if profile == "zipf":
+        csr = zipf_csr(2000, 3000, seed=17)
+    else:
+        csr = sp.random(1000, 400, density=0.25, format="csr", random_state=17)
+    dept = csr.shape[0] - 1
+    return csr, dept, -(-dept // 256) * 256
+
+
+@pytest.mark.parametrize("profile", ["zipf", "uniform 25 %"])
+def test_split_threshold_falls_where_the_cost_model_says(profile):
+    """The split's T has the least modelled cost over every threshold
+    (brute force, one at a time: the slab's product D² per heavy column at
+    the slab's rate, the light columns' count² at the pair rate), and h and
+    P are the heavy columns and light pairs at T.  Zipf counts split both
+    ways; uniform 25 %-dense counts go all heavy, the slab's product over
+    the occupied columns."""
+    from plssvm_sparse_fp22_tpu_torch.constants import (SPARSE_GRAM_PAIR_RATE,
+                                                        SPARSE_GRAM_SLAB_RATE)
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse_gram as sg
+
+    csr, dept, D = _count_profile(profile)
+    counts = np.bincount(csr[:dept].indices, minlength=csr.shape[1]).astype(np.int64)
+    split = _split(csr, dept, D)
+    T = split.threshold
+    assert T == sg.split_threshold(D)
+
+    def cost(t):
+        light = counts[counts < t]
+        return (D * D * int((counts >= t).sum()) / SPARSE_GRAM_SLAB_RATE
+                + float((light**2).sum()) / SPARSE_GRAM_PAIR_RATE)
+
+    least = min(cost(t) for t in range(1, counts.max() + 2))
+    assert cost(T) <= least * (1 + 1e-12)
+    assert split.heavy == int((counts >= T).sum())
+    assert split.light_pairs == int((counts[counts < T] ** 2).sum())
+    occupied = np.count_nonzero(counts)
+    if profile == "zipf":
+        assert 0 < split.heavy < occupied and split.light_pairs > 0
+    else:
+        assert split.heavy == occupied and split.light_pairs == 0
+
+
+@pytest.mark.parametrize("kernel", [KT.polynomial, KT.rbf])
+def test_float32_gram_learn_from_rows_matches_jax(kernel):
+    """A float32 gram-tier learn through the Gram from the rows (a slab of
+    heavy columns and light pairs, counted ``gram_from_rows``) matches the
+    JAX package's dense product within float32's CG budgets
+    (``test_torch_model.py::test_learn_float32_matches_jax``): converged
+    to eps 1e-6, iterations within one (rbf) or three (polynomial), alphas
+    to 1e-3 (rbf) or 1e-2 of their scale, the bias within the tolerance
+    its stopping residual allows, the port's residual within the stopping
+    rule."""
+    from test_torch_model import cg_bias_tolerance, cg_residual
+    from utils import zipf_csr
+
+    from plssvm_sparse_fp22_tpu_torch.utils import timing
+
+    csr = zipf_csr(400, 600, nnz_per_row=20, seed=3)
+    score = np.asarray(csr[:, :50].sum(axis=1)).ravel()
+    y = np.where(score > np.median(score), 1.0, -1.0)
+    kw = dict(epsilon=1e-6, max_iter=400, dtype=np.float32)
+    j = _learn("jax", csr, y, kernel, **kw)
+    old = timing.TRACED
+    timing.TRACED = timing.Timings()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            t = _learn("torch", csr, y, kernel, **kw)
+        counters = timing.TRACED.counters
+    finally:
+        timing.TRACED = old
+    assert counters["gram_from_rows"] == 1
+    assert counters["gram_heavy_cols"] > 0 and counters["gram_light_pairs"] > 0
+    rbf = kernel == KT.rbf
+    ji, ti = j.last_cg_info, t.last_cg_info
+    assert ti["mode"] == ji["mode"] == "sparse_gram"
+    assert abs(ti["iterations"] - ji["iterations"]) <= (1 if rbf else 3)
+    scale = np.abs(j.alphas).max()
+    np.testing.assert_allclose(t.alphas, j.alphas, rtol=0, atol=(1e-3 if rbf else 1e-2) * scale)
+    X = csr.toarray()
+    hyper = dict(degree=3, gamma=0.2, coef0=1.0)
+    assert cg_residual(X, y, kernel, 1.0, t.alphas, **hyper) <= \
+        2 * 1e-6 * np.sqrt(ti["delta0"])
+    btol = cg_bias_tolerance(X, y, kernel, 1.0, [t.alphas, j.alphas], np.float32, **hyper)
+    assert abs(t.bias_ - j.bias_) <= btol
+
 # --- predict ------------------------------------------------------------------
 
 

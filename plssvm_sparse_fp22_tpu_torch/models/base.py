@@ -52,6 +52,7 @@ from ..ops.kernel_functions import gram_block, kernel_scalar
 from ..ops.matvec import (_k_cache_budget_bytes, build_operator, choose_mode,
                           choose_sharded_mode, fixed_tier, jacobi_minv, resolve_mxu_plan,
                           symmetric_enabled, tier_precision, uses_kernels)
+from ..ops.sparse import host_tensor, load_csr_rows, stage_csr_rows
 from ..params import Parameter
 from ..solver import cg as cg_loop
 from ..solver.cg import cg_init, cg_run, cg_solve, cg_solve_adaptive
@@ -76,33 +77,6 @@ def _torch_dtype(dtype) -> torch.dtype:
         raise PLSSVMError(f"Unsupported real type '{dtype}' (float32 or float64)!") from None
 
 
-def _load_csr_rows(X: torch.Tensor, dept: int, staged: tuple,
-                   copies=contextlib.nullcontext, fill=contextlib.nullcontext) -> None:
-    """Write the CSR rows ``staged`` (:meth:`CSVM._stage_csr_rows`) into the
-    first ``dept`` rows of ``X`` (D, f) and zero the rest: the row counts,
-    column indices and values are copied to ``X``'s device inside
-    ``copies()``, then, inside ``fill()``, scattered at ``row * f + col``
-    into the zeroed ``X`` (counter ``densify_on_device``, one a call); rows
-    staged dense are copied in.  The bytes copied go to ``h2d_bytes``."""
-    f = X.shape[1]
-    dev = X.device
-    timing.count("h2d_bytes", sum(t.nbytes for t in staged))
-    if len(staged) == 1:
-        with copies():
-            X[:dept].copy_(staged[0], non_blocking=True)
-        with fill():
-            X[dept:].zero_()
-        return
-    with copies():
-        counts, cols, vals = (t.to(dev, non_blocking=True) for t in staged)
-    with fill():
-        X.zero_()
-        rows = torch.repeat_interleave(torch.arange(dept, device=dev), counts,
-                                       output_size=vals.shape[0])
-        X.view(-1).index_copy_(0, rows * f + cols, vals)
-    timing.count("densify_on_device")
-
-
 class _DenseSystem:
     """The device tensors of a dense learn's padded system: ``X`` (D, f),
     zero beyond the data rows, ``mask``, ``q``, ``QA_cost``, ``cost_inv``,
@@ -122,23 +96,15 @@ class _DenseSystem:
         self.ops: list | None = None
 
     def load(self, dept: int, staged, b_host: torch.Tensor, x_last: torch.Tensor):
-        """Copy a learn's rows into ``X`` (``staged``: the dense rows, or a
-        CSR's rows as :meth:`CSVM._stage_csr_rows` stages them, written by
-        :func:`_load_csr_rows`), zero the rest, set ``mask``; returns the
-        zero-padded ``b`` and ``x_last`` on the device."""
-        X = self.X
-        D = X.shape[0]
-        dev = X.device
+        """Copy a learn's rows ``staged`` into ``X``
+        (:func:`~..ops.sparse.load_csr_rows`), zero the rest, set ``mask``;
+        returns the zero-padded ``b`` and ``x_last`` on the device."""
+        X, dev = self.X, self.X.device
         timing.count("h2d_bytes", b_host.nbytes + x_last.nbytes)
-        if isinstance(staged, tuple):
-            _load_csr_rows(X, dept, staged)
-        else:
-            timing.count("h2d_bytes", staged.nbytes)
-            X[:dept].copy_(staged, non_blocking=True)
-            X[dept:].zero_()
+        load_csr_rows(X, dept, staged)
         self.mask.zero_()
         self.mask[:dept] = 1.0
-        b = torch.zeros(D, dtype=X.dtype, device=dev)
+        b = torch.zeros(X.shape[0], dtype=X.dtype, device=dev)
         b[:dept].copy_(b_host, non_blocking=True)
         return b, x_last.to(dev, non_blocking=True)
 
@@ -460,30 +426,6 @@ class CSVM:
             timing.record(self.timings, "cg/capture", cg_loop.spent["capture_ms"] - before,
                           traced)
 
-    def _host(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-        """``a`` as a host tensor of ``dtype`` (the cast on the host, on
-        PyTorch's threads), bound for the CSVM's device: page-locked for an
-        asynchronous copy where that is a card, a plain CPU tensor else."""
-        t = torch.empty(a.shape, dtype=dtype, pin_memory=self.device.type == "cuda")
-        return t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
-
-    def _stage_csr_rows(self, dept: int) -> tuple:
-        """The first ``dept`` rows of the data's CSR in host tensors
-        (:meth:`_host`) for :func:`_load_csr_rows`: their row counts and
-        column indices (int64) and values (the learn's dtype), views cut at
-        ``indptr[dept]`` (``csr[:dept]`` would copy them).  Rows not in
-        canonical form come as ``(dense rows,)`` instead, whose repeated
-        entries add up in float64 before the cast, as ``toarray()`` adds
-        them."""
-        csr = self.data.csr
-        end = int(csr.indptr[dept])
-        indptr, cols, vals = csr.indptr[:dept + 1], csr.indices[:end], csr.data[:end]
-        rows = sp.csr_matrix((vals, cols, indptr), shape=(dept, csr.shape[1]), copy=False)
-        if not rows.has_canonical_format:
-            return (self._host(rows.toarray(), self.dtype),)
-        return (self._host(np.diff(indptr), torch.int64), self._host(cols, torch.int64),
-                self._host(vals, self.dtype))
-
     def _dense_system(self, D, dept, f, y, mode, tiers):
         """The padded system of a dense learn on the device: ``(b, m, q,
         QA_cost, minv, ops)`` with ``ops`` the A·v operators at ``tiers``
@@ -508,13 +450,13 @@ class CSVM:
         with self._span("setup/pad"):
             if self._use_sparse():
                 x_last = self.data.csr[-1].toarray().ravel()
-                staged = self._stage_csr_rows(dept)
+                staged = stage_csr_rows(self.data.csr, dept, self.dtype, self.device)
             else:
                 rows = self.data.stored_rows()
                 rows = self.data.dense if rows is None else rows
-                x_last, staged = rows[-1], self._host(rows[:dept], self.dtype)
-            x_last = self._host(x_last, self.dtype)
-            b_host = self._host(y[:dept] - y[-1], self.dtype)  # b (csvm.cpp:236-240)
+                x_last, staged = rows[-1], (host_tensor(rows[:dept], self.dtype, self.device),)
+            x_last = host_tensor(x_last, self.dtype, self.device)
+            b_host = host_tensor(y[:dept] - y[-1], self.dtype, self.device)  # csvm.cpp:236-240
         # the operators' tiers as they resolve now (a fixed tier follows
         # PLSSVM_MATMUL_PRECISION, read when called)
         resolved = [resolve_tier(fixed_tier(self.backend) if t is None else t, self.dtype)
@@ -805,6 +747,19 @@ class CSVM:
             return int(torch.cuda.mem_get_info(self.device)[1])
         return 1 << 40
 
+    def _sparse_fit(self, D: int, f: int, ndev: int = 1) -> tuple:
+        """``(PLSSVM_SPARSE_MODE, gram_fits, dense_x_fits)`` at ``D`` rows of
+        ``f`` features on ``ndev`` devices: the Gram within the K-cache budget
+        and, on one device, twice it (K and its transient) within memory; X
+        within the devices' budgets, and 5/2 a device's share within its
+        memory (the JAX package's factors)."""
+        itemsize = self.dtype.itemsize
+        budget, physical = _k_cache_budget_bytes(), self._device_memory_bytes()
+        gram_bytes, x_bytes = D * D * itemsize, D * f * itemsize
+        gram_fits = gram_bytes <= budget and (ndev > 1 or 2 * gram_bytes <= physical)
+        dense_x_fits = x_bytes <= budget * ndev and 5 * x_bytes // (2 * ndev) <= physical
+        return os.environ.get("PLSSVM_SPARSE_MODE", "auto"), gram_fits, dense_x_fits
+
     def _reject_chunk_flags_on_sparse(self):
         """Sparse learns cannot chunk CG for checkpoints / per-iteration
         output (``base.py:784-791``)."""
@@ -845,12 +800,10 @@ class CSVM:
         itemsize = self.dtype.itemsize
         D = _round_up(dept, PAD_SIZE * ndev)
         budget = _k_cache_budget_bytes()
-        forced_tier = os.environ.get("PLSSVM_SPARSE_MODE", "auto") != "auto"
-        if not forced_tier and (D * f * itemsize <= budget * ndev
-                                and 5 * D * f * itemsize // (2 * ndev)
-                                <= self._device_memory_bytes()):
+        sparse_mode, gram_fits, dense_x_fits = self._sparse_fit(D, f, ndev)
+        if sparse_mode == "auto" and dense_x_fits:
             return self._learn_dense_sharded(dept, f, y, imax, ndev)
-        if forced_tier or D * D * itemsize <= budget:
+        if sparse_mode != "auto" or gram_fits:
             D1 = _round_up(dept, max(PAD_SIZE, ROW_BLOCK_SIZE))
             return self._learn_sparse(D1, dept, f, y, imax)
 
@@ -904,27 +857,20 @@ class CSVM:
         3. ``implicit``: streaming CG from the packing, through transient
            dense panels on K1/K3 (``panel``) or the ELL ``gather`` arm.
 
-        ``PLSSVM_SPARSE_MODE`` forces ``gram`` / ``dense`` / ``implicit``.
-        The host packing and the device set-up are ``setup`` spans of
-        :attr:`timings`, the solve the ``cg`` span."""
-        from ..ops.sparse import (HybridSparse, device_gram_max_features,
-                                  host_gram_from_csr, stream_panel_rows)
-        from .sparse_learn import (learn_from_gram, learn_sparse_implicit,
-                                   learn_sparse_linear, learn_sparse_panel)
+        ``PLSSVM_SPARSE_MODE`` forces ``gram`` / ``dense`` / ``implicit``
+        (the rules: :meth:`_sparse_fit`).  The host packing and the device
+        set-up are ``setup`` spans of :attr:`timings`, the solve the ``cg``
+        span."""
+        from ..ops.sparse import HybridSparse, stream_panel_rows
+        from .sparse_learn import (learn_gram, learn_sparse_implicit, learn_sparse_linear,
+                                   learn_sparse_panel)
 
         self._reject_chunk_flags_on_sparse()
         precond = str(self.params.precond)
         csr = self.data.csr
         dev, np_dtype = self.device, self._np_dtype
         itemsize = self.dtype.itemsize
-        sparse_mode = os.environ.get("PLSSVM_SPARSE_MODE", "auto")
-        physical = self._device_memory_bytes()
-        # the cached tier keeps K and its assembly transient resident; the
-        # dense tier X and its working set (the JAX package's factors)
-        gram_fits = (D * D * itemsize <= _k_cache_budget_bytes()
-                     and 2 * D * D * itemsize <= physical)
-        dense_x_fits = (D * f * itemsize <= _k_cache_budget_bytes()
-                        and 5 * D * f * itemsize // 2 <= physical)
+        sparse_mode, gram_fits, dense_x_fits = self._sparse_fit(D, f)
         if self.kernel != KernelType.linear and (
                 sparse_mode == "dense"
                 or (sparse_mode == "auto" and not gram_fits and dense_x_fits)):
@@ -953,7 +899,7 @@ class CSVM:
                 if sweep == "windowed":
                     # the windowed transient follows the budget; cap it so the
                     # panels and the resident packing stay inside the device
-                    budget = min(budget, physical // 3)
+                    budget = min(budget, self._device_memory_bytes() // 3)
                 panel_rows = stream_panel_rows(D, th.tell.padded_features, itemsize, budget)
                 with self._span("setup"):
                     # the heavy rows' O(n) vectors, built on the host
@@ -980,77 +926,10 @@ class CSVM:
                                         precond=precond, span=self._span)
             return "sparse_implicit", out
 
-        # gram tier: the Gram from the CSR rows on the device (float32 on
-        # the CPU or the kernels' backend: a slab of the heavy columns and
-        # the light pairs, ops/sparse_gram.py; float64, the ``torch`` backend
-        # on a card, or rows not in canonical form: X densified, a
-        # budget-gated transient, and one product), or the host SpGEMM for
-        # very wide data; the parts of its ``setup`` span: ``densify`` (the
-        # rows staged on the host, then the column split, or zeroed X and the
-        # scatter into it), ``h2d`` (the staged rows' copies, or the Gram's),
-        # ``gram`` (the products and the row norms, or the host SpGEMM) and
-        # ``q`` (the host products with the last point)
-        with self._span("setup"):
-            if f <= device_gram_max_features() and dense_x_fits:
-                with self._span("setup/densify"):
-                    staged = self._stage_csr_rows(dept)
-                if len(staged) == 3 and self.dtype == torch.float32 and (
-                        dev.type == "cpu" or uses_kernels(self.backend, self.dtype)):
-                    G, sq = self._gram_from_rows(D, f, staged)
-                else:
-                    with self._span("setup/densify"):
-                        Xd = torch.empty((D, f), dtype=self.dtype, device=dev)
-                    _load_csr_rows(Xd, dept, staged,
-                                   copies=functools.partial(self._span, "setup/h2d"),
-                                   fill=functools.partial(self._span, "setup/densify"))
-                    with self._span("setup/gram"):
-                        G = Xd @ Xd.T
-                        sq = torch.sum(Xd * Xd, dim=1)
-                    del Xd
-            else:
-                with self._span("setup/gram"):
-                    G_host = host_gram_from_csr(csr, dept)
-                    G_pad = np.zeros((D, D), dtype=np_dtype)
-                    G_pad[:dept, :dept] = G_host
-                    sq_pad = np.zeros(D, dtype=np_dtype)
-                    sq_pad[:dept] = np.diag(G_host)
-                with self._span("setup/h2d"):
-                    G, sq = self._to_device(G_pad), self._to_device(sq_pad)
-            with self._span("setup/q"):
-                q_lin = np.zeros(D, dtype=np_dtype)
-                q_lin[:dept] = np.asarray((csr[:dept] @ csr[-1].T).todense()).ravel()
-                qa_lin = float((csr[-1] @ csr[-1].T).toarray()[0, 0])
-        out = learn_from_gram(G, sq, self._to_device(q_lin),
-                              torch.tensor(qa_lin, dtype=self.dtype, device=dev), b, m,
-                              self.gamma, self.coef0, *common, kernel=self.kernel,
-                              degree=self.degree, precond=precond, span=self._span)
+        out = learn_gram(csr, D, dept, f, b, m, self.gamma, self.coef0, *common,
+                         kernel=self.kernel, degree=self.degree, precond=precond,
+                         backend=self.backend, dense_x_fits=dense_x_fits, span=self._span)
         return "sparse_gram", out
-
-    def _gram_from_rows(self, D, f, staged):
-        """``(G, sq)`` of the float32 gram tier from the staged CSR rows
-        (:meth:`_stage_csr_rows`, canonical form), without a dense X: the
-        rows copied to the device (``setup/h2d``, their bytes to
-        ``h2d_bytes``), split by column counts into a slab of the heavy
-        columns and the light entries by row and by column
-        (``setup/densify``), then the slab's product and the light pairs
-        (``setup/gram``; :mod:`~..ops.sparse_gram`).  Counters:
-        ``densify_on_device`` and ``gram_from_rows`` (one a learn),
-        ``gram_heavy_cols`` (the split's heavy columns), ``gram_light_pairs``
-        (its light pairs)."""
-        from ..ops.sparse_gram import gram_from_rows, split_rows
-
-        timing.count("h2d_bytes", sum(t.nbytes for t in staged))
-        with self._span("setup/h2d"):
-            counts, cols, vals = (t.to(self.device, non_blocking=True) for t in staged)
-        with self._span("setup/densify"):
-            split = split_rows(counts, cols, vals, D, f)
-        timing.count("densify_on_device")
-        with self._span("setup/gram"):
-            G, sq = gram_from_rows(split)
-        timing.count("gram_from_rows")
-        timing.count("gram_heavy_cols", split.heavy)
-        timing.count("gram_light_pairs", split.light_pairs)
-        return G, sq
 
     # ---------------------------------------------------------------- predict
 

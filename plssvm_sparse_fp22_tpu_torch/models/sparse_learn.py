@@ -8,7 +8,7 @@ function there is a plain function here, without the suffix.  Selected by
 - linear kernel: :func:`learn_sparse_linear`, CG over ``K v = X (X^T v)``
   with the nnz-proportional ELL+COO products of ``ops/sparse.py``;
 - polynomial/rbf, the memory-guarded tiers of ``_learn_sparse``: the Gram
-  assembled once (:func:`learn_from_gram`), dense X on the dense implicit
+  assembled once (:func:`learn_gram`), dense X on the dense implicit
   path (``CSVM._learn_dense``), or the streaming learns that recompute the
   kernel every iteration from the packing: :func:`learn_sparse_panel`
   (transient dense panels on K1/K3) and :func:`learn_sparse_implicit`
@@ -24,25 +24,34 @@ its device set-up runs in a ``setup`` span, its solve in a ``cg`` span.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..ops.kernel_functions import integer_pow
-from ..ops.matvec import _corrections, tier_precision
+from ..ops.matvec import _corrections, tier_precision, uses_kernels
 from ..ops.matvec import jacobi_minv_from_kii as _diag_minv
 from ..ops.sparse import (
     ELLMatrix,
     HybridSparse,
+    host_gram_from_csr,
     hybrid_matvec,
     hybrid_row_sqnorms,
+    load_csr_rows,
     make_streaming_gram_matvec,
     make_tiled_panel_matvec,
     make_tiled_panel_matvec_windowed,
     panel_sweep_strategy,
     sparse_q_qa_kii,
+    stage_csr_rows,
     tiled_matvec,
+    to_device,
 )
+from ..ops.sparse_gram import gram_from_rows, split_rows
 from ..solver.cg import cg_solve, cg_solve_adaptive
 from ..types import KernelType
+from ..utils import timing
 from ..utils.timing import no_span
 
 
@@ -191,6 +200,60 @@ def learn_sparse_implicit(vals, cols, coo_rows, coo_cols, coo_vals, x_last_dense
 def _transform_gram(kernel: KernelType, G, sq, degree, gamma, coef0):
     """Kernel transform of a precomputed Gram matrix (diag = squared norms)."""
     return _transform_gram_cross(kernel, G, sq, sq, degree, gamma, coef0)
+
+
+def learn_gram(csr, D, dept, f, b_pad, mask, gamma, coef0, cost, eps, imax, *, kernel, degree,
+               precond: str = "none", backend=None, dense_x_fits: bool = True, span=no_span):
+    """The ``gram`` tier: the linear Gram of ``csr``'s first ``dept`` rows
+    padded to ``D``, then :func:`learn_from_gram`.  The Gram comes from the
+    rows on the device (float32 on the CPU or the kernels' ``backend``,
+    :mod:`~..ops.sparse_gram`), else from X scattered on the device and one
+    product, else (very wide data, X over the budget) from the host SpGEMM.
+    ``setup``'s parts: ``densify`` (staging, then the column split or the
+    scatter), ``h2d``, ``gram`` and ``q`` (host products with the last
+    point)."""
+    from ..ops.sparse import device_gram_max_features  # read when called
+
+    dev, dtype = b_pad.device, b_pad.dtype
+    h2d = functools.partial(span, "setup/h2d")
+    with span("setup"):
+        if f <= device_gram_max_features() and dense_x_fits:
+            with span("setup/densify"):
+                staged = stage_csr_rows(csr, dept, dtype, dev)
+            if len(staged) == 3 and dtype == torch.float32 and (
+                    dev.type == "cpu" or uses_kernels(backend, dtype)):
+                counts, cols, vals = to_device(staged, dev, h2d)
+                with span("setup/densify"):
+                    split = split_rows(counts, cols, vals, D, f)
+                timing.count("densify_on_device")
+                with span("setup/gram"):
+                    G, sq = gram_from_rows(split)
+                timing.count("gram_from_rows")
+                timing.count("gram_heavy_cols", split.heavy)
+                timing.count("gram_light_pairs", split.light_pairs)
+            else:
+                with span("setup/densify"):
+                    Xd = torch.empty((D, f), dtype=dtype, device=dev)
+                load_csr_rows(Xd, dept, staged, copies=h2d,
+                              fill=functools.partial(span, "setup/densify"))
+                with span("setup/gram"):
+                    G = Xd @ Xd.T
+                    sq = torch.sum(Xd * Xd, dim=1)
+                del Xd
+        else:
+            with span("setup/gram"):
+                G_pad = torch.zeros((D, D), dtype=dtype)
+                G_pad[:dept, :dept] = torch.from_numpy(host_gram_from_csr(csr, dept))
+                sq_pad = G_pad.diagonal().clone()
+            G, sq = to_device((G_pad, sq_pad), dev, h2d)
+        with span("setup/q"):
+            q_lin = torch.zeros(D, dtype=dtype)
+            q_lin[:dept] = torch.from_numpy(np.asarray((csr[:dept] @ csr[-1].T).todense()).ravel())
+            qa_lin = float((csr[-1] @ csr[-1].T).toarray()[0, 0])
+    (q_lin,) = to_device((q_lin,), dev)
+    return learn_from_gram(G, sq, q_lin, torch.tensor(qa_lin, dtype=dtype, device=dev), b_pad,
+                           mask, gamma, coef0, cost, eps, imax, kernel=kernel, degree=degree,
+                           precond=precond, span=span)
 
 
 def learn_from_gram(G_pad, sq, q_lin, qa_lin, b_pad, mask, gamma, coef0, cost, eps, imax, *,

@@ -1,5 +1,6 @@
-"""Sparse (CSR/ELL) feature matrices: packings, products and the streaming
-Gram matvecs of the sparse learns.
+"""Sparse (CSR/ELL) feature matrices: packings, products, the streaming
+Gram matvecs of the sparse learns, and CSR rows staged for the device and
+scattered into a dense X there (:func:`stage_csr_rows`, :func:`load_csr_rows`).
 
 Port of the JAX package's ``ops/sparse.py``.  The packings are built on the
 host with numpy, as there, and their arrays become tensors on the device the
@@ -26,6 +27,7 @@ caller names.  What changed on the way:
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 
@@ -34,6 +36,7 @@ import scipy.sparse as sp
 import torch
 
 from ..types import BackendType, KernelType
+from ..utils import timing
 from .gram_matvec import (pair_gram_contrib, pair_gram_contrib_plain, resolve_tier,
                           tier_operands)
 from .kernel_functions import integer_pow, kernel_diag
@@ -46,6 +49,60 @@ TILE = 128
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def host_tensor(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``a`` cast to ``dtype`` on the host, page-locked where ``device`` is
+    a card (for an asynchronous copy)."""
+    t = torch.empty(a.shape, dtype=dtype, pin_memory=device.type == "cuda")
+    return t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+
+
+def to_device(tensors: tuple, device, within=contextlib.nullcontext) -> tuple:
+    """The host ``tensors`` copied to ``device`` inside ``within()``, their
+    bytes added to the counter ``h2d_bytes``."""
+    timing.count("h2d_bytes", sum(t.nbytes for t in tensors))
+    with within():
+        return tuple(t.to(device, non_blocking=True) for t in tensors)
+
+
+def stage_csr_rows(csr: sp.csr_matrix, dept: int, dtype: torch.dtype,
+                   device: torch.device) -> tuple:
+    """The first ``dept`` rows of ``csr`` in :func:`host_tensor` form: row
+    counts, column indices (int64) and values (``dtype``), cut at
+    ``indptr[dept]`` without a copy; rows not in canonical form as ``(dense
+    rows,)``, repeated entries summed in float64 as ``toarray()`` sums them."""
+    end = int(csr.indptr[dept])
+    indptr, cols, vals = csr.indptr[:dept + 1], csr.indices[:end], csr.data[:end]
+    rows = sp.csr_matrix((vals, cols, indptr), shape=(dept, csr.shape[1]), copy=False)
+    if not rows.has_canonical_format:
+        return (host_tensor(rows.toarray(), dtype, device),)
+    return (host_tensor(np.diff(indptr), torch.int64, device),
+            host_tensor(cols, torch.int64, device), host_tensor(vals, dtype, device))
+
+
+def load_csr_rows(X: torch.Tensor, dept: int, staged: tuple,
+                  copies=contextlib.nullcontext, fill=contextlib.nullcontext) -> None:
+    """Write the rows ``staged`` (:func:`stage_csr_rows`) into the first
+    ``dept`` rows of ``X`` (D, f) and zero the rest: copied to ``X``'s
+    device inside ``copies()`` (:func:`to_device`), then, inside ``fill()``,
+    scattered at ``row * f + col`` into the zeroed ``X`` (counter
+    ``densify_on_device``); rows staged dense, ``(rows,)``, are copied in."""
+    f, dev = X.shape[1], X.device
+    if len(staged) == 1:
+        timing.count("h2d_bytes", staged[0].nbytes)
+        with copies():
+            X[:dept].copy_(staged[0], non_blocking=True)
+        with fill():
+            X[dept:].zero_()
+        return
+    counts, cols, vals = to_device(staged, dev, copies)
+    with fill():
+        X.zero_()
+        rows = torch.repeat_interleave(torch.arange(dept, device=dev), counts,
+                                       output_size=vals.shape[0])
+        X.view(-1).index_copy_(0, rows * f + cols, vals)
+    timing.count("densify_on_device")
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,

@@ -26,7 +26,7 @@ occupied columns only; rcv1's split falls at T = 2861.  Every step is
 ordered, so G is the same bits on every run; ``sq`` is G's diagonal, so the
 rbf distance of a point to itself is exactly 0.
 
-The rows arrive as :meth:`CSVM._stage_csr_rows` stages them: row counts,
+The rows arrive as :func:`~.sparse.stage_csr_rows` stages them: row counts,
 column indices and values of rows in canonical form (sorted columns, no
 repeats).
 """

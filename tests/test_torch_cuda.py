@@ -171,11 +171,11 @@ def test_sparse_implicit_learn_runs_k3(dev, monkeypatch):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_csr_rows_load_on_the_card_bitwise_the_host_pad(dev, dtype):
     """X of the gram and sparse ``dense`` tiers on the card: the CSR rows
-    staged page-locked, copied and scattered (``_load_csr_rows``) are bit
+    staged page-locked, copied and scattered (``load_csr_rows``) are bit
     for bit ``np.zeros((D, f))[:dept] = csr[:dept].toarray()`` in the
     learn's dtype, an empty row and the padding rows zero, the last point
     left out."""
-    from plssvm_sparse_fp22_tpu_torch.models.base import _load_csr_rows
+    from plssvm_sparse_fp22_tpu_torch.ops.sparse import load_csr_rows, stage_csr_rows
 
     rng = np.random.default_rng(12)
     n, f = 1200, 3001
@@ -193,10 +193,10 @@ def test_csr_rows_load_on_the_card_bitwise_the_host_pad(dev, dtype):
     svm = make_csvm(p)
     assert svm.device.type == "cuda"
     dept, D = n - 1, n + 80
-    staged = svm._stage_csr_rows(dept)
+    staged = stage_csr_rows(svm.data.csr, dept, svm.dtype, svm.device)
     assert len(staged) == 3 and all(t.is_pinned() for t in staged)
     X = torch.full((D, f), float("nan"), dtype=svm.dtype, device=dev)
-    _load_csr_rows(X, dept, staged)
+    load_csr_rows(X, dept, staged)
     want = np.zeros((D, f), dtype=dtype)
     want[:dept] = csr[:dept].toarray()
     uint = np.uint32 if dtype == np.float32 else np.uint64

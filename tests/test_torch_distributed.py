@@ -368,7 +368,10 @@ def _free_port() -> int:
 def _spawn(tmp_path, scenario) -> dict:
     """Both ranks' results of ``scenario``, checked to be the same bits."""
     coordinator = f"127.0.0.1:{_free_port()}"
-    env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "WORLD_SIZE")}
+    # no OMP_NUM_THREADS either (a test worker's budget sets it): the ranks
+    # take the product's own thread rule, asserted below
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "WORLD_SIZE", "OMP_NUM_THREADS")}
     # both ranks on this host, as torchrun announces them
     env["LOCAL_WORLD_SIZE"] = str(RANKS)
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), coordinator,
@@ -399,8 +402,7 @@ def _spawn(tmp_path, scenario) -> dict:
         assert np.array_equal(outs[0][key], outs[1][key]), f"{scenario}: {key} differs by rank"
     assert outs[0]["meta/ranks"].tolist() == [0] * 4 + [1] * 4
     assert str(outs[0]["meta/transport"]) == "gloo"
-    if "OMP_NUM_THREADS" not in env:  # two ranks on one host: one thread each
-        assert int(outs[0]["meta/threads"]) == 1
+    assert int(outs[0]["meta/threads"]) == 1  # two ranks on one host: one thread each
     return outs[0]
 
 

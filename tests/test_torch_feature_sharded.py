@@ -51,16 +51,6 @@ HYPER = {"degree": 3, "gamma": 0.1, "coef0": 1.0}
 COST = 2.0
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these learns run many small products, and a test
-    worker's idle threads would spin on the cores the other workers need."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(old)
-
-
 def _padded(n=97, f=16, D=128, seed=5):
     X, y = make_blobs(n, f, seed=seed)
     dept = n - 1

@@ -271,25 +271,25 @@ def _csr_form(form, n=41, f=30, seed=71):
 @pytest.mark.parametrize("form", ["canonical", "empty row", "repeated entries"])
 def test_csr_rows_load_bitwise_the_host_pad(form, dtype):
     """The rows staged from the CSR and written into X on the device
-    (``_load_csr_rows``, shared by the gram and sparse ``dense`` tiers) are
+    (``load_csr_rows``, shared by the gram and sparse ``dense`` tiers) are
     bit for bit the host pad ``np.zeros((D, f))[:dept] = csr[:dept].toarray()``
     in the learn's dtype: padding rows zero, the last point left out.
     Canonical rows are staged as counts, columns and values (a scatter);
     repeated entries as the dense rows, their sums ``toarray()``'s."""
-    from plssvm_sparse_fp22_tpu_torch.models.base import _load_csr_rows
+    from plssvm_sparse_fp22_tpu_torch.ops.sparse import load_csr_rows, stage_csr_rows
 
     csr = _csr_form(form)
     y = np.where(np.arange(csr.shape[0]) % 2 == 0, 1.0, -1.0)
     svm = tp.make_csvm(_params("torch", csr, y, KT.rbf, dtype=dtype))
     (n, f), tdt = csr.shape, svm.dtype
     dept, D = n - 1, n + 7
-    staged = svm._stage_csr_rows(dept)
+    staged = stage_csr_rows(svm.data.csr, dept, svm.dtype, svm.device)
     assert len(staged) == (1 if form == "repeated entries" else 3)
     if len(staged) == 3:
         assert [t.dtype for t in staged] == [torch.int64, torch.int64, tdt]
         assert staged[0].tolist() == np.diff(csr.indptr[:n]).tolist()
     X = torch.full((D, f), float("nan"), dtype=tdt)
-    _load_csr_rows(X, dept, staged)
+    load_csr_rows(X, dept, staged)
     want = np.zeros((D, f), dtype=dtype)
     want[:dept] = csr[:dept].toarray()
     uint = np.uint32 if dtype == np.float32 else np.uint64

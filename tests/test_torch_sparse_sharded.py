@@ -87,16 +87,6 @@ def _assert_matches(alphas, bias, alpha_ref, bias_ref, tol=1e-4, sum_tol=5e-3):
     assert bias == pytest.approx(bias_ref, rel=sum_tol, abs=sum_tol)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these learns run many small products, and a test
-    worker's idle threads would spin on the cores the other workers need."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(old)
-
-
 @pytest.fixture(scope="module")
 def sparse_blobs():
     return _random_sparse(N, 40, density=0.15, seed=41)

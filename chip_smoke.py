@@ -3496,9 +3496,14 @@ def phase_sparse_gram(dev):
     flops or the write, beside it); the split's two rates measured (the
     slab's product between two widths, the pairs between two thresholds)
     and the modelled ms beside the measured ones at several thresholds;
-    then two learns of the gram tier, the launches counted from zero
-    before each: one.  Returns the kernel's record, its launches those of
-    the last learn."""
+    then the products with the last point (``rows_matvec``, the kernel
+    ``sparse_rows_matvec``): twice the same bits, bitwise the plain
+    version, within float32 rounding of scipy's float64 products, ms beside
+    its bound (the entries' and ``q``'s bytes) and the host's scipy
+    products it replaced; then two learns of the gram tier, the launches
+    counted from zero before each: one of each kernel.  Returns the pair
+    kernel's record, its launches those of the last learn, with the
+    products' record under ``rows_matvec``."""
     import torch
 
     from lssvm_bench.data import sparse_docs
@@ -3628,8 +3633,33 @@ def phase_sparse_gram(dev):
     print("  threshold, heavy, light pairs, measured ms, modelled ms (the slab's product and "
           "the pairs at the two rates): " + "; ".join(str(x) for x in sweep), flush=True)
 
+    # the products with the last point, from the same rows
+    x_last = torch.tensor(data.csr[-1].toarray().ravel(), dtype=torch.float32, device=dev)
+    q = sg.rows_matvec(counts, cols, vals, x_last, D)
+    check(torch.equal(q, sg.rows_matvec(counts, cols, vals, x_last, D)),
+          "two calls of rows_matvec differ")
+    rptr = torch.zeros(dept + 1, dtype=torch.int64, device=dev)
+    rptr[1:] = torch.cumsum(counts, 0)
+    check(torch.equal(q, sg.rows_matvec_plain(rptr, cols, vals, x_last, D)),
+          "rows_matvec's kernel is not bitwise its plain version")
+    check(not q[dept:].any(), "rows_matvec's padding not zero")
+    t0 = time.perf_counter()
+    q_host = np.asarray((rows @ data.csr[-1].T).todense()).ravel()
+    qa_host = float((data.csr[-1] @ data.csr[-1].T).toarray()[0, 0])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    q_err = float(np.abs(q[:dept].double().cpu().numpy() - q_host).max() / np.abs(q_host).max())
+    qa_err = abs(float(torch.dot(x_last, x_last)) - qa_host) / qa_host
+    check(q_err <= 1e-6 and qa_err <= 1e-6, f"q_lin {q_err}, qa_lin {qa_err} from float64")
+    ms_q = timed_ms(lambda: sg.rows_matvec(counts, cols, vals, x_last, D), 20)
+    ms_q_plain = timed_ms(lambda: sg.rows_matvec_plain(rptr, cols, vals, x_last, D), 1)
+    q_bound = (rows.nnz * (8 + 4 + 4) + 8 * (dept + 1) + 4 * D) / PEAK_BYTES * 1e3
+    print(f"  q_lin: rows_matvec {ms_q:.4f} ms (bound {q_bound:.4f}: the entries, a gathered "
+          f"x_last float each, the offsets and q), plain {ms_q_plain:.2f}, the host's scipy "
+          f"products {host_ms:.2f}; max rel {q_err:.3e} from float64, qa_lin {qa_err:.3e}",
+          flush=True)
+
     # two learns of the gram tier on the main path, each one launch of the
-    # pair kernel counted from zero
+    # pair kernel and of the products' kernel counted from zero
     y = data.y
     p = Parameter(kernel=KernelType.rbf, gamma=1.0, cost=1.0, epsilon=1e-3, dtype=np.float32,
                   backend=BackendType.cuda, devices=1, print_info=False)
@@ -3647,8 +3677,10 @@ def phase_sparse_gram(dev):
         check(svm.last_cg_info["mode"] == "sparse_gram", f"mode {svm.last_cg_info['mode']}")
         learn_launches = sg.launches["sparse_gram_pairs"]
         check(learn_launches == 1, f"a learn launched the pair kernel {learn_launches} times")
-    print(f"  learns: {', '.join(f'{ms:.1f}' for ms in learn_ms)} ms, one pair kernel each",
-          flush=True)
+        check(sg.launches["sparse_rows_matvec"] == 1,
+              f"a learn launched rows_matvec {sg.launches['sparse_rows_matvec']} times")
+    print(f"  learns: {', '.join(f'{ms:.1f}' for ms in learn_ms)} ms, one pair kernel and one "
+          "rows_matvec each", flush=True)
     return {"name": "sparse_gram_pairs", "route": "cuda",
             "source": "plssvm_sparse_fp22_tpu_torch/csrc/sparse_gram.cu",
             "replaces": "none: XLA's dense product (plssvm_sparse_fp22_tpu/models/base.py:944)",
@@ -3661,7 +3693,14 @@ def phase_sparse_gram(dev):
             "shape": [dept, f, D], "threshold": sp_.threshold, "heavy": sp_.heavy,
             "light_pairs": sp_.light_pairs, "pair_kernel_ms": round(ms_pairs, 4),
             "slab_ms": round(ms_slab, 4), "split_ms": round(ms_split, 4),
-            "slab_rate": slab_rate, "pair_rate": pair_rate}
+            "slab_rate": slab_rate, "pair_rate": pair_rate,
+            "rows_matvec": {"source": "plssvm_sparse_fp22_tpu_torch/csrc/sparse_gram.cu",
+                            "replaces": "none: the host's scipy products "
+                                        "(plssvm_sparse_fp22_tpu/models/base.py:956)",
+                            "launches": sg.launches["sparse_rows_matvec"],
+                            "ms": round(ms_q, 5), "plain_ms": round(ms_q_plain, 3),
+                            "bound_ms": round(q_bound, 5), "host_ms": round(host_ms, 3),
+                            "error_vs_float64": q_err}}
 
 
 def main(argv=None) -> int:

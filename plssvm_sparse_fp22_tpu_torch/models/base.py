@@ -926,7 +926,7 @@ class CSVM:
                                         precond=precond, span=self._span)
             return "sparse_implicit", out
 
-        out = learn_gram(csr, D, dept, f, b, m, self.gamma, self.coef0, *common,
+        out = learn_gram(csr, D, dept, f, x_last, b, m, self.gamma, self.coef0, *common,
                          kernel=self.kernel, degree=self.degree, precond=precond,
                          backend=self.backend, dense_x_fits=dense_x_fits, span=self._span)
         return "sparse_gram", out

@@ -48,7 +48,7 @@ from ..ops.sparse import (
     tiled_matvec,
     to_device,
 )
-from ..ops.sparse_gram import gram_from_rows, split_rows
+from ..ops.sparse_gram import gram_from_rows, rows_matvec, split_rows
 from ..solver.cg import cg_solve, cg_solve_adaptive
 from ..types import KernelType
 from ..utils import timing
@@ -202,16 +202,18 @@ def _transform_gram(kernel: KernelType, G, sq, degree, gamma, coef0):
     return _transform_gram_cross(kernel, G, sq, sq, degree, gamma, coef0)
 
 
-def learn_gram(csr, D, dept, f, b_pad, mask, gamma, coef0, cost, eps, imax, *, kernel, degree,
-               precond: str = "none", backend=None, dense_x_fits: bool = True, span=no_span):
+def learn_gram(csr, D, dept, f, x_last, b_pad, mask, gamma, coef0, cost, eps, imax, *, kernel,
+               degree, precond: str = "none", backend=None, dense_x_fits: bool = True,
+               span=no_span):
     """The ``gram`` tier: the linear Gram of ``csr``'s first ``dept`` rows
     padded to ``D``, then :func:`learn_from_gram`.  The Gram comes from the
     rows on the device (float32 on the CPU or the kernels' ``backend``,
     :mod:`~..ops.sparse_gram`), else from X scattered on the device and one
     product, else (very wide data, X over the budget) from the host SpGEMM.
     ``setup``'s parts: ``densify`` (staging, then the column split or the
-    scatter), ``h2d``, ``gram`` and ``q`` (host products with the last
-    point)."""
+    scatter), ``h2d``, ``gram`` and ``q``: the products with the last point
+    ``x_last`` (on the device), from the same rows or X on the device
+    (counted ``q_on_device``), else the host's sparse products."""
     from ..ops.sparse import device_gram_max_features  # read when called
 
     dev, dtype = b_pad.device, b_pad.dtype
@@ -231,6 +233,9 @@ def learn_gram(csr, D, dept, f, b_pad, mask, gamma, coef0, cost, eps, imax, *, k
                 timing.count("gram_from_rows")
                 timing.count("gram_heavy_cols", split.heavy)
                 timing.count("gram_light_pairs", split.light_pairs)
+                with span("setup/q"):
+                    q_lin = rows_matvec(counts, cols, vals, x_last, D)
+                    qa_lin = torch.dot(x_last, x_last)
             else:
                 with span("setup/densify"):
                     Xd = torch.empty((D, f), dtype=dtype, device=dev)
@@ -239,21 +244,27 @@ def learn_gram(csr, D, dept, f, b_pad, mask, gamma, coef0, cost, eps, imax, *, k
                 with span("setup/gram"):
                     G = Xd @ Xd.T
                     sq = torch.sum(Xd * Xd, dim=1)
+                with span("setup/q"):
+                    q_lin = torch.zeros(D, dtype=dtype, device=dev)
+                    q_lin[:dept] = Xd[:dept] @ x_last
+                    qa_lin = torch.dot(x_last, x_last)
                 del Xd
+            timing.count("q_on_device")
         else:
             with span("setup/gram"):
                 G_pad = torch.zeros((D, D), dtype=dtype)
                 G_pad[:dept, :dept] = torch.from_numpy(host_gram_from_csr(csr, dept))
                 sq_pad = G_pad.diagonal().clone()
             G, sq = to_device((G_pad, sq_pad), dev, h2d)
-        with span("setup/q"):
-            q_lin = torch.zeros(D, dtype=dtype)
-            q_lin[:dept] = torch.from_numpy(np.asarray((csr[:dept] @ csr[-1].T).todense()).ravel())
-            qa_lin = float((csr[-1] @ csr[-1].T).toarray()[0, 0])
-    (q_lin,) = to_device((q_lin,), dev)
-    return learn_from_gram(G, sq, q_lin, torch.tensor(qa_lin, dtype=dtype, device=dev), b_pad,
-                           mask, gamma, coef0, cost, eps, imax, kernel=kernel, degree=degree,
-                           precond=precond, span=span)
+            with span("setup/q"):
+                q_lin = torch.zeros(D, dtype=dtype)
+                q_lin[:dept] = torch.from_numpy(
+                    np.asarray((csr[:dept] @ csr[-1].T).todense()).ravel())
+                qa_lin = float((csr[-1] @ csr[-1].T).toarray()[0, 0])
+            (q_lin,) = to_device((q_lin,), dev)
+            qa_lin = torch.tensor(qa_lin, dtype=dtype, device=dev)
+    return learn_from_gram(G, sq, q_lin, qa_lin, b_pad, mask, gamma, coef0, cost, eps, imax,
+                           kernel=kernel, degree=degree, precond=precond, span=span)
 
 
 def learn_from_gram(G_pad, sq, q_lin, qa_lin, b_pad, mask, gamma, coef0, cost, eps, imax, *,

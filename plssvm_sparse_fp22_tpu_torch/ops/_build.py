@@ -4,7 +4,7 @@
 ``pair_contrib.cu``, both including ``gram_tile.cuh`` and
 ``gram_tile_wgmma.cuh``; the bf16x3 split in ``split_bf16.cu``; the CG
 loop's chunk graph in ``cg_chunk.cu``; the sparse gram tier's light pairs
-in ``sparse_gram.cu``) into an
+and its products with the last point in ``sparse_gram.cu``) into an
 object, one ``nvcc`` per source, all started together, and links them into
 one shared library with a plain C interface, loaded with ``ctypes``;
 nothing links against PyTorch, so a build takes well under a minute.  Nothing links against ``libcuda``
@@ -151,6 +151,9 @@ def load() -> ctypes.CDLL:
         lib.sparse_gram_pairs.argtypes = [P, ctypes.c_longlong, I, P, P, P, P, P, P,
                                            ctypes.c_longlong, P]
         lib.sparse_gram_pairs.restype = I
+        lib.sparse_rows_matvec.argtypes = [P, ctypes.c_longlong, ctypes.c_longlong, P, P, P,
+                                            P, P]
+        lib.sparse_rows_matvec.restype = I
         lib.cg_chunk_build.argtypes = [P, P, P, P, P, ctypes.c_longlong, ctypes.c_longlong,
                                        ctypes.POINTER(P), ctypes.POINTER(P)]
         lib.cg_chunk_build.restype = I

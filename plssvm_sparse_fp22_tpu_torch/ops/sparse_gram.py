@@ -28,7 +28,9 @@ rbf distance of a point to itself is exactly 0.
 
 The rows arrive as :func:`~.sparse.stage_csr_rows` stages them: row counts,
 column indices and values of rows in canonical form (sorted columns, no
-repeats).
+repeats).  From the same rows :func:`rows_matvec` forms the tier's products
+with the last point, ``q_lin = X x_last``, on their device, in a fixed order
+(the kernel ``sparse_rows_matvec`` of ``csrc/sparse_gram.cu`` on a card).
 """
 
 from __future__ import annotations
@@ -43,16 +45,21 @@ from ..exceptions import PLSSVMError
 from . import _build
 from .gram_matvec import _raise_on
 
-#: kernel launches of :func:`sparse_gram_pairs` since the last
-#: :func:`reset_launches`
-launches = {"sparse_gram_pairs": 0}
+#: kernel launches of :func:`sparse_gram_pairs` and :func:`rows_matvec`
+#: since the last :func:`reset_launches`
+launches = {"sparse_gram_pairs": 0, "sparse_rows_matvec": 0}
 
 #: the slab's width is padded to a multiple of this (its product's tiles)
 SLAB_PAD = 8
 
+#: the lanes over which :func:`rows_matvec` deals a row's entries (the
+#: kernel's warp)
+ROW_LANES = 32
+
 
 def reset_launches() -> None:
-    launches["sparse_gram_pairs"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 @dataclass
@@ -224,3 +231,76 @@ def _launch_pairs(G, rptr, rcol, rval, cptr, crow, cval, max_chunk=0):
     _raise_on(rc, "sparse_gram_pairs")
     launches["sparse_gram_pairs"] += 1
     return G
+
+
+def rows_matvec(counts: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+                D: int) -> torch.Tensor:
+    """``q`` (D,): ``q[i] = sum_e vals[e] * x[cols[e]]`` over row i's
+    entries (``counts`` per row, int64; ``cols`` int64 and ``vals`` row by
+    row, as :func:`split_rows` takes them), zero from row
+    ``counts.numel()`` on.  A CUDA tensor (float32, contiguous) takes the
+    kernel, a CPU tensor :func:`rows_matvec_plain`, bit for bit the same:
+    lane l of :data:`ROW_LANES` adds a row's entries l, l + 32, ... in turn,
+    then the lanes' sums are added in halves.  On a card it reads nothing
+    on the host."""
+    rptr = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=vals.device)
+    rptr[1:] = torch.cumsum(counts, 0)
+    if not vals.is_cuda:
+        return rows_matvec_plain(rptr, cols, vals, x, D)
+    return _launch_rows_matvec(rptr, cols, vals, x, D)
+
+
+def rows_matvec_plain(rptr, cols, vals, x, D) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch (``rptr``: the rows' offsets into
+    ``cols``, ``vals``): in round r, lane l of row i adds the row's entry
+    ``r * ROW_LANES + l``, a rounded product to a rounded sum; then the
+    lanes' sums are added in halves (lane l and lane l + h for h = 16, 8,
+    ..., 1), the kernel's ``__shfl_down_sync`` tree."""
+    dept, nnz = rptr.numel() - 1, vals.numel()
+    dev = vals.device
+    rows = torch.repeat_interleave(torch.arange(dept, device=dev), rptr[1:] - rptr[:-1],
+                                   output_size=nnz)
+    pos = torch.arange(nnz, device=dev) - rptr[rows]
+    slot = rows * ROW_LANES + pos % ROW_LANES
+    rnd = pos // ROW_LANES
+    prod = vals * x[cols]
+    part = torch.zeros(dept * ROW_LANES, dtype=vals.dtype, device=dev)
+    for r in range(int(rnd.max()) + 1 if nnz else 0):
+        now = rnd == r   # one entry a lane in a round
+        part[slot[now]] = part[slot[now]] + prod[now]
+    p = part.view(dept, ROW_LANES)
+    while p.shape[1] > 1:
+        h = p.shape[1] // 2
+        p = p[:, :h] + p[:, h:]
+    q = torch.zeros(D, dtype=vals.dtype, device=dev)
+    q[:dept] = p[:, 0]
+    return q
+
+
+def _launch_rows_matvec(rptr, cols, vals, x, D):
+    """The kernel ``sparse_rows_matvec`` (``csrc/sparse_gram.cu``; replaces
+    no TPU kernel: the JAX package forms these products on the host with
+    scipy).  A warp a row; bound by the entries' 12 bytes each and the
+    gathered float of ``x``."""
+    dev = vals.device
+    rows, nnz, f = rptr.shape[0] - 1, vals.shape[0], x.shape[0]
+    for name, t, shape, dtype in (("rptr", rptr, (rows + 1,), torch.int64),
+                                  ("cols", cols, (nnz,), torch.int64),
+                                  ("vals", vals, (nnz,), torch.float32),
+                                  ("x", x, (f,), torch.float32)):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise PLSSVMError(f"rows_matvec: {name} is {t.dtype} {tuple(t.shape)} on "
+                              f"{t.device}, expected {dtype} {shape} on {dev}, contiguous: "
+                              "the kernel takes float32 only")
+    if rows > D:
+        raise PLSSVMError(f"rows_matvec: {rows} rows do not fit {D}")
+    q = torch.empty(D, dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.sparse_rows_matvec(q.data_ptr(), D, rows, rptr.data_ptr(), cols.data_ptr(),
+                                    vals.data_ptr(), x.data_ptr(),
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "sparse_rows_matvec")
+    launches["sparse_rows_matvec"] += 1
+    return q

@@ -6,7 +6,9 @@ bit against its plain version, determinism, launch counts, the scratch in
 strips (bitwise the one-strip result, the slab within its budget), the
 sparse tiers' X scattered from CSR rows bit for bit the host pad, the
 sparse gram tier's Gram from the CSR rows (the pair kernel against its
-plain version and the float64 Gram, its launches and counters), the
+plain version and the float64 Gram, its launches and counters) and its
+products with the last point (two learns bitwise, the kernel its plain
+version), the
 wrappers' checks, a small learn/predict on the ``cuda`` backend against the
 ``torch`` backend, a streaming sparse learn through K3, the adaptive
 two-tier learn, and the step graphs kept across learns of one layout.
@@ -918,3 +920,64 @@ def test_gram_tier_learns_count_the_pair_kernel_and_the_path(dev):
                 assert "gram_heavy_cols" not in counters
     finally:
         timing.TRACED = old
+
+
+def test_gram_tier_q_lin_on_the_card_repeats_bitwise(dev, monkeypatch):
+    """The float32 gram tier's products with the last point on the card:
+    two learns on a Zipf CSR launch ``sparse_rows_matvec`` once each and
+    give the same ``q_lin``, ``qa_lin`` and alphas bit for bit; ``q_lin``
+    is within float32 rounding of scipy's float64 products (1e-6 of the
+    largest), its padding zero; the kernel is bitwise its plain version on
+    the same rows and reads nothing on the host (sync debug mode
+    ``error``)."""
+    from plssvm_sparse_fp22_tpu_torch.models import sparse_learn as sl
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse_gram as sg
+    from utils import zipf_csr
+
+    csr = zipf_csr(4096, 8192, seed=11)
+    y = np.where(np.arange(csr.shape[0]) % 3 == 0, 1.0, -1.0)
+    seen, alphas = [], []
+    real = sl.learn_from_gram
+
+    def capture(G, sq, q_lin, qa_lin, *args, **kw):
+        seen.append((q_lin.clone(), qa_lin.clone()))
+        return real(G, sq, q_lin, qa_lin, *args, **kw)
+
+    monkeypatch.setattr(sl, "learn_from_gram", capture)
+    sg.reset_launches()
+    for _ in range(2):
+        p = Parameter(kernel=KernelType.rbf, gamma=1.0, dtype=np.float32, print_info=False,
+                      devices=1, epsilon=1e-6)
+        p.data = ParsedData(csr=csr, values=y)
+        p.values = y
+        svm = make_csvm(p)
+        svm.learn()
+        assert svm.last_cg_info["mode"] == "sparse_gram"
+        alphas.append(np.asarray(svm.alphas))
+    assert sg.launches["sparse_rows_matvec"] == 2
+    (q1, qa1), (q2, qa2) = seen
+    assert q1.is_cuda and torch.equal(q1, q2) and torch.equal(qa1, qa2)
+    assert np.array_equal(alphas[0], alphas[1])
+    dept = csr.shape[0] - 1
+    want = np.asarray((csr[:dept] @ csr[-1].T).todense()).ravel()
+    want_qa = float((csr[-1] @ csr[-1].T).toarray()[0, 0])
+    got = q1.double().cpu().numpy()
+    assert not got[dept:].any()
+    assert np.abs(got[:dept] - want).max() <= 1e-6 * np.abs(want).max()
+    assert abs(float(qa1) - want_qa) <= 1e-6 * want_qa
+
+    (counts, cols, vals), dept, D = _gram_rows(csr, dev)
+    x = torch.tensor(csr[-1].toarray().ravel(), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q = sg.rows_matvec(counts, cols, vals, x, D)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rptr = torch.zeros(dept + 1, dtype=torch.int64, device=dev)
+    rptr[1:] = torch.cumsum(counts, 0)
+    assert torch.equal(q, sg.rows_matvec_plain(rptr, cols, vals, x, D))
+    assert torch.equal(q[:dept], q1[:dept]) and not q[dept:].any()
+    with pytest.raises(PLSSVMError, match="rows_matvec: x"):
+        sg.rows_matvec(counts, cols, vals, x.double(), D)
+

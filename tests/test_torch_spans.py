@@ -7,8 +7,8 @@
   adds up in ``timing.TRACED``: the root spans ``learn`` and ``predict``,
   the gram tier's ``setup`` parts, the predict's parts, and the counters
   ``h2d_bytes``, ``densify_on_device``, ``gram_from_rows``,
-  ``gram_heavy_cols``, ``gram_light_pairs``, ``cg_captures`` and
-  ``alloc_segments``.
+  ``gram_heavy_cols``, ``gram_light_pairs``, ``q_on_device``,
+  ``cg_captures`` and ``alloc_segments``.
 - A sink without a profiler gets what it got before: the disjoint
   ``setup`` / ``cg`` spans, no root span; the gram tier's parts add up to
   no more than its ``setup``.
@@ -51,8 +51,8 @@ def _fresh():
 def _svm(X, y, **kw):
     kw.setdefault("kernel", tp.KernelType.rbf)
     kw.setdefault("devices", 1)
-    p = tp.Parameter(gamma=0.1, cost=1.0, epsilon=1e-6, max_iter=50, print_info=False,
-                     dtype=np.float32, **kw)
+    kw.setdefault("dtype", np.float32)
+    p = tp.Parameter(gamma=0.1, cost=1.0, epsilon=1e-6, max_iter=50, print_info=False, **kw)
     p.data = ParsedData(csr=sp.csr_matrix(X), values=y, _dense=X)
     p.values = y
     return tp.make_csvm(p)
@@ -237,7 +237,7 @@ def test_h2d_bytes_count_the_arrays_copied(case, monkeypatch):
         # the Gram from the rows copies what the dense scatter copied
         assert timing.TRACED.counters["gram_from_rows"] == 1
         nnz = int(sp.csr_matrix(X).indptr[dept])  # the staged rows: counts, columns, values
-        want = dept * 8 + nnz * (8 + F32) + (2 * D + f + D) * F32  # ..., b and mask, x_last, q
+        want = dept * 8 + nnz * (8 + F32) + (2 * D + f) * F32  # ..., b and mask, x_last
     else:
         want = (2 * D + f + D * D + D + D) * F32  # ..., padded Gram and its diagonal, q
     assert timing.TRACED.counters["h2d_bytes"] == want
@@ -292,6 +292,26 @@ def test_gram_from_rows_counters_on_a_small_csr():
     counters = timing.TRACED.counters
     assert counters["gram_from_rows"] == 2 and counters["densify_on_device"] == 2
     assert counters["gram_heavy_cols"] == 2 * h and counters["gram_light_pairs"] == 2 * P
+
+
+@pytest.mark.parametrize("arm", ["rows", "Xd product", "host SpGEMM"])
+def test_q_on_device_counts_the_gram_learns_whose_q_the_device_made(arm, monkeypatch):
+    """``q_on_device`` counts one a gram-tier learn whose products with the
+    last point ran on the device: the float32 rows path and the float64
+    ``Xd @ Xd.T`` arm; none where the Gram and ``q`` come from the host's
+    sparse products (``PLSSVM_DEVICE_GRAM_MAX_FEATURES=1``)."""
+    if arm == "host SpGEMM":
+        monkeypatch.setenv("PLSSVM_DEVICE_GRAM_MAX_FEATURES", "1")
+    X, y = _sparse()
+    svm = _svm(X, y, dtype=np.float64 if arm == "Xd product" else np.float32)
+    _profiled(svm.learn)
+    _profiled(svm.learn)
+    assert svm.last_cg_info["mode"] == "sparse_gram"
+    counters = timing.TRACED.counters
+    assert len(timing.TRACED.records["learn"]) == 2
+    assert counters.get("q_on_device", 0) == (0 if arm == "host SpGEMM" else 2)
+    assert counters.get("gram_from_rows", 0) == (2 if arm == "rows" else 0)
+    assert len(timing.TRACED.parts["setup"]["q"]) >= 2
 
 
 def test_gram_tier_densify_and_gram_ranges_fall_within_setup():

@@ -475,6 +475,126 @@ def test_float32_gram_learn_from_rows_matches_jax(kernel):
     btol = cg_bias_tolerance(X, y, kernel, 1.0, [t.alphas, j.alphas], np.float32, **hyper)
     assert abs(t.bias_ - j.bias_) <= btol
 
+def _q_case(case, n=60, f=80, seed=31):
+    """``(csr, D)`` of one case of the gram tier's products with the last
+    point: ``n`` x ``f`` rows at 10 % density (normal values), dept = n - 1,
+    padded to ``D``."""
+    rng = np.random.default_rng(seed)
+    lil = sp.random(n, f, density=0.1, format="lil", random_state=rng,
+                    data_rvs=lambda k: rng.normal(size=k))
+    D = {"dept = D - 1": n - 1 + 1, "dept well below D": 512}.get(case, 128)
+    if case == "empty rows":
+        for i in (0, 7, 30):
+            lil[i, :] = 0.0
+    elif case == "all-zero last row":
+        lil[n - 1, :] = 0.0
+    elif case == "last row shares no column":
+        shared = lil.tocsr()[n - 1].indices
+        assert shared.size
+        for k in shared:
+            lil[: n - 1, int(k)] = 0.0
+    elif case == "a heavy column":
+        lil[:, 3] = rng.normal(size=(n, 1))
+    csr = lil.tocsr()
+    csr.eliminate_zeros()
+    return csr, D
+
+
+Q_CASES = ["empty rows", "all-zero last row", "last row shares no column", "a heavy column",
+           "no heavy column", "dept = D - 1", "dept well below D"]
+
+
+@pytest.mark.parametrize("case", Q_CASES)
+@pytest.mark.parametrize("arm", ["rows", "Xd"])
+def test_gram_tier_q_lin_on_the_device_matches_the_float64_products(arm, case, monkeypatch):
+    """``learn_gram``'s products with the last point, now formed on the
+    device, against scipy's float64 ``csr[:dept] @ csr[-1].T`` and
+    ``csr[-1] @ csr[-1].T``: the float32 rows path (``rows_matvec``) within
+    float32 rounding of the float64 products (1e-6 of the largest, the Gram
+    from the rows' budget), the float64 ``Xd`` arm within 1e-12; padding
+    entries exactly zero; zero products exactly zero."""
+    from plssvm_sparse_fp22_tpu_torch.models import sparse_learn as sl
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse_gram as sg
+
+    csr, D = _q_case(case)
+    n, f = csr.shape
+    dept = n - 1
+    dtype = torch.float32 if arm == "rows" else torch.float64
+    counts = np.bincount(csr[:dept].indices, minlength=f)
+    T = sg.split_threshold(D)
+    if case == "a heavy column":
+        assert (counts >= T).any()
+    if case == "no heavy column":
+        assert not (counts >= T).any()
+    seen, calls = {}, []
+
+    def capture(G, sq, q_lin, qa_lin, *args, **kw):
+        seen.update(q_lin=q_lin, qa_lin=qa_lin)
+
+    def spy(*args):
+        calls.append(args)
+        return sg.rows_matvec(*args)
+
+    monkeypatch.setattr(sl, "learn_from_gram", capture)
+    monkeypatch.setattr(sl, "rows_matvec", spy)
+    x_last = torch.tensor(csr[-1].toarray().ravel(), dtype=dtype)
+    b, m = torch.zeros(D, dtype=dtype), torch.zeros(D, dtype=dtype)
+    sl.learn_gram(csr, D, dept, f, x_last, b, m, 0.2, 1.0, 1.0, 1e-6, 10, kernel=KT.rbf,
+                  degree=3)
+    assert len(calls) == (1 if arm == "rows" else 0)
+    q, qa = seen["q_lin"], seen["qa_lin"]
+    assert q.shape == (D,) and q.dtype == dtype and qa.dtype == dtype and qa.dim() == 0
+    want = np.asarray((csr[:dept] @ csr[-1].T).todense()).ravel()
+    want_qa = float((csr[-1] @ csr[-1].T).toarray()[0, 0])
+    got = q.double().numpy()
+    assert not got[dept:].any()
+    tol = 1e-6 if arm == "rows" else 1e-12
+    assert np.abs(got[:dept] - want).max() <= tol * np.abs(want).max()
+    assert abs(float(qa) - want_qa) <= tol * want_qa
+    if case == "all-zero last row":
+        assert want_qa == 0.0 and not got.any()
+    if case == "last row shares no column":
+        assert not want.any() and not got.any()
+    if case == "empty rows":
+        assert not got[[0, 7, 30]].any()
+
+
+@pytest.mark.parametrize("case", ["rcv1-like", "empty rows", "a row longer than the lanes"])
+def test_rows_matvec_plain_sums_each_row_in_lane_order(case):
+    """:func:`rows_matvec_plain`, what a CPU tensor runs and the kernel's
+    twin: row i's entry r * 32 + l goes to lane l in round r, and the lanes
+    are added in halves; written out here in float32 one row at a time, the
+    same bits."""
+    from plssvm_sparse_fp22_tpu_torch.ops import sparse_gram as sg
+    from utils import zipf_csr
+
+    csr = zipf_csr(300, 2000, nnz_per_row=20, seed=4).astype(np.float32)
+    if case == "empty rows":
+        csr = sp.vstack([sp.csr_matrix((3, 2000), dtype=np.float32), csr]).tocsr()
+    if case == "a row longer than the lanes":  # ten rounds of 32 and a ragged last one
+        long_row = sp.csr_matrix(np.linspace(-1.0, 1.0, 2000, dtype=np.float32)[None, :])
+        long_row.data, long_row.indices = long_row.data[:333], long_row.indices[:333]
+        long_row.indptr[1] = 333
+        csr = sp.vstack([csr, long_row]).tocsr()
+        assert np.diff(csr.indptr).max() == 333
+    x = np.random.default_rng(4).normal(size=2000).astype(np.float32)
+    counts = torch.tensor(np.diff(csr.indptr))
+    got = sg.rows_matvec(counts, torch.tensor(csr.indices).long(), torch.tensor(csr.data),
+                         torch.tensor(x), csr.shape[0] + 5)
+    want = np.zeros(csr.shape[0] + 5, np.float32)
+    for i in range(csr.shape[0]):
+        lo, hi = csr.indptr[i], csr.indptr[i + 1]
+        lanes = np.zeros(sg.ROW_LANES, np.float32)
+        for e in range(lo, hi):
+            lanes[(e - lo) % sg.ROW_LANES] += np.float32(csr.data[e] * x[csr.indices[e]])
+        while lanes.size > 1:
+            lanes = lanes[: lanes.size // 2] + lanes[lanes.size // 2:]
+        want[i] = lanes[0]
+    assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
+    assert np.allclose(want[: csr.shape[0]], csr @ x.astype(np.float64), rtol=0,
+                       atol=1e-6 * np.abs(csr @ x).max())
+
+
 # --- predict ------------------------------------------------------------------
 
 
